@@ -1,0 +1,121 @@
+"""Command-line driver of the port:
+
+    python -m map_oxidize_tpu_torch wordcount corpus.txt --top-k 10
+    python -m map_oxidize_tpu_torch kmeans points.npy --kmeans-k 256 \\
+        --kmeans-iters 10 --kmeans-precision bf16
+    python -m map_oxidize_tpu_torch wordcount corpus.txt --backend cpu
+
+Flag names and defaults are the JAX package's CLI's; ``--backend`` takes
+``cuda`` (the default, which needs a CUDA device) or ``cpu``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import sys
+
+from map_oxidize_tpu_torch.config import WORKLOADS, JobConfig
+from map_oxidize_tpu_torch.utils.logging import configure
+
+
+def _dispatch_batch_arg(v: str) -> int:
+    """``--dispatch-batch {auto,N}``: 'auto' -> 0, else a positive count."""
+    if v == "auto":
+        return 0
+    try:
+        n = int(v)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"--dispatch-batch takes 'auto' or a positive integer, got {v!r}")
+    if n < 1:
+        raise argparse.ArgumentTypeError(
+            "--dispatch-batch must be >= 1 (or 'auto')")
+    return n
+
+
+def build_parser() -> argparse.ArgumentParser:
+    from map_oxidize_tpu_torch import __version__
+
+    p = argparse.ArgumentParser(
+        prog="map_oxidize_tpu_torch",
+        description="MapReduce on PyTorch/CUDA (the port of map_oxidize_tpu)")
+    p.add_argument("--version", action="version",
+                   version=f"%(prog)s {__version__}")
+    p.add_argument("workload", choices=list(WORKLOADS),
+                   help="built-in workload to run")
+    p.add_argument("input", help="input path: a text corpus, or a .npy "
+                                 "points file for kmeans")
+    p.add_argument("--output", default="final_result.txt",
+                   help="final result path")
+    p.add_argument("--top-k", type=int, default=10,
+                   help="top-k words to report")
+    p.add_argument("--batch-size", type=int, default=1 << 20,
+                   help="device feed batch rows")
+    p.add_argument("--dispatch-batch", type=_dispatch_batch_arg, default=0,
+                   metavar="{auto,N}",
+                   help="full feed batches shipped per host->device "
+                        "transfer (auto = 1); outputs are identical at "
+                        "any value")
+    p.add_argument("--key-capacity", type=int, default=1 << 22,
+                   help="max distinct keys on device")
+    p.add_argument("--backend", choices=["cuda", "cpu"], default="cuda")
+    p.add_argument("--tokenizer", choices=["ascii", "unicode"],
+                   default="ascii")
+    p.add_argument("--mapper", choices=["auto", "device", "native", "python"],
+                   default="auto",
+                   help="map-phase placement (auto: python, the one map "
+                        "path ported so far)")
+    p.add_argument("--kmeans-k", type=int, default=16,
+                   help="k-means cluster count (init: first k points)")
+    p.add_argument("--kmeans-iters", type=int, default=1,
+                   help="k-means iterations")
+    p.add_argument("--kmeans-precision", choices=["highest", "bf16"],
+                   default="highest",
+                   help="k-means score-product precision: plain f32, or "
+                        "bf16 operands with f32 accumulation")
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument("-q", "--quiet", action="store_true")
+    return p
+
+
+def config_from_args(args: argparse.Namespace) -> JobConfig:
+    return JobConfig(
+        input_path=args.input,
+        output_path=args.output,
+        top_k=args.top_k,
+        batch_size=args.batch_size,
+        dispatch_batch=args.dispatch_batch,
+        key_capacity=args.key_capacity,
+        backend=args.backend,
+        tokenizer=args.tokenizer,
+        mapper=args.mapper,
+        kmeans_k=args.kmeans_k,
+        kmeans_iters=args.kmeans_iters,
+        kmeans_precision=args.kmeans_precision,
+    ).validate()
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    configure(logging.DEBUG if args.verbose
+              else logging.WARNING if args.quiet else logging.INFO)
+    try:
+        config = config_from_args(args)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if not os.path.isfile(config.input_path):
+        print(f"error: cannot open input {config.input_path!r}",
+              file=sys.stderr)
+        return 2
+    from map_oxidize_tpu_torch.runtime import run_job
+
+    result = run_job(config, args.workload)
+    print(result.top_report(config.top_k))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
