@@ -11,14 +11,20 @@ Phases (any failure exits non-zero, before the result line):
 
 1. card      the card's name and power limit (``nvidia-smi``);
 2. build     every kernel of the port from the checkout's sources, one
-             ``nvcc`` each, all started together;
+             ``nvcc`` each, all started together; each kernel's registers
+             and spills (``-Xptxas -v``) and its HMMA (tensor-core)
+             instruction count (``cuobjdump -sass``);
 3. kernels   each kernel against its plain version on the card at the
              k-means path's shapes, with times (CUDA events), the plain
-             version's and one PyTorch library call's time, and the bound;
+             version's and one PyTorch library call's time, the bound, and
+             the launch plan (blocks per SM, shared bytes, resident
+             centroids, partial in shared memory);
 4. kmeans    ``run_job("kmeans")`` on seeded blobs (n=2^22, d=64, k=256,
              10 iterations) in both precisions, launch counts reset just
-             before and read just after; one iteration against the NumPy
-             oracle ``kmeans_model``;
+             before and read just after; then the kernel's own time per
+             call beside the fit's ms/iter, and a ``torch.profiler`` trace
+             of two fit steps (device busy share, top device ops); one
+             iteration against the NumPy oracle ``kmeans_model``;
 5. wordcount ``run_job("wordcount")`` on a seeded Zipf corpus (~256 MB, ~1M
              mixed-case words) against a ``collections.Counter`` oracle.
 
@@ -67,16 +73,65 @@ def card_line() -> str:
 
 # --- phase 2 ----------------------------------------------------------------
 
-def build_kernels() -> None:
+def sass_counts(path, opcode: str) -> dict[str, int]:
+    """Instructions of ``opcode`` in each kernel of the built library, from
+    ``cuobjdump -sass`` of the toolkit that built it."""
+    from pathlib import Path
+
+    from map_oxidize_tpu_torch.ops import build
+
+    tool = Path(build.nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(path)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and f" {opcode}" in line:
+            counts[fn] += 1
+    return counts
+
+
+def variant(mangled: str) -> str:
+    """Readable name of a kernel from its mangled name."""
+    for tag, name in (("assign_sum_partialIfLb0", "assign_sum f32/highest"),
+                      ("assign_sum_partialIfLb1", "assign_sum f32/bf16"),
+                      ("assign_sum_partialI13__nv_bfloat16Lb1",
+                       "assign_sum bf16/bf16"),
+                      ("prep_centroids", "prep_centroids"),
+                      ("sum_partials", "sum_partials")):
+        if tag in mangled:
+            return name
+    return mangled
+
+
+def build_kernels() -> dict:
+    """Builds every kernel; logs each kernel's registers, spills and static
+    shared bytes (``-Xptxas -v``) and its HMMA (tensor-core) instruction
+    count; returns both, by variant."""
     from map_oxidize_tpu_torch.ops import build
 
     t0 = time.perf_counter()
     paths = build.build(*build.KERNELS)
     log(f"built {len(paths)} kernel(s) in {time.perf_counter() - t0:.1f} s")
+    resources = {}
     for name, text in build.build_logs.items():
+        fn = None
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"  {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                fn = variant(line.split("'")[1])
+                resources[fn] = {}
+            elif fn is not None and ("registers" in line or "spill" in line):
+                resources[fn]["ptxas"] = (resources[fn].get("ptxas", "")
+                                          + " " + line.strip()).strip()
+    for name, path in paths.items():
+        for fn, count in sass_counts(path, "HMMA").items():
+            resources.setdefault(variant(fn), {})["hmma"] = count
+    for fn, r in resources.items():
+        log(f"  {fn}: {r.get('ptxas', 'no ptxas report (cached build)')}; "
+            f"HMMA instructions {r.get('hmma', 'n/a')}")
+    return resources
 
 
 # --- phase 3 ----------------------------------------------------------------
@@ -131,6 +186,7 @@ def check_assign_sum(n: int, d: int, k: int, precision: str,
     from map_oxidize_tpu_torch.ops.kmeans_kernel import (
         fused_assign_sum,
         fused_assign_sum_plain,
+        plan,
     )
 
     dev = torch.device("cuda")
@@ -192,6 +248,10 @@ def check_assign_sum(n: int, d: int, k: int, precision: str,
     out["bound_ms"], out["bound_by"] = assign_sum_bound(n, d, k, precision,
                                                         weighted)
     out["roofline_share"] = out["bound_ms"] / out["ms"]
+    pl = plan(torch.cuda.current_device(), pdtype == torch.bfloat16,
+              precision == "bf16", n, d, k)
+    out["plan"] = {key: pl[key] for key in (
+        "grid", "blocks_per_sm", "smem_bytes", "resident", "acc_in_smem")}
     return out
 
 
@@ -211,7 +271,7 @@ def phase_kernels() -> list[dict]:
                     f"{r['plain_ms']:.3f} ms, p@c.T {r['library_ms']:.3f} "
                     f"ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}, "
                     f"{r['roofline_share']:.1%} of it reached), "
-                    f"max|dsum| {r['max_abs_err']:.3g}")
+                    f"max|dsum| {r['max_abs_err']:.3g}; {r['plan']}")
                 torch.cuda.empty_cache()
     return configs
 
@@ -271,6 +331,7 @@ def phase_kmeans(tmp: str, backend: str, n: int, d: int, k: int,
                                  f"{got.shape}")
     launches = {w.__name__: w.launches for w in wrappers}
     log(f"kmeans launches over both runs: {launches}")
+    kernel_ms = profile_fit_steps(pts, k)
 
     # one iteration against the NumPy oracle; the blobs are separated far
     # past any rounding, so the assignment is the same, and from the exact
@@ -289,9 +350,60 @@ def phase_kmeans(tmp: str, backend: str, n: int, d: int, k: int,
         log(f"kmeans {precision}: 1 and {iters} iterations match "
             f"kmeans_model (max |d| {np.abs(one - want).max():.3g})")
     os.remove(path)
-    return {"launches": launches,
-            "ms_per_iter": {p: r.metrics["time/iter_s"] / iters * 1e3
-                            for p, r in runs.items()}}
+    ms_per_iter = {p: r.metrics["time/iter_s"] / iters * 1e3
+                   for p, r in runs.items()}
+    for precision, ms in ms_per_iter.items():
+        log(f"kmeans {precision}: fit {ms:.3f} ms/iter, its kernel alone "
+            f"{kernel_ms[precision]:.3f} ms per call")
+    return {"launches": launches, "ms_per_iter": ms_per_iter,
+            "kernel_ms": kernel_ms}
+
+
+def profile_fit_steps(pts: np.ndarray, k: int) -> dict:
+    """For each precision, on the fit's device-resident points: the
+    kernel's own time per call (CUDA events), then a ``torch.profiler``
+    trace of two iterations of the fit's step (``_kmeans_step_impl``): the
+    device's busy share of the window and its top device operations.
+    Returns the kernel ms per precision."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from map_oxidize_tpu_torch.ops.kmeans_kernel import fused_assign_sum
+    from map_oxidize_tpu_torch.workloads.kmeans import _kmeans_step_impl
+
+    kernel_ms = {}
+    for precision in ("highest", "bf16"):
+        p = torch.from_numpy(pts).cuda()
+        if precision == "bf16":
+            p = p.to(torch.bfloat16)
+        c0 = p[:k].float().contiguous()
+        kernel_ms[precision] = time_ms(
+            lambda: fused_assign_sum(p, c0, k, precision), reps=10)
+        c = c0
+        for _ in range(2):  # warm
+            c = _kmeans_step_impl(c, p, k, precision)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(2):
+                c = _kmeans_step_impl(c, p, k, precision)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        # device-side entries only (kernels, copies, sets): a CPU op's
+        # device time repeats its kernels'
+        ops = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")
+               and e.self_device_time_total > 0]
+        ops.sort(key=lambda kv: -kv[1])
+        busy = sum(t for _, t in ops)
+        log(f"kmeans {precision} profile of 2 steps: wall {wall_us:.0f} us, "
+            f"device busy {busy:.0f} us ({busy / wall_us:.1%}); top device "
+            "ops: " + "; ".join(f"{name[:60]} {t:.0f} us"
+                                for name, t in ops[:6]))
+        del p, c, c0
+        torch.cuda.empty_cache()
+    return kernel_ms
 
 
 # --- phase 5 ----------------------------------------------------------------
@@ -390,7 +502,7 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
-    build_kernels()
+    resources = build_kernels()
     wrappers = [fused_assign_sum]
     configs = phase_kernels()
     with tempfile.TemporaryDirectory(prefix="moxt_smoke_") as tmp:
@@ -416,9 +528,11 @@ def main() -> int:
         "bound_by": main_cfg["bound_by"],
         "library_ms": main_cfg["library_ms"],
         "checked_against_plain": True,
+        "resources": resources,
         "configs": configs,
     }]
-    log(f"kmeans ms/iter {km['ms_per_iter']}; wordcount launches "
+    log(f"kmeans ms/iter {km['ms_per_iter']}, kernel ms per call "
+        f"{km['kernel_ms']}; wordcount launches "
         f"{wc['launches']}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

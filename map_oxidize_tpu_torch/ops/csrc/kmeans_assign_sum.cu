@@ -10,194 +10,432 @@
 // weight w (a weight multiplies the row; 0 drops it).
 //
 // Numerics per mode, as the reference's:
-//   highest  plain f32 FMA (no TF32, no tensor cores);
+//   highest  plain f32 FMA on the CUDA cores (no TF32, no tensor cores);
 //   bf16     both operands of the score product rounded to bf16, products
 //            accumulated in f32; the sums add the bf16-rounded points in f32.
 //   |c|^2 stays f32 from the f32 centroids in both modes.
 //
-// What bounds it on an H100: 2*n*k*d score FLOPs against one read of the
-// points.  On the CUDA cores (67 TFLOP/s f32) that is compute-bound at the
-// shapes the fit runs (n=2^22, d=64: 2.06 ms at k=256, 16.4 ms at k=2048).
-// In bf16 mode the bound is the tensor cores' rate or the 0.54 GB read
-// (0.16 ms at k=256); this kernel does not use the tensor cores, so it sits
-// far above that bound (wgmma is later work).
+// What bounds it on an H100: 2*n*k*d score operations against one read of
+// the points.  In `highest` that is compute-bound on the CUDA cores
+// (67 TFLOP/s f32; n=2^22, d=64: 2.06 ms at k=256, 16.4 ms at k=2048).  In
+// `bf16` the bound is the 0.54 GB read of bf16 points at k=256 (0.16 ms) and
+// the tensor cores' rate at k=2048 (1.1 ms).
 //
 // Design.  The TPU runs the Pallas grid in order and carries the (k, d+1)
 // accumulator in VMEM from step to step.  Hopper blocks run in parallel and
-// in no order, so:
-//   * a persistent grid of G blocks walks row tiles b, b+G, b+2G, ...; each
-//     block keeps its own (k, d+1) partial, in shared memory when it fits
-//     (k=256, d=64: 66.5 KB), else in its own slice of a global scratch
-//     (k=2048: 532 KB);
-//   * inside a block, each output element (c, j) is owned by exactly one
-//     thread, which adds the tile's rows in row order;
-//   * a second kernel adds the G partials in block order.
+// in no order, so a persistent grid (one 512-thread block per SM) walks
+// 128-row tiles b, b+G, b+2G, ..., and a second kernel adds the G block
+// partials in block order.  Inside a block:
+//   * a prep kernel writes the centroids once per call, zero-padded to a
+//     whole 256-centroid chunk and to 16-byte rows (pre-rounded in bf16
+//     mode), and |c|^2 (+inf on pad rows, so a pad never wins);
+//   * the centroids stay resident in shared memory when they fit (k=256,
+//     d=64: 68 KB), loaded once per block; else 256-centroid chunks stream
+//     through two buffers;
+//   * point tiles and chunks arrive by cp.async 16-byte copies (zero-fill
+//     past n), double-buffered: the next tile is in flight while this one
+//     computes.  Rows that are not 16-byte multiples take a scalar path;
+//   * shared rows have an odd number of 16-byte units, so the 8 rows read
+//     by a quarter warp fall in 8 distinct bank groups (no conflicts);
+//   * scores: 16 warps as 4 x 4, each thread an 8 x 8 register tile
+//     (rows ty+16i, centroids tx+32j), a strict < over increasing centroid,
+//     a shuffle over the 8 lanes of a row, then over the 4 warps of a row in
+//     shared memory, the lower index winning ties;
+//   * sums: warp w owns the centroids c with c % 16 == w.  For each 32-row
+//     group a ballot gives the warp its rows, which it adds in row order,
+//     the lanes covering the d+1 columns in one coalesced pass.  Every
+//     output element has one writer and adds its rows in row order.  The
+//     partial lives in shared memory when it fits, else in the block's own
+//     slice of global scratch.
 // No float atomics anywhere, so a result is bitwise the same run to run.
-// Scores: a 128-point x 128-centroid tile per step from shared memory, an
-// 8 x 8 register tile per thread, a running (min, index) per row across
-// centroid chunks, then a shuffle reduction over the 16 threads of a row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int BM = 128;             // points per tile
-constexpr int BN = 128;             // centroids per chunk
-constexpr int THREADS = 256;        // 16 x 16 threads, 8 x 8 scores each
-constexpr int LDP = BM + 4;         // shared row pitch; keeps float4 alignment
-constexpr int LDC = BN + 4;
+constexpr int BM = 128;        // points per tile
+constexpr int BN = 256;        // centroids per chunk
+constexpr int THREADS = 512;   // 16 warps: 4 (rows) x 4 (centroids)
+constexpr int NWARPS = THREADS / 32;
 constexpr size_t SMEM_LIMIT = 232448;  // opt-in dynamic shared memory, sm_90
+constexpr int MAX_DEVICES = 64;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// |c|^2 per centroid: each square rounded, then summed in index order.
-__global__ void centroid_norms(const float* __restrict__ c, int k, int d,
-                               float* __restrict__ cn) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= k) return;
-  float s = 0.f;
-  for (int t = 0; t < d; ++t) {
-    const float x = c[(size_t)i * d + t];
-    s = __fadd_rn(s, __fmul_rn(x, x));
+// --- cp.async ---------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// --- layout -----------------------------------------------------------------
+
+// Shared-memory layout of one launch; computed on the host, passed by value.
+struct Layout {
+  int d, dc;            // point width; compute width (d rounded up to 4)
+  int p_units, p_pitch;  // 16-byte units of data / of pitch per point row
+  int p_aligned;        // point rows are whole 16-byte units in memory
+  int p_lanes_lg;       // log2 of lanes per point row in a cp.async pass
+  int c_units, c_pitch;  // the same for a centroid row (always aligned)
+  int c_lanes_lg;
+  int k, k_pad, n_chunks;
+  int resident, acc_smem, pbufs, cbufs;
+  unsigned off_c, off_p, off_w, off_red, off_cid, off_acc, smem;
+};
+
+int units_pitch(int units) { return units | 1; }  // odd: no bank conflicts
+int lanes_lg(int units) {
+  int lg = 0;
+  while (lg < 5 && (1 << lg) < units) ++lg;
+  return lg;
+}
+unsigned align_up(size_t x, size_t a) {
+  return static_cast<unsigned>((x + a - 1) / a * a);
+}
+
+// Picks the first arrangement that fits, in order of preference: resident
+// centroids and shared partial, resident centroids, streamed centroids
+// with two buffers, one buffer, then one point buffer.
+bool make_layout(int d, int k, int p_bf16, Layout* L) {
+  Layout l{};
+  const int es = p_bf16 ? 2 : 4;
+  l.d = d;
+  l.dc = (d + 3) / 4 * 4;
+  l.p_units = (d * es + 15) / 16;
+  l.p_pitch = units_pitch(l.p_units);
+  l.p_aligned = (d * es) % 16 == 0;
+  l.p_lanes_lg = lanes_lg(l.p_units);
+  l.c_units = l.dc / 4;
+  l.c_pitch = units_pitch(l.c_units);
+  l.c_lanes_lg = lanes_lg(l.c_units);
+  l.k = k;
+  l.k_pad = (k + BN - 1) / BN * BN;
+  l.n_chunks = l.k_pad / BN;
+  const int options[6][4] = {  // resident, acc_smem, pbufs, cbufs
+      {1, 1, 2, 1}, {1, 0, 2, 1}, {0, 1, 2, 2},
+      {0, 0, 2, 2}, {0, 0, 2, 1}, {0, 0, 1, 1}};
+  for (const auto& o : options) {
+    l.resident = o[0];
+    l.acc_smem = o[1];
+    l.pbufs = o[2];
+    l.cbufs = o[3];
+    size_t off = 0;
+    l.off_c = 0;
+    off += (size_t)(l.resident ? l.k_pad : BN) * l.c_pitch * 16 * l.cbufs;
+    l.off_p = align_up(off, 16);
+    off = l.off_p + (size_t)BM * l.p_pitch * 16 * l.pbufs;
+    l.off_w = align_up(off, 16);
+    off = l.off_w + sizeof(float) * BM * l.pbufs;
+    l.off_red = align_up(off, 16);
+    off = l.off_red + (sizeof(float) + sizeof(int)) * 4 * BM;
+    l.off_cid = align_up(off, 16);
+    off = l.off_cid + sizeof(int) * BM;
+    l.off_acc = align_up(off, 16);
+    if (l.acc_smem) off = l.off_acc + sizeof(float) * (size_t)k * (d + 1);
+    if (off <= SMEM_LIMIT) {
+      l.smem = static_cast<unsigned>(off);
+      *L = l;
+      return true;
+    }
   }
-  cn[i] = s;
+  return false;
+}
+
+// --- prep: padded centroids and |c|^2 ----------------------------------------
+
+// cpad (k_pad, dc) f32: c, rounded to bf16 in bf16 mode, zero past (k, d);
+// cn (k_pad,): |c|^2 of the f32 centroids (each square rounded, summed in
+// index order), +inf past k.
+__global__ void prep_centroids(const float* __restrict__ c, int k, int d,
+                               int k_pad, int dc, int bf16,
+                               float* __restrict__ cpad,
+                               float* __restrict__ cn) {
+  const int row = blockIdx.x;
+  float s = 0.f;
+  for (int t = threadIdx.x; t < dc; t += blockDim.x) {
+    const float x = row < k && t < d ? c[(size_t)row * d + t] : 0.f;
+    cpad[(size_t)row * dc + t] = bf16 ? round_bf16(x) : x;
+  }
+  if (threadIdx.x == 0) {
+    if (row < k) {
+      for (int t = 0; t < d; ++t) {
+        const float x = c[(size_t)row * d + t];
+        s = __fadd_rn(s, __fmul_rn(x, x));
+      }
+    } else {
+      s = INFINITY;  // a pad centroid never wins
+    }
+    cn[row] = s;
+  }
+}
+
+// --- the assign + sum kernel -------------------------------------------------
+
+__device__ __forceinline__ float4 load4(const float* q) {
+  return *reinterpret_cast<const float4*>(q);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* q) {
+  const uint2 u = *reinterpret_cast<const uint2*>(q);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ float load1(const float* q) { return *q; }
+__device__ __forceinline__ float load1(const __nv_bfloat16* q) {
+  return __bfloat162float(*q);
+}
+
+// Copies `rows` rows of `units` 16-byte units from global (row stride
+// `gstride` bytes) into shared (pitch `pitch` units); rows at or past
+// `valid_rows` are zero-filled.  Lanes split into 2^lg lanes per row.
+__device__ __forceinline__ void copy_rows_async(char* dst, int pitch,
+                                                const char* src,
+                                                size_t gstride, int rows,
+                                                int valid_rows, int units,
+                                                int lg) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per_warp = 32 >> lg;
+  const int q0 = lane & ((1 << lg) - 1);
+  for (int r = warp * per_warp + (lane >> lg); r < rows;
+       r += NWARPS * per_warp) {
+    const bool ok = r < valid_rows;
+    const char* g = src + (ok ? (size_t)r * gstride : 0);
+    char* s = dst + (size_t)r * pitch * 16;
+    for (int q = q0; q < units; q += 1 << lg) cp_async16(s + q * 16, g + q * 16, ok);
+  }
 }
 
 template <typename PT, bool BF16>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 assign_sum_partial(const PT* __restrict__ p, const float* __restrict__ w,
-                   const float* __restrict__ c, const float* __restrict__ cn,
-                   int n, int d, int k, int acc_in_smem,
+                   const float* __restrict__ cpad,
+                   const float* __restrict__ cn, int n, const Layout L,
                    float* __restrict__ partials) {
-  extern __shared__ __align__(16) float smem[];
-  float* ps = smem;                // [d][LDP] points tile, transposed
-  float* cs = ps + d * LDP;        // [d][LDC] centroid chunk, transposed
-  float* cns = cs + d * LDC;       // [BN] |c|^2 of the chunk
-  float* ws = cns + BN;            // [BM] row weights, 0 past n
-  int* cid = reinterpret_cast<int*>(ws + BM);  // [BM] assignments
-  const int W = d + 1;
-  float* acc = acc_in_smem ? reinterpret_cast<float*>(cid + BM)
-                           : partials + (size_t)blockIdx.x * k * W;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;         // centroid columns tx*4.., 64+tx*4..
-  const int ty = tid >> 4;         // point rows ty*4.., 64+ty*4..
+  extern __shared__ __align__(16) char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int d = L.d, W = d + 1;
+  const int ty = (warp >> 2) * 4 + (lane >> 3);  // rows ty + 16 i
+  const int tx = (warp & 3) * 8 + (lane & 7);    // centroids tx + 32 j
+  float* red_v = reinterpret_cast<float*>(smem + L.off_red);  // [4][BM]
+  int* red_i = reinterpret_cast<int*>(red_v + 4 * BM);        // [4][BM]
+  int* cid = reinterpret_cast<int*>(smem + L.off_cid);        // [BM]
+  float* acc = L.acc_smem ? reinterpret_cast<float*>(smem + L.off_acc)
+                          : partials + (size_t)blockIdx.x * L.k * W;
+  const size_t c_chunk = (size_t)BN * L.c_pitch * 16;  // bytes of a chunk
+  const size_t p_tile = (size_t)BM * L.p_pitch * 16;
   const int n_tiles = (n + BM - 1) / BM;
-  const int groups = THREADS / W > 0 ? THREADS / W : 1;
+  const int my_tiles =
+      blockIdx.x < n_tiles ? (n_tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int steps = my_tiles * L.n_chunks;
 
-  for (int i = tid; i < k * W; i += THREADS) acc[i] = 0.f;
+  for (int i = tid; i < L.k * W; i += THREADS) acc[i] = 0.f;
 
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = tile * BM;
-    __syncthreads();  // the previous tile's accumulation is done with ps/cid
-    for (int i = tid; i < BM * d; i += THREADS) {
-      const int r = i / d, t = i - r * d;
-      const float x =
-          row0 + r < n ? to_f32(p[(size_t)(row0 + r) * d + t]) : 0.f;
-      ps[t * LDP + r] = BF16 ? round_bf16(x) : x;
-    }
-    for (int r = tid; r < BM; r += THREADS)
-      ws[r] = row0 + r < n ? (w != nullptr ? w[row0 + r] : 1.f) : 0.f;
-
-    float best[8];
-    int arg[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      best[i] = INFINITY;
-      arg[i] = 0;
-    }
-
-    for (int c0 = 0; c0 < k; c0 += BN) {
-      __syncthreads();  // ps is ready; the previous chunk is no longer read
-      for (int i = tid; i < BN * d; i += THREADS) {
-        const int j = i / d, t = i - j * d;
-        const float x = c0 + j < k ? c[(size_t)(c0 + j) * d + t] : 0.f;
-        cs[t * LDC + j] = BF16 ? round_bf16(x) : x;
+  // loads for step s: the point tile (and its weights) when s starts a
+  // tile, the centroid chunk when streaming.  `early` issues the parts
+  // whose buffer is not the one step s-1 reads (double-buffered), the
+  // others go after step s-1 is done with their buffer.
+  auto issue = [&](int s, bool early) {
+    const int ti = s / L.n_chunks, ch = s - ti * L.n_chunks;
+    if (ch == 0 && (L.pbufs == 2) == early) {
+      const int row0 = (blockIdx.x + ti * gridDim.x) * BM;
+      const int valid = n - row0;
+      char* dst = smem + L.off_p + (ti % L.pbufs) * p_tile;
+      const char* src = reinterpret_cast<const char*>(p + (size_t)row0 * d);
+      if (L.p_aligned) {
+        copy_rows_async(dst, L.p_pitch, src, (size_t)d * sizeof(PT), BM,
+                        valid, L.p_units, L.p_lanes_lg);
+      } else {  // rows not in whole 16-byte units: element by element
+        const int de = L.p_units * 16 / (int)sizeof(PT);
+        for (int r = warp; r < BM; r += NWARPS) {
+          PT* srow = reinterpret_cast<PT*>(dst + (size_t)r * L.p_pitch * 16);
+          const PT* grow = p + (size_t)(row0 + r) * d;
+          for (int t = lane; t < de; t += 32)
+            srow[t] = r < valid && t < d ? grow[t] : PT(0.f);
+        }
       }
-      for (int j = tid; j < BN; j += THREADS)
-        cns[j] = c0 + j < k ? cn[c0 + j] : INFINITY;  // pad never wins
-      __syncthreads();
-
-      float s[8][8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-      for (int t = 0; t < d; ++t) {
-        const float4 a0 = *reinterpret_cast<const float4*>(ps + t * LDP + ty * 4);
-        const float4 a1 =
-            *reinterpret_cast<const float4*>(ps + t * LDP + 64 + ty * 4);
-        const float4 b0 = *reinterpret_cast<const float4*>(cs + t * LDC + tx * 4);
-        const float4 b1 =
-            *reinterpret_cast<const float4*>(cs + t * LDC + 64 + tx * 4);
-        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+      float* ws = reinterpret_cast<float*>(smem + L.off_w) +
+                  (ti % L.pbufs) * BM;
+      for (int r = tid; r < BM; r += THREADS) {
+        if (w != nullptr)
+          cp_async4(ws + r, w + (r < valid ? row0 + r : 0), r < valid);
+        else
+          ws[r] = r < valid ? 1.f : 0.f;
       }
-      // this thread's columns in increasing centroid order: a strict < keeps
-      // the first minimum.  -2*s is exact, so one rounding, as -2.0*dot + cn.
+    }
+    if (!L.resident && (L.cbufs == 2) == early) {
+      copy_rows_async(smem + L.off_c + (s % L.cbufs) * c_chunk, L.c_pitch,
+                      reinterpret_cast<const char*>(cpad + (size_t)ch * BN * L.dc),
+                      (size_t)L.dc * 4, BN, BN, L.c_units, L.c_lanes_lg);
+    }
+    cp_async_commit();
+  };
+
+  if (L.resident && steps > 0)
+    copy_rows_async(smem + L.off_c, L.c_pitch,
+                    reinterpret_cast<const char*>(cpad), (size_t)L.dc * 4,
+                    L.k_pad, L.k_pad, L.c_units, L.c_lanes_lg);
+  if (steps > 0) {
+    issue(0, true);
+    issue(0, false);
+  }
+
+  float best[8];
+  int arg[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    best[i] = INFINITY;
+    arg[i] = 0;
+  }
+  for (int s = 0, ti = 0, ch = 0; s < steps; ++s) {
+    cp_async_wait_all();
+    __syncthreads();  // step s's data landed; step s-1 is done everywhere
+    if (s + 1 < steps) issue(s + 1, true);
+
+    const PT* pt = reinterpret_cast<const PT*>(smem + L.off_p +
+                                               (ti % L.pbufs) * p_tile);
+    const float* cb = reinterpret_cast<const float*>(
+        smem + L.off_c + (L.resident ? ch * c_chunk : (s % L.cbufs) * c_chunk));
+    const int pp = L.p_pitch * 16 / (int)sizeof(PT);  // pitch in elements
+    const int cp = L.c_pitch * 4;
+    float sc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sc[i][j] = 0.f;
+    for (int t = 0; t < L.dc; t += 4) {
+      float4 a[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        a[i] = load4(pt + (ty + 16 * i) * pp + t);
+        if (BF16) {
+          a[i].x = round_bf16(a[i].x);
+          a[i].y = round_bf16(a[i].y);
+          a[i].z = round_bf16(a[i].z);
+          a[i].w = round_bf16(a[i].w);
+        }
+      }
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const int col = tx * 4 + j + (j < 4 ? 0 : 60);
-        const float norm = cns[col];
+        const float4 b = load4(cb + (tx + 32 * j) * cp + t);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float v = fmaf(-2.f, s[i][j], norm);
-          if (v < best[i]) {
-            best[i] = v;
-            arg[i] = c0 + col;
+        for (int i = 0; i < 8; ++i)
+          sc[i][j] = fmaf(a[i].w, b.w,
+                          fmaf(a[i].z, b.z,
+                               fmaf(a[i].y, b.y, fmaf(a[i].x, b.x, sc[i][j]))));
+      }
+    }
+    // this thread's centroids in increasing order: a strict < keeps the
+    // first minimum.  -2*s is exact, so one rounding, as -2.0*dot + cn.
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = ch * BN + tx + 32 * j;
+      const float norm = __ldg(cn + col);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float v = fmaf(-2.f, sc[i][j], norm);
+        if (v < best[i]) {
+          best[i] = v;
+          arg[i] = col;
+        }
+      }
+    }
+
+    if (ch == L.n_chunks - 1) {
+      // the 8 lanes of a row in this warp, then the 4 warps of a row
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int off = 4; off > 0; off >>= 1) {
+          const float ob = __shfl_xor_sync(0xffffffffu, best[i], off);
+          const int oa = __shfl_xor_sync(0xffffffffu, arg[i], off);
+          if (ob < best[i] || (ob == best[i] && oa < arg[i])) {
+            best[i] = ob;
+            arg[i] = oa;
           }
         }
+        if ((lane & 7) == 0) {
+          red_v[(warp & 3) * BM + ty + 16 * i] = best[i];
+          red_i[(warp & 3) * BM + ty + 16 * i] = arg[i];
+        }
+        best[i] = INFINITY;
+        arg[i] = 0;
       }
-    }
-    // the 16 threads sharing a row are 16 lanes of one warp: reduce over them,
-    // the lower index winning a tie
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) {
-        const float ob = __shfl_xor_sync(0xffffffffu, best[i], off);
-        const int oa = __shfl_xor_sync(0xffffffffu, arg[i], off);
-        if (ob < best[i] || (ob == best[i] && oa < arg[i])) {
-          best[i] = ob;
-          arg[i] = oa;
+      __syncthreads();
+      for (int r = tid; r < BM; r += THREADS) {
+        float bv = red_v[r];
+        int bi = red_i[r];
+        for (int g = 1; g < 4; ++g) {
+          const float v = red_v[g * BM + r];
+          const int ix = red_i[g * BM + r];
+          if (v < bv || (v == bv && ix < bi)) {
+            bv = v;
+            bi = ix;
+          }
+        }
+        cid[r] = bi;
+      }
+      __syncthreads();
+
+      // warp `warp` adds the rows of its centroids (c % 16 == warp), in
+      // row order, lanes over the d+1 columns
+      const float* ws = reinterpret_cast<const float*>(smem + L.off_w) +
+                        (ti % L.pbufs) * BM;
+      for (int g = 0; g < BM; g += 32) {
+        const int cc = cid[g + lane];
+        const float wr = ws[g + lane];
+        unsigned mine = __ballot_sync(
+            0xffffffffu, wr != 0.f && (cc & (NWARPS - 1)) == warp);
+        while (mine) {
+          const int b = __ffs(mine) - 1;
+          mine &= mine - 1;
+          const int c2 = __shfl_sync(0xffffffffu, cc, b);
+          const float w2 = __shfl_sync(0xffffffffu, wr, b);
+          const PT* prow = pt + (g + b) * pp;
+          float* arow = acc + (size_t)c2 * W;
+          for (int j = lane; j < d; j += 32) {
+            const float x = BF16 ? round_bf16(load1(prow + j)) : load1(prow + j);
+            arow[j] += __fmul_rn(x, w2);
+          }
+          if (lane == 0) arow[d] += w2;
         }
       }
     }
-    if (tx == 0) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        cid[ty * 4 + i + (i < 4 ? 0 : 60)] = arg[i];
-    }
-    __syncthreads();
 
-    // (centroid c, column j) belongs to thread (c % groups, j): one writer
-    // per element, rows added in order
-    for (int e = tid; e < groups * W; e += THREADS) {
-      const int g = e / W, j = e - g * W;
-      for (int r = 0; r < BM; ++r) {
-        const float wr = ws[r];
-        const int cc = cid[r];
-        if (wr == 0.f || cc % groups != g) continue;
-        acc[(size_t)cc * W + j] += j < d ? ps[j * LDP + r] * wr : wr;
-      }
+    if (s + 1 < steps && (L.pbufs == 1 || (!L.resident && L.cbufs == 1))) {
+      __syncthreads();  // step s no longer reads the single buffers
+      issue(s + 1, false);
+    }
+    if (++ch == L.n_chunks) {
+      ch = 0;
+      ++ti;
     }
   }
-  if (acc_in_smem) {
+  if (L.acc_smem) {
     __syncthreads();
-    float* out = partials + (size_t)blockIdx.x * k * W;
-    for (int i = tid; i < k * W; i += THREADS) out[i] = acc[i];
+    float* out = partials + (size_t)blockIdx.x * L.k * W;
+    for (int i = tid; i < L.k * W; i += THREADS) out[i] = acc[i];
   }
 }
 
@@ -211,52 +449,124 @@ __global__ void sum_partials(const float* __restrict__ partials, int blocks,
   out[e] = s;
 }
 
+// Shared bytes already granted to a kernel, per device: the attribute is
+// set once per kernel and size, not on every launch.
 template <typename PT, bool BF16>
-cudaError_t launch_partial(const void* p, const float* w, const float* c,
-                           const float* cn, int n, int d, int k, int grid,
-                           float* partials, cudaStream_t stream) {
-  const size_t base = sizeof(float) * ((size_t)d * (LDP + LDC) + BN + BM) +
-                      sizeof(int) * BM;
-  const size_t acc = sizeof(float) * (size_t)k * (d + 1);
-  const int in_smem = base + acc <= SMEM_LIMIT;
-  const size_t bytes = in_smem ? base + acc : base;
-  if (bytes > SMEM_LIMIT) return cudaErrorInvalidValue;  // d too wide
-  cudaError_t err = cudaFuncSetAttribute(
+cudaError_t allow_smem(int device, unsigned bytes) {
+  static unsigned granted[MAX_DEVICES] = {};
+  if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (bytes <= granted[device]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
       assign_sum_partial<PT, BF16>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) granted[device] = bytes;
+  return err;
+}
+
+template <typename PT, bool BF16>
+cudaError_t occupancy(int device, const Layout& L, int* blocks_per_sm) {
+  cudaError_t err = allow_smem<PT, BF16>(device, L.smem);
   if (err != cudaSuccess) return err;
-  assign_sum_partial<PT, BF16><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const PT*>(p), w, c, cn, n, d, k, in_smem, partials);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, assign_sum_partial<PT, BF16>, THREADS, L.smem);
+}
+
+template <typename PT, bool BF16>
+cudaError_t launch_partial(int device, const void* p, const float* w,
+                           const float* cpad, const float* cn, int n,
+                           const Layout& L, int grid, float* partials,
+                           cudaStream_t stream) {
+  cudaError_t err = allow_smem<PT, BF16>(device, L.smem);
+  if (err != cudaSuccess) return err;
+  assign_sum_partial<PT, BF16><<<grid, THREADS, L.smem, stream>>>(
+      static_cast<const PT*>(p), w, cpad, cn, n, L, partials);
   return cudaGetLastError();
+}
+
+// scratch: cn (k_pad f32), cpad (k_pad x dc f32), partials (grid x k x d+1)
+size_t scratch_bytes(const Layout& L, int grid) {
+  return align_up(sizeof(float) * L.k_pad, 256) +
+         align_up(sizeof(float) * (size_t)L.k_pad * L.dc, 256) +
+         sizeof(float) * (size_t)grid * L.k * (L.d + 1);
 }
 
 }  // namespace
 
 extern "C" {
 
+// The launch plan for (n, d, k) on `device`: out[0] grid, out[1] blocks
+// per SM, out[2] shared bytes per block, out[3] centroids resident,
+// out[4] partial in shared memory, out[5] scratch bytes, out[6] point
+// buffers, out[7] centroid buffers.  Returns a CUDA error (0 = ok;
+// cudaErrorInvalidValue when d is too wide for shared memory).
+int moxt_kmeans_plan(int device, int p_bf16, int bf16_mode, int n, int d,
+                     int k, long long* out) {
+  if (n < 0 || d <= 0 || k <= 0 || (p_bf16 && !bf16_mode))
+    return cudaErrorInvalidValue;
+  Layout L;
+  if (!make_layout(d, k, p_bf16, &L)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  int sms = 0, bps = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  if (p_bf16)
+    err = occupancy<__nv_bfloat16, true>(device, L, &bps);
+  else if (bf16_mode)
+    err = occupancy<float, true>(device, L, &bps);
+  else
+    err = occupancy<float, false>(device, L, &bps);
+  if (err != cudaSuccess) return err;
+  if (bps < 1) return cudaErrorInvalidConfiguration;
+  const long long tiles = ((long long)n + BM - 1) / BM;
+  const long long grid = tiles < (long long)sms * bps ? (tiles > 0 ? tiles : 1)
+                                                      : (long long)sms * bps;
+  out[0] = grid;
+  out[1] = bps;
+  out[2] = L.smem;
+  out[3] = L.resident;
+  out[4] = L.acc_smem;
+  out[5] = (long long)scratch_bytes(L, (int)grid);
+  out[6] = L.pbufs;
+  out[7] = L.resident ? 0 : L.cbufs;
+  return 0;
+}
+
 // p: (n, d) f32, or bf16 when p_bf16 (bf16 mode only); w: (n,) f32 or null;
-// c: (k, d) f32.  Scratch: cn (k,) f32, partials (grid, k, d+1) f32.
-// out: (k, d+1) f32.  Launches on `stream` and does not synchronise.
-// Returns the first CUDA error (0 = launched).
+// c: (k, d) f32; grid from moxt_kmeans_plan; scratch of the plan's bytes,
+// 256-byte aligned.  out: (k, d+1) f32.  Launches on `stream` and does not
+// synchronise.  Returns the first CUDA error (0 = launched).
 int moxt_kmeans_assign_sum(int device, const void* p, int p_bf16,
                            int bf16_mode, const float* w, const float* c,
-                           int n, int d, int k, int grid, float* cn,
-                           float* partials, float* out, void* stream) {
+                           int n, int d, int k, int grid, void* scratch,
+                           float* out, void* stream) {
   if (n < 0 || d <= 0 || k <= 0 || grid <= 0 || (p_bf16 && !bf16_mode))
     return cudaErrorInvalidValue;
+  Layout L;
+  if (!make_layout(d, k, p_bf16, &L)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  centroid_norms<<<(k + 255) / 256, 256, 0, s>>>(c, k, d, cn);
+  char* base = static_cast<char*>(scratch);
+  float* cn = reinterpret_cast<float*>(base);
+  float* cpad =
+      reinterpret_cast<float*>(base + align_up(sizeof(float) * L.k_pad, 256));
+  float* partials = reinterpret_cast<float*>(
+      reinterpret_cast<char*>(cpad) +
+      align_up(sizeof(float) * (size_t)L.k_pad * L.dc, 256));
+  prep_centroids<<<L.k_pad, 128, 0, s>>>(c, k, d, L.k_pad, L.dc, bf16_mode,
+                                         cpad, cn);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (p_bf16)
-    err = launch_partial<__nv_bfloat16, true>(p, w, c, cn, n, d, k, grid,
-                                              partials, s);
+    err = launch_partial<__nv_bfloat16, true>(device, p, w, cpad, cn, n, L,
+                                              grid, partials, s);
   else if (bf16_mode)
-    err = launch_partial<float, true>(p, w, c, cn, n, d, k, grid, partials, s);
+    err = launch_partial<float, true>(device, p, w, cpad, cn, n, L, grid,
+                                      partials, s);
   else
-    err = launch_partial<float, false>(p, w, c, cn, n, d, k, grid, partials, s);
+    err = launch_partial<float, false>(device, p, w, cpad, cn, n, L, grid,
+                                       partials, s);
   if (err != cudaSuccess) return err;
   const int kw = k * (d + 1);
   sum_partials<<<(kw + 255) / 256, 256, 0, s>>>(partials, grid, kw, out);

@@ -94,11 +94,39 @@ def _library() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.moxt_kmeans_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.moxt_kmeans_plan.restype = ctypes.c_int
     lib.moxt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.moxt_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+_PLAN_KEYS = ("grid", "blocks_per_sm", "smem_bytes", "resident",
+              "acc_in_smem", "scratch_bytes", "point_buffers",
+              "centroid_buffers")
+
+
+@functools.lru_cache(maxsize=64)
+def plan(device: int, p_bf16: bool, bf16_mode: bool, n: int, d: int,
+         k: int) -> dict:
+    """The kernel's launch plan for these shapes on CUDA device ``device``
+    (cached: the SM count, the occupancy query and the shared-memory
+    attribute cost nothing on later calls): ``grid`` (one persistent block
+    per resident slot, at most one per tile), ``blocks_per_sm``,
+    ``smem_bytes``, whether the centroids stay ``resident`` in shared
+    memory and the partial sum ``acc_in_smem``, ``scratch_bytes``, and the
+    point and centroid buffers.  Raises when the kernel cannot take ``d``."""
+    lib = _library()
+    out = (ctypes.c_longlong * len(_PLAN_KEYS))()
+    rc = lib.moxt_kmeans_plan(device, int(p_bf16), int(bf16_mode), n, d, k,
+                              out)
+    if rc != 0:
+        raise RuntimeError(
+            f"kmeans_assign_sum launch failed (n={n}, d={d}, k={k}): "
+            f"{lib.moxt_cuda_error_string(rc).decode()}")
+    return dict(zip(_PLAN_KEYS, out))
 
 
 def fused_assign_sum(p, c, k: int, precision: str = "highest", w=None):
@@ -116,18 +144,19 @@ def fused_assign_sum(p, c, k: int, precision: str = "highest", w=None):
     _check(p, c, k, precision, w)
     n, d = p.shape
     dev = p.device
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid = max(1, min(-(-n // TILE_N), 2 * sms))
-    cn = torch.empty(k, dtype=torch.float32, device=dev)
-    partials = torch.empty((grid, k, d + 1), dtype=torch.float32, device=dev)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    p_bf16 = p.dtype == torch.bfloat16
+    bf16_mode = precision == "bf16"
+    pl = plan(index, p_bf16, bf16_mode, n, d, k)
+    # the caching allocator hands these back without a device allocation
+    scratch = torch.empty(pl["scratch_bytes"], dtype=torch.uint8, device=dev)
     out = torch.empty((k, d + 1), dtype=torch.float32, device=dev)
     lib = _library()
     rc = lib.moxt_kmeans_assign_sum(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        p.data_ptr(), int(p.dtype == torch.bfloat16),
-        int(precision == "bf16"), None if w is None else w.data_ptr(),
-        c.data_ptr(), n, d, k, grid, cn.data_ptr(), partials.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        index, p.data_ptr(), int(p_bf16), int(bf16_mode),
+        None if w is None else w.data_ptr(), c.data_ptr(), n, d, k,
+        pl["grid"], scratch.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"kmeans_assign_sum launch failed (n={n}, d={d}, k={k}): "

@@ -11,8 +11,10 @@ import torch
 
 from map_oxidize_tpu_torch.config import JobConfig
 from map_oxidize_tpu_torch.ops.kmeans_kernel import (
+    TILE_N,
     fused_assign_sum,
     fused_assign_sum_plain,
+    plan,
 )
 from map_oxidize_tpu_torch.runtime import run_job
 
@@ -29,10 +31,20 @@ def cuda():
     return torch.device("cuda")
 
 
-# (n, d, k): ragged tails, k off the 128-centroid chunk, a d whose partial
-# does not fit shared memory at k=2048, one-row and tiny inputs
+# the largest k at d=64 whose centroids stay resident in shared memory, and
+# the next k, which streams them, per mode
+RESIDENT_EDGE = {"highest": (512, 513), "bf16": (512, 513)}
+
+# (n, d, k): ragged tails, k off the centroid chunk, a d whose partial
+# does not fit shared memory at k=2048, one-row and tiny inputs; bf16 rows
+# that are not whole 16-byte units while f32 rows are (d=20); k on both
+# sides of the resident limit; k off the mma N-tile of 8; n under one tile
+# and n an exact multiple of the tile
 SHAPES = [(2048 + 777, 16, 32), (1000, 64, 200), (5000, 64, 2048),
-          (300, 130, 7), (1, 3, 1), (129, 1, 5)]
+          (300, 130, 7), (1, 3, 1), (129, 1, 5),
+          (3000, 20, 64), (700, 64, 512), (700, 64, 513), (700, 64, 1280),
+          (700, 64, 1281), (2000, 64, 1000), (50, 64, 256),
+          (20 * TILE_N, 64, 256)]
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -73,18 +85,33 @@ def test_kernel_matches_plain_on_normal_inputs(cuda, precision):
     torch.testing.assert_close(s1, s2, rtol=1e-5, atol=1e-4)
 
 
-def test_kernel_is_deterministic_and_refuses_what_it_cannot_take(cuda):
+@pytest.mark.parametrize("precision", ["highest", "bf16"])
+def test_resident_limit_sits_between_the_tested_k(cuda, precision):
+    """The SHAPES cases at RESIDENT_EDGE run both centroid paths."""
+    lo, hi = RESIDENT_EDGE[precision]
+    index = torch.cuda.current_device()
+    bf16 = precision == "bf16"
+    assert plan(index, bf16, bf16, 700, 64, lo)["resident"]
+    assert not plan(index, bf16, bf16, 700, 64, hi)["resident"]
+
+
+@pytest.mark.parametrize("precision,k", [("highest", 300), ("highest", 2048),
+                                         ("bf16", 300), ("bf16", 2048)])
+def test_kernel_is_deterministic_and_refuses_what_it_cannot_take(
+        cuda, precision, k):
     g = torch.Generator(device=cuda).manual_seed(5)
     p = torch.randn(50_000, 64, generator=g, device=cuda)
-    c = torch.randn(300, 64, generator=g, device=cuda)
-    a = fused_assign_sum(p, c, 300)
-    b = fused_assign_sum(p, c, 300)
+    c = torch.randn(k, 64, generator=g, device=cuda)
+    if precision == "bf16":
+        p = p.to(torch.bfloat16)
+    a = fused_assign_sum(p, c, k, precision)
+    b = fused_assign_sum(p, c, k, precision)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     with pytest.raises(RuntimeError, match="launch failed"):
         wide = torch.randn(10, 400, device=cuda)
         fused_assign_sum(wide, wide[:2].contiguous(), 2)
     with pytest.raises(ValueError, match="centroids"):
-        fused_assign_sum(p, c.double(), 300)
+        fused_assign_sum(p, c.double(), k, precision)
 
 
 def test_wordcount_and_kmeans_on_the_card_match_the_cpu(cuda, tmp_path):
