@@ -99,7 +99,9 @@ def variant(mangled: str) -> str:
                       ("assign_sum_partialIfLb1", "assign_sum f32/bf16"),
                       ("assign_sum_partialI13__nv_bfloat16Lb1",
                        "assign_sum bf16/bf16"),
-                      ("prep_centroids", "prep_centroids"),
+                      ("prep_centroidsIf", "prep_centroids f32"),
+                      ("prep_centroidsI13__nv_bfloat16",
+                       "prep_centroids bf16"),
                       ("sum_partials", "sum_partials")):
         if tag in mangled:
             return name

@@ -55,6 +55,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int BM = 128;        // points per tile
@@ -63,10 +65,6 @@ constexpr int THREADS = 512;   // 16 warps: 4 (rows) x 4 (centroids)
 constexpr int NWARPS = THREADS / 32;
 constexpr size_t SMEM_LIMIT = 232448;  // opt-in dynamic shared memory, sm_90
 constexpr int MAX_DEVICES = 64;
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 // --- cp.async ---------------------------------------------------------------
 
@@ -92,12 +90,14 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // --- layout -----------------------------------------------------------------
 
 // Shared-memory layout of one launch; computed on the host, passed by value.
+// Shared tiles hold f32 in `highest` and bf16 in `bf16` mode.
 struct Layout {
-  int d, dc;            // point width; compute width (d rounded up to 4)
-  int p_units, p_pitch;  // 16-byte units of data / of pitch per point row
-  int p_aligned;        // point rows are whole 16-byte units in memory
-  int p_lanes_lg;       // log2 of lanes per point row in a cp.async pass
-  int c_units, c_pitch;  // the same for a centroid row (always aligned)
+  int d, dc;             // point width; compute width (zero-padded: d
+                         // rounded up to 4 f32, or to 16 bf16 for the mma)
+  int p_units, p_pitch;  // 16-byte units of a shared point row / its pitch
+  int p_copy_units;      // units copied by cp.async; 0: element path
+  int p_lanes_lg;        // log2 of lanes per row in a cp.async pass
+  int c_units, c_pitch;  // the same for a centroid row (always cp.async)
   int c_lanes_lg;
   int k, k_pad, n_chunks;
   int resident, acc_smem, pbufs, cbufs;
@@ -117,18 +117,20 @@ unsigned align_up(size_t x, size_t a) {
 // Picks the first arrangement that fits, in order of preference: resident
 // centroids and shared partial, resident centroids, streamed centroids
 // with two buffers, one buffer, then one point buffer.
-bool make_layout(int d, int k, int p_bf16, Layout* L) {
+bool make_layout(int d, int k, int p_bf16, int bf16_mode, Layout* L) {
   Layout l{};
-  const int es = p_bf16 ? 2 : 4;
+  const int es = bf16_mode ? 2 : 4;  // bytes of a shared element
   l.d = d;
-  l.dc = (d + 3) / 4 * 4;
-  l.p_units = (d * es + 15) / 16;
+  l.dc = bf16_mode ? (d + 15) / 16 * 16 : (d + 3) / 4 * 4;
+  l.p_units = l.dc * es / 16;
   l.p_pitch = units_pitch(l.p_units);
-  l.p_aligned = (d * es) % 16 == 0;
+  // rows of the input type in whole 16-byte units copy as they are
+  const bool same_type = bf16_mode == p_bf16;
+  l.p_copy_units = same_type && (d * es) % 16 == 0 ? d * es / 16 : 0;
   l.p_lanes_lg = lanes_lg(l.p_units);
-  l.c_units = l.dc / 4;
-  l.c_pitch = units_pitch(l.c_units);
-  l.c_lanes_lg = lanes_lg(l.c_units);
+  l.c_units = l.p_units;
+  l.c_pitch = l.p_pitch;
+  l.c_lanes_lg = l.p_lanes_lg;
   l.k = k;
   l.k_pad = (k + BN - 1) / BN * BN;
   l.n_chunks = l.k_pad / BN;
@@ -164,20 +166,27 @@ bool make_layout(int d, int k, int p_bf16, Layout* L) {
 
 // --- prep: padded centroids and |c|^2 ----------------------------------------
 
-// cpad (k_pad, dc) f32: c, rounded to bf16 in bf16 mode, zero past (k, d);
-// cn (k_pad,): |c|^2 of the f32 centroids (each square rounded, summed in
-// index order), +inf past k.
+__device__ __forceinline__ void store(float* q, float x) { *q = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* q, float x) {
+  *q = __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ void store(__nv_bfloat16* q, __nv_bfloat16 x) {
+  *q = x;
+}
+
+// cpad (k_pad, dc) of the shared type ST: c (rounded to bf16 in bf16 mode),
+// zero past (k, d); cn (k_pad,): |c|^2 of the f32 centroids (each square
+// rounded, summed in index order), +inf past k.
+template <typename ST>
 __global__ void prep_centroids(const float* __restrict__ c, int k, int d,
-                               int k_pad, int dc, int bf16,
-                               float* __restrict__ cpad,
+                               int dc, ST* __restrict__ cpad,
                                float* __restrict__ cn) {
   const int row = blockIdx.x;
-  float s = 0.f;
-  for (int t = threadIdx.x; t < dc; t += blockDim.x) {
-    const float x = row < k && t < d ? c[(size_t)row * d + t] : 0.f;
-    cpad[(size_t)row * dc + t] = bf16 ? round_bf16(x) : x;
-  }
+  for (int t = threadIdx.x; t < dc; t += blockDim.x)
+    store(cpad + (size_t)row * dc + t,
+          row < k && t < d ? c[(size_t)row * d + t] : 0.f);
   if (threadIdx.x == 0) {
+    float s = 0.f;
     if (row < k) {
       for (int t = 0; t < d; ++t) {
         const float x = c[(size_t)row * d + t];
@@ -190,31 +199,159 @@ __global__ void prep_centroids(const float* __restrict__ c, int k, int d,
   }
 }
 
-// --- the assign + sum kernel -------------------------------------------------
+// --- scores ------------------------------------------------------------------
 
-__device__ __forceinline__ float4 load4(const float* q) {
-  return *reinterpret_cast<const float4*>(q);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* q) {
-  const uint2 u = *reinterpret_cast<const uint2*>(q);
-  return make_float4(__uint_as_float(u.x << 16),
-                     __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16),
-                     __uint_as_float(u.y & 0xffff0000u));
-}
 __device__ __forceinline__ float load1(const float* q) { return *q; }
 __device__ __forceinline__ float load1(const __nv_bfloat16* q) {
   return __bfloat162float(*q);
 }
 
+// running first-index minimum: a strict < as the centroids increase
+__device__ __forceinline__ void take_min(float v, int col, float& best,
+                                         int& arg) {
+  if (v < best) {
+    best = v;
+    arg = col;
+  }
+}
+// the lower index wins a tie: for values met in no particular order
+__device__ __forceinline__ void merge_min(float v, int col, float& best,
+                                          int& arg) {
+  if (v < best || (v == best && col < arg)) {
+    best = v;
+    arg = col;
+  }
+}
+
+// highest: f32 FMA on the CUDA cores.  Thread (ty, tx) holds the 8 x 8
+// scores of rows ty + 16 i and chunk centroids tx + 32 j, summed over t in
+// order; warps are 4 ty x 8 tx, so a quarter warp reads 8 distinct rows.
+__device__ __forceinline__ void scores_fma(const float* pt, int pp,
+                                           const float* cb, int cp, int dc,
+                                           const float* __restrict__ cn,
+                                           int col0, float* best, int* arg) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ty = (warp >> 2) * 4 + (lane >> 3);
+  const int tx = (warp & 3) * 8 + (lane & 7);
+  float sc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sc[i][j] = 0.f;
+  for (int t = 0; t < dc; t += 4) {
+    float4 a[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      a[i] = *reinterpret_cast<const float4*>(pt + (ty + 16 * i) * pp + t);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 b =
+          *reinterpret_cast<const float4*>(cb + (tx + 32 * j) * cp + t);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        sc[i][j] = fmaf(a[i].w, b.w,
+                        fmaf(a[i].z, b.z,
+                             fmaf(a[i].y, b.y, fmaf(a[i].x, b.x, sc[i][j]))));
+    }
+  }
+  // -2*s is exact, so one rounding, as -2.0*dot + cn
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = col0 + tx + 32 * j;
+    const float norm = __ldg(cn + col);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      take_min(fmaf(-2.f, sc[i][j], norm), col, best[i], arg[i]);
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned* r, const void* q) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(q));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// bf16: the tensor cores, mma.sync m16n8k16 (bf16 in, f32 accumulate).
+// Warp (wr, wc) = (warp / 4, warp % 4) computes rows wr*32 .. +32 against
+// chunk centroids wc*64 .. +64: 2 x 8 tiles of 16 x 8.  The accumulator
+// fragment of a tile gives lane l rows l/4 and l/4 + 8, columns 2(l%4) and
+// 2(l%4)+1 (SM80_16x8x16_F32BF16BF16F32_TN in CUTLASS), so each thread
+// holds 4 rows (mt, h) and 16 columns that increase with (nt, e).
+__device__ __forceinline__ void scores_mma(const char* pt, int p_pitch,
+                                           const char* cb, int c_pitch,
+                                           int dc,
+                                           const float* __restrict__ cn,
+                                           int col0, float* best, int* arg) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wr = warp >> 2, wc = warp & 3;
+  float acc[2][8][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  // ldmatrix row addresses: A, lanes 0-15 rows 0-15 at k 0, lanes 16-31
+  // the same rows at k 8; B, lanes 0-7 / 8-15 / 16-23 / 24-31 centroids
+  // 0-7 at k 0 / 0-7 at k 8 / 8-15 at k 0 / 8-15 at k 8
+  const char* pa = pt + (size_t)(wr * 32 + (lane & 15)) * p_pitch * 16 +
+                   (lane >> 4) * 16;
+  const char* pb =
+      cb + (size_t)(wc * 64 + (lane & 7) + ((lane >> 4) << 3)) * c_pitch * 16 +
+      ((lane >> 3) & 1) * 16;
+  for (int kk = 0; kk < dc; kk += 16) {
+    unsigned a[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+      ldmatrix_x4(a[mt], pa + (size_t)mt * 16 * p_pitch * 16 + kk * 2);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      unsigned b[4];
+      ldmatrix_x4(b, pb + (size_t)np * 16 * c_pitch * 16 + kk * 2);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        mma_bf16(acc[mt][2 * np], a[mt], b[0], b[1]);
+        mma_bf16(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int col = col0 + wc * 64 + nt * 8 + 2 * (lane & 3);
+    const float2 norm = __ldg(reinterpret_cast<const float2*>(cn + col));
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        take_min(fmaf(-2.f, acc[mt][nt][2 * h], norm.x), col,
+                 best[2 * mt + h], arg[2 * mt + h]);
+        take_min(fmaf(-2.f, acc[mt][nt][2 * h + 1], norm.y), col + 1,
+                 best[2 * mt + h], arg[2 * mt + h]);
+      }
+  }
+}
+
+// --- the assign + sum kernel -------------------------------------------------
+
 // Copies `rows` rows of `units` 16-byte units from global (row stride
-// `gstride` bytes) into shared (pitch `pitch` units); rows at or past
-// `valid_rows` are zero-filled.  Lanes split into 2^lg lanes per row.
+// `gstride` bytes) into shared (pitch `pitch` units); units at or past
+// `copy_units` and rows at or past `valid_rows` are zero-filled.  Lanes
+// split into 2^lg lanes per row.
 __device__ __forceinline__ void copy_rows_async(char* dst, int pitch,
                                                 const char* src,
                                                 size_t gstride, int rows,
                                                 int valid_rows, int units,
-                                                int lg) {
+                                                int copy_units, int lg) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int per_warp = 32 >> lg;
   const int q0 = lane & ((1 << lg) - 1);
@@ -223,28 +360,34 @@ __device__ __forceinline__ void copy_rows_async(char* dst, int pitch,
     const bool ok = r < valid_rows;
     const char* g = src + (ok ? (size_t)r * gstride : 0);
     char* s = dst + (size_t)r * pitch * 16;
-    for (int q = q0; q < units; q += 1 << lg) cp_async16(s + q * 16, g + q * 16, ok);
+    for (int q = q0; q < units; q += 1 << lg)
+      cp_async16(s + q * 16, g + (q < copy_units ? q * 16 : 0),
+                 ok && q < copy_units);
   }
 }
 
+// PT: the points' type in global memory; BF16: the mode.  Shared tiles are
+// f32 in highest mode and bf16 in bf16 mode.
 template <typename PT, bool BF16>
 __global__ void __launch_bounds__(THREADS, 1)
 assign_sum_partial(const PT* __restrict__ p, const float* __restrict__ w,
-                   const float* __restrict__ cpad,
+                   const void* __restrict__ cpad,
                    const float* __restrict__ cn, int n, const Layout L,
                    float* __restrict__ partials) {
+  using ST = typename std::conditional<BF16, __nv_bfloat16, float>::type;
+  constexpr int R = BF16 ? 4 : 8;  // rows of the block tile per thread
   extern __shared__ __align__(16) char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int d = L.d, W = d + 1;
-  const int ty = (warp >> 2) * 4 + (lane >> 3);  // rows ty + 16 i
-  const int tx = (warp & 3) * 8 + (lane & 7);    // centroids tx + 32 j
   float* red_v = reinterpret_cast<float*>(smem + L.off_red);  // [4][BM]
   int* red_i = reinterpret_cast<int*>(red_v + 4 * BM);        // [4][BM]
   int* cid = reinterpret_cast<int*>(smem + L.off_cid);        // [BM]
   float* acc = L.acc_smem ? reinterpret_cast<float*>(smem + L.off_acc)
                           : partials + (size_t)blockIdx.x * L.k * W;
   const size_t c_chunk = (size_t)BN * L.c_pitch * 16;  // bytes of a chunk
+  const size_t c_row = (size_t)L.dc * sizeof(ST);      // bytes of a cpad row
   const size_t p_tile = (size_t)BM * L.p_pitch * 16;
+  const int pp = L.p_pitch * 16 / (int)sizeof(ST);  // pitch in elements
   const int n_tiles = (n + BM - 1) / BM;
   const int my_tiles =
       blockIdx.x < n_tiles ? (n_tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
@@ -262,17 +405,21 @@ assign_sum_partial(const PT* __restrict__ p, const float* __restrict__ w,
       const int row0 = (blockIdx.x + ti * gridDim.x) * BM;
       const int valid = n - row0;
       char* dst = smem + L.off_p + (ti % L.pbufs) * p_tile;
-      const char* src = reinterpret_cast<const char*>(p + (size_t)row0 * d);
-      if (L.p_aligned) {
-        copy_rows_async(dst, L.p_pitch, src, (size_t)d * sizeof(PT), BM,
-                        valid, L.p_units, L.p_lanes_lg);
-      } else {  // rows not in whole 16-byte units: element by element
-        const int de = L.p_units * 16 / (int)sizeof(PT);
+      if (L.p_copy_units) {
+        copy_rows_async(dst, L.p_pitch,
+                        reinterpret_cast<const char*>(p + (size_t)row0 * d),
+                        (size_t)d * sizeof(PT), BM, valid, L.p_units,
+                        L.p_copy_units, L.p_lanes_lg);
+      } else {  // element by element, converted to the shared type
         for (int r = warp; r < BM; r += NWARPS) {
-          PT* srow = reinterpret_cast<PT*>(dst + (size_t)r * L.p_pitch * 16);
+          ST* srow = reinterpret_cast<ST*>(dst) + r * pp;
           const PT* grow = p + (size_t)(row0 + r) * d;
-          for (int t = lane; t < de; t += 32)
-            srow[t] = r < valid && t < d ? grow[t] : PT(0.f);
+          for (int t = lane; t < L.dc; t += 32) {
+            if (r < valid && t < d)
+              store(srow + t, grow[t]);
+            else
+              store(srow + t, 0.f);
+          }
         }
       }
       float* ws = reinterpret_cast<float*>(smem + L.off_w) +
@@ -286,25 +433,25 @@ assign_sum_partial(const PT* __restrict__ p, const float* __restrict__ w,
     }
     if (!L.resident && (L.cbufs == 2) == early) {
       copy_rows_async(smem + L.off_c + (s % L.cbufs) * c_chunk, L.c_pitch,
-                      reinterpret_cast<const char*>(cpad + (size_t)ch * BN * L.dc),
-                      (size_t)L.dc * 4, BN, BN, L.c_units, L.c_lanes_lg);
+                      static_cast<const char*>(cpad) + (size_t)ch * BN * c_row,
+                      c_row, BN, BN, L.c_units, L.c_units, L.c_lanes_lg);
     }
     cp_async_commit();
   };
 
   if (L.resident && steps > 0)
     copy_rows_async(smem + L.off_c, L.c_pitch,
-                    reinterpret_cast<const char*>(cpad), (size_t)L.dc * 4,
-                    L.k_pad, L.k_pad, L.c_units, L.c_lanes_lg);
+                    static_cast<const char*>(cpad), c_row, L.k_pad, L.k_pad,
+                    L.c_units, L.c_units, L.c_lanes_lg);
   if (steps > 0) {
     issue(0, true);
     issue(0, false);
   }
 
-  float best[8];
-  int arg[8];
+  float best[R];
+  int arg[R];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < R; ++i) {
     best[i] = INFINITY;
     arg[i] = 0;
   }
@@ -313,71 +460,38 @@ assign_sum_partial(const PT* __restrict__ p, const float* __restrict__ w,
     __syncthreads();  // step s's data landed; step s-1 is done everywhere
     if (s + 1 < steps) issue(s + 1, true);
 
-    const PT* pt = reinterpret_cast<const PT*>(smem + L.off_p +
-                                               (ti % L.pbufs) * p_tile);
-    const float* cb = reinterpret_cast<const float*>(
-        smem + L.off_c + (L.resident ? ch * c_chunk : (s % L.cbufs) * c_chunk));
-    const int pp = L.p_pitch * 16 / (int)sizeof(PT);  // pitch in elements
-    const int cp = L.c_pitch * 4;
-    float sc[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) sc[i][j] = 0.f;
-    for (int t = 0; t < L.dc; t += 4) {
-      float4 a[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        a[i] = load4(pt + (ty + 16 * i) * pp + t);
-        if (BF16) {
-          a[i].x = round_bf16(a[i].x);
-          a[i].y = round_bf16(a[i].y);
-          a[i].z = round_bf16(a[i].z);
-          a[i].w = round_bf16(a[i].w);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float4 b = load4(cb + (tx + 32 * j) * cp + t);
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          sc[i][j] = fmaf(a[i].w, b.w,
-                          fmaf(a[i].z, b.z,
-                               fmaf(a[i].y, b.y, fmaf(a[i].x, b.x, sc[i][j]))));
-      }
-    }
-    // this thread's centroids in increasing order: a strict < keeps the
-    // first minimum.  -2*s is exact, so one rounding, as -2.0*dot + cn.
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = ch * BN + tx + 32 * j;
-      const float norm = __ldg(cn + col);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float v = fmaf(-2.f, sc[i][j], norm);
-        if (v < best[i]) {
-          best[i] = v;
-          arg[i] = col;
-        }
-      }
-    }
+    const char* pt = smem + L.off_p + (ti % L.pbufs) * p_tile;
+    const char* cb = smem + L.off_c +
+                     (L.resident ? ch * c_chunk : (s % L.cbufs) * c_chunk);
+    if constexpr (BF16)
+      scores_mma(pt, L.p_pitch, cb, L.c_pitch, L.dc, cn, ch * BN, best, arg);
+    else
+      scores_fma(reinterpret_cast<const float*>(pt), pp,
+                 reinterpret_cast<const float*>(cb), L.c_pitch * 4, L.dc, cn,
+                 ch * BN, best, arg);
 
     if (ch == L.n_chunks - 1) {
-      // the 8 lanes of a row in this warp, then the 4 warps of a row
+      // over the lanes of a row in this warp (8 for the FMA tile, the quad
+      // for the mma fragment), then over the 4 warps of a row
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+      for (int i = 0; i < R; ++i) {
 #pragma unroll
-        for (int off = 4; off > 0; off >>= 1) {
-          const float ob = __shfl_xor_sync(0xffffffffu, best[i], off);
-          const int oa = __shfl_xor_sync(0xffffffffu, arg[i], off);
-          if (ob < best[i] || (ob == best[i] && oa < arg[i])) {
-            best[i] = ob;
-            arg[i] = oa;
-          }
+        for (int off = BF16 ? 2 : 4; off > 0; off >>= 1)
+          merge_min(__shfl_xor_sync(0xffffffffu, best[i], off),
+                    __shfl_xor_sync(0xffffffffu, arg[i], off), best[i],
+                    arg[i]);
+        int row;
+        bool writer;
+        if constexpr (BF16) {
+          row = (warp >> 2) * 32 + (i >> 1) * 16 + (i & 1) * 8 + (lane >> 2);
+          writer = (lane & 3) == 0;
+        } else {
+          row = (warp >> 2) * 4 + (lane >> 3) + 16 * i;
+          writer = (lane & 7) == 0;
         }
-        if ((lane & 7) == 0) {
-          red_v[(warp & 3) * BM + ty + 16 * i] = best[i];
-          red_i[(warp & 3) * BM + ty + 16 * i] = arg[i];
+        if (writer) {
+          red_v[(warp & 3) * BM + row] = best[i];
+          red_i[(warp & 3) * BM + row] = arg[i];
         }
         best[i] = INFINITY;
         arg[i] = 0;
@@ -386,14 +500,8 @@ assign_sum_partial(const PT* __restrict__ p, const float* __restrict__ w,
       for (int r = tid; r < BM; r += THREADS) {
         float bv = red_v[r];
         int bi = red_i[r];
-        for (int g = 1; g < 4; ++g) {
-          const float v = red_v[g * BM + r];
-          const int ix = red_i[g * BM + r];
-          if (v < bv || (v == bv && ix < bi)) {
-            bv = v;
-            bi = ix;
-          }
-        }
+        for (int g = 1; g < 4; ++g)
+          merge_min(red_v[g * BM + r], red_i[g * BM + r], bv, bi);
         cid[r] = bi;
       }
       __syncthreads();
@@ -402,6 +510,7 @@ assign_sum_partial(const PT* __restrict__ p, const float* __restrict__ w,
       // row order, lanes over the d+1 columns
       const float* ws = reinterpret_cast<const float*>(smem + L.off_w) +
                         (ti % L.pbufs) * BM;
+      const ST* prows = reinterpret_cast<const ST*>(pt);
       for (int g = 0; g < BM; g += 32) {
         const int cc = cid[g + lane];
         const float wr = ws[g + lane];
@@ -412,12 +521,10 @@ assign_sum_partial(const PT* __restrict__ p, const float* __restrict__ w,
           mine &= mine - 1;
           const int c2 = __shfl_sync(0xffffffffu, cc, b);
           const float w2 = __shfl_sync(0xffffffffu, wr, b);
-          const PT* prow = pt + (g + b) * pp;
+          const ST* prow = prows + (g + b) * pp;
           float* arow = acc + (size_t)c2 * W;
-          for (int j = lane; j < d; j += 32) {
-            const float x = BF16 ? round_bf16(load1(prow + j)) : load1(prow + j);
-            arow[j] += __fmul_rn(x, w2);
-          }
+          for (int j = lane; j < d; j += 32)
+            arow[j] += __fmul_rn(load1(prow + j), w2);
           if (lane == 0) arow[d] += w2;
         }
       }
@@ -473,7 +580,7 @@ cudaError_t occupancy(int device, const Layout& L, int* blocks_per_sm) {
 
 template <typename PT, bool BF16>
 cudaError_t launch_partial(int device, const void* p, const float* w,
-                           const float* cpad, const float* cn, int n,
+                           const void* cpad, const float* cn, int n,
                            const Layout& L, int grid, float* partials,
                            cudaStream_t stream) {
   cudaError_t err = allow_smem<PT, BF16>(device, L.smem);
@@ -483,10 +590,13 @@ cudaError_t launch_partial(int device, const void* p, const float* w,
   return cudaGetLastError();
 }
 
-// scratch: cn (k_pad f32), cpad (k_pad x dc f32), partials (grid x k x d+1)
-size_t scratch_bytes(const Layout& L, int grid) {
-  return align_up(sizeof(float) * L.k_pad, 256) +
-         align_up(sizeof(float) * (size_t)L.k_pad * L.dc, 256) +
+// scratch: cn (k_pad f32), cpad (k_pad x dc of the shared type), partials
+// (grid x k x d+1 f32), each 256-byte aligned
+size_t cpad_bytes(const Layout& L, int bf16_mode) {
+  return align_up((size_t)L.k_pad * L.dc * (bf16_mode ? 2 : 4), 256);
+}
+size_t scratch_bytes(const Layout& L, int bf16_mode, int grid) {
+  return align_up(sizeof(float) * L.k_pad, 256) + cpad_bytes(L, bf16_mode) +
          sizeof(float) * (size_t)grid * L.k * (L.d + 1);
 }
 
@@ -497,14 +607,15 @@ extern "C" {
 // The launch plan for (n, d, k) on `device`: out[0] grid, out[1] blocks
 // per SM, out[2] shared bytes per block, out[3] centroids resident,
 // out[4] partial in shared memory, out[5] scratch bytes, out[6] point
-// buffers, out[7] centroid buffers.  Returns a CUDA error (0 = ok;
-// cudaErrorInvalidValue when d is too wide for shared memory).
+// buffers, out[7] centroid buffers (0 when resident).  Returns a CUDA
+// error (0 = ok; cudaErrorInvalidValue when d is too wide for shared
+// memory).
 int moxt_kmeans_plan(int device, int p_bf16, int bf16_mode, int n, int d,
                      int k, long long* out) {
   if (n < 0 || d <= 0 || k <= 0 || (p_bf16 && !bf16_mode))
     return cudaErrorInvalidValue;
   Layout L;
-  if (!make_layout(d, k, p_bf16, &L)) return cudaErrorInvalidValue;
+  if (!make_layout(d, k, p_bf16, bf16_mode, &L)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   int sms = 0, bps = 0;
@@ -519,14 +630,14 @@ int moxt_kmeans_plan(int device, int p_bf16, int bf16_mode, int n, int d,
   if (err != cudaSuccess) return err;
   if (bps < 1) return cudaErrorInvalidConfiguration;
   const long long tiles = ((long long)n + BM - 1) / BM;
-  const long long grid = tiles < (long long)sms * bps ? (tiles > 0 ? tiles : 1)
-                                                      : (long long)sms * bps;
+  const long long slots = (long long)sms * bps;
+  const long long grid = tiles < 1 ? 1 : (tiles < slots ? tiles : slots);
   out[0] = grid;
   out[1] = bps;
   out[2] = L.smem;
   out[3] = L.resident;
   out[4] = L.acc_smem;
-  out[5] = (long long)scratch_bytes(L, (int)grid);
+  out[5] = (long long)scratch_bytes(L, bf16_mode, (int)grid);
   out[6] = L.pbufs;
   out[7] = L.resident ? 0 : L.cbufs;
   return 0;
@@ -543,19 +654,21 @@ int moxt_kmeans_assign_sum(int device, const void* p, int p_bf16,
   if (n < 0 || d <= 0 || k <= 0 || grid <= 0 || (p_bf16 && !bf16_mode))
     return cudaErrorInvalidValue;
   Layout L;
-  if (!make_layout(d, k, p_bf16, &L)) return cudaErrorInvalidValue;
+  if (!make_layout(d, k, p_bf16, bf16_mode, &L)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   char* base = static_cast<char*>(scratch);
   float* cn = reinterpret_cast<float*>(base);
-  float* cpad =
-      reinterpret_cast<float*>(base + align_up(sizeof(float) * L.k_pad, 256));
-  float* partials = reinterpret_cast<float*>(
-      reinterpret_cast<char*>(cpad) +
-      align_up(sizeof(float) * (size_t)L.k_pad * L.dc, 256));
-  prep_centroids<<<L.k_pad, 128, 0, s>>>(c, k, d, L.k_pad, L.dc, bf16_mode,
-                                         cpad, cn);
+  char* cpad = base + align_up(sizeof(float) * L.k_pad, 256);
+  float* partials =
+      reinterpret_cast<float*>(cpad + cpad_bytes(L, bf16_mode));
+  if (bf16_mode)
+    prep_centroids<<<L.k_pad, 128, 0, s>>>(
+        c, k, d, L.dc, reinterpret_cast<__nv_bfloat16*>(cpad), cn);
+  else
+    prep_centroids<<<L.k_pad, 128, 0, s>>>(
+        c, k, d, L.dc, reinterpret_cast<float*>(cpad), cn);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (p_bf16)

@@ -33,7 +33,7 @@ def cuda():
 
 # the largest k at d=64 whose centroids stay resident in shared memory, and
 # the next k, which streams them, per mode
-RESIDENT_EDGE = {"highest": (512, 513), "bf16": (512, 513)}
+RESIDENT_EDGE = {"highest": (512, 513), "bf16": (1280, 1281)}
 
 # (n, d, k): ragged tails, k off the centroid chunk, a d whose partial
 # does not fit shared memory at k=2048, one-row and tiny inputs; bf16 rows
