@@ -19,34 +19,40 @@
 // the points.  In `highest` that is compute-bound on the CUDA cores
 // (67 TFLOP/s f32; n=2^22, d=64: 2.06 ms at k=256, 16.4 ms at k=2048).  In
 // `bf16` the bound is the 0.54 GB read of bf16 points at k=256 (0.16 ms) and
-// the tensor cores' rate at k=2048 (1.1 ms).
+// the tensor cores' rate (989 TFLOP/s) at k=2048 (1.1 ms).
 //
 // Design.  The TPU runs the Pallas grid in order and carries the (k, d+1)
 // accumulator in VMEM from step to step.  Hopper blocks run in parallel and
-// in no order, so a persistent grid (one 512-thread block per SM) walks
-// 128-row tiles b, b+G, b+2G, ..., and a second kernel adds the G block
-// partials in block order.  Inside a block:
+// in no order, so a persistent grid (one 512-thread block, 16 warps, per
+// SM) walks 128-row tiles b, b+G, b+2G, ..., and a second kernel adds the
+// G block partials in block order.  Inside a block:
 //   * a prep kernel writes the centroids once per call, zero-padded to a
-//     whole 256-centroid chunk and to 16-byte rows (pre-rounded in bf16
-//     mode), and |c|^2 (+inf on pad rows, so a pad never wins);
+//     whole 256-centroid chunk and to the compute width (pre-rounded to
+//     bf16 in bf16 mode), and |c|^2 (+inf on pad rows, so a pad never wins);
 //   * the centroids stay resident in shared memory when they fit (k=256,
-//     d=64: 68 KB), loaded once per block; else 256-centroid chunks stream
-//     through two buffers;
+//     d=64: 68 KB f32, 36 KB bf16), loaded once per block; else
+//     256-centroid chunks stream through two buffers;
 //   * point tiles and chunks arrive by cp.async 16-byte copies (zero-fill
-//     past n), double-buffered: the next tile is in flight while this one
-//     computes.  Rows that are not 16-byte multiples take a scalar path;
+//     past n and in the padding), double- or triple-buffered: the next tile
+//     is in flight while this one computes.  Rows that are not whole
+//     16-byte units, and f32 points in bf16 mode, take an element path;
 //   * shared rows have an odd number of 16-byte units, so the 8 rows read
-//     by a quarter warp fall in 8 distinct bank groups (no conflicts);
-//   * scores: 16 warps as 4 x 4, each thread an 8 x 8 register tile
-//     (rows ty+16i, centroids tx+32j), a strict < over increasing centroid,
-//     a shuffle over the 8 lanes of a row, then over the 4 warps of a row in
-//     shared memory, the lower index winning ties;
+//     by a quarter warp (or one ldmatrix phase) fall in 8 distinct bank
+//     groups: no conflicts;
+//   * scores, highest: f32 FMA, each thread an 8 x 8 register tile (rows
+//     ty+16i, centroids tx+32j); bf16: mma.sync m16n8k16 on the tensor
+//     cores, each warp a 32 x 64 tile from ldmatrix operands.  Both keep a
+//     strict < over increasing centroid per row, then reduce over the
+//     lanes of a row by shuffles and over the 4 warps of a row in shared
+//     memory, the lower index winning ties;
 //   * sums: warp w owns the centroids c with c % 16 == w.  For each 32-row
 //     group a ballot gives the warp its rows, which it adds in row order,
 //     the lanes covering the d+1 columns in one coalesced pass.  Every
 //     output element has one writer and adds its rows in row order.  The
 //     partial lives in shared memory when it fits, else in the block's own
-//     slice of global scratch.
+//     slice of global scratch.  In bf16 mode, with three point buffers, a
+//     tile's sums are added while the next tile is scored, so the warps
+//     with the most rows do not hold the others at a barrier.
 // No float atomics anywhere, so a result is bitwise the same run to run.
 
 #include <cuda_bf16.h>
@@ -115,8 +121,9 @@ unsigned align_up(size_t x, size_t a) {
 }
 
 // Picks the first arrangement that fits, in order of preference: resident
-// centroids and shared partial, resident centroids, streamed centroids
-// with two buffers, one buffer, then one point buffer.
+// centroids, then the partial in shared memory, then (bf16 mode) three
+// point buffers (the sums of a tile wait for the next tile) over two,
+// then two centroid buffers over one, then one point buffer.
 bool make_layout(int d, int k, int p_bf16, int bf16_mode, Layout* L) {
   Layout l{};
   const int es = bf16_mode ? 2 : 4;  // bytes of a shared element
@@ -134,10 +141,11 @@ bool make_layout(int d, int k, int p_bf16, int bf16_mode, Layout* L) {
   l.k = k;
   l.k_pad = (k + BN - 1) / BN * BN;
   l.n_chunks = l.k_pad / BN;
-  const int options[6][4] = {  // resident, acc_smem, pbufs, cbufs
-      {1, 1, 2, 1}, {1, 0, 2, 1}, {0, 1, 2, 2},
-      {0, 0, 2, 2}, {0, 0, 2, 1}, {0, 0, 1, 1}};
+  const int options[10][4] = {  // resident, acc_smem, pbufs, cbufs
+      {1, 1, 3, 1}, {1, 1, 2, 1}, {1, 0, 3, 1}, {1, 0, 2, 1}, {0, 1, 3, 2},
+      {0, 1, 2, 2}, {0, 0, 3, 2}, {0, 0, 2, 2}, {0, 0, 2, 1}, {0, 0, 1, 1}};
   for (const auto& o : options) {
+    if (o[2] == 3 && !bf16_mode) continue;  // highest adds its sums in place
     l.resident = o[0];
     l.acc_smem = o[1];
     l.pbufs = o[2];
@@ -366,6 +374,29 @@ __device__ __forceinline__ void copy_rows_async(char* dst, int pitch,
   }
 }
 
+// arow[j] += row[j] * w for j < d, arow[d] += w, the lanes over j: every
+// load of the row issues before its stores, so a partial in global memory
+// costs one memory round trip per row and not one per 32 columns
+template <typename ST>
+__device__ __forceinline__ void add_row_ilp(const ST* row, float* arow,
+                                            float w, int d, int W) {
+  const int lane = threadIdx.x & 31;
+  for (int j0 = lane; j0 < W; j0 += 96) {
+    float x[3], a[3];
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const int j = j0 + 32 * q;
+      if (j < W) {
+        x[q] = j < d ? __fmul_rn(load1(row + j), w) : w;
+        a[q] = arow[j];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+      if (j0 + 32 * q < W) arow[j0 + 32 * q] = a[q] + x[q];
+  }
+}
+
 // PT: the points' type in global memory; BF16: the mode.  Shared tiles are
 // f32 in highest mode and bf16 in bf16 mode.
 template <typename PT, bool BF16>
@@ -392,6 +423,9 @@ assign_sum_partial(const PT* __restrict__ p, const float* __restrict__ w,
   const int my_tiles =
       blockIdx.x < n_tiles ? (n_tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
   const int steps = my_tiles * L.n_chunks;
+  const bool defer = BF16 && L.pbufs == 3;
+  // 32-row groups of the previous tile added per chunk step when deferred
+  const int gps = (BM / 32 + L.n_chunks - 1) / L.n_chunks;
 
   for (int i = tid; i < L.k * W; i += THREADS) acc[i] = 0.f;
 
@@ -401,7 +435,7 @@ assign_sum_partial(const PT* __restrict__ p, const float* __restrict__ w,
   // others go after step s-1 is done with their buffer.
   auto issue = [&](int s, bool early) {
     const int ti = s / L.n_chunks, ch = s - ti * L.n_chunks;
-    if (ch == 0 && (L.pbufs == 2) == early) {
+    if (ch == 0 && (L.pbufs == 2 || (BF16 && L.pbufs == 3)) == early) {
       const int row0 = (blockIdx.x + ti * gridDim.x) * BM;
       const int valid = n - row0;
       char* dst = smem + L.off_p + (ti % L.pbufs) * p_tile;
@@ -439,6 +473,37 @@ assign_sum_partial(const PT* __restrict__ p, const float* __restrict__ w,
     cp_async_commit();
   };
 
+  // warp `warp` adds the rows of 32-row groups [g0, g1) of tile tj that went
+  // to its centroids (c % 16 == warp), in row order, lanes over the d+1
+  // columns (the last adds the weight)
+  auto accumulate = [&](int tj, int g0, int g1) {
+    const char* pt = smem + L.off_p + (tj % L.pbufs) * p_tile;
+    const float* ws = reinterpret_cast<const float*>(smem + L.off_w) +
+                      (tj % L.pbufs) * BM;
+    const ST* prows = reinterpret_cast<const ST*>(pt);
+    for (int g = g0 * 32; g < g1 * 32; g += 32) {
+      const int cc = cid[g + lane];
+      const float wr = ws[g + lane];
+      unsigned mine = __ballot_sync(
+          0xffffffffu, wr != 0.f && (cc & (NWARPS - 1)) == warp);
+      while (mine) {
+        const int b = __ffs(mine) - 1;
+        mine &= mine - 1;
+        const int c2 = __shfl_sync(0xffffffffu, cc, b);
+        const float w2 = __shfl_sync(0xffffffffu, wr, b);
+        const ST* prow = prows + (g + b) * pp;
+        float* arow = acc + (size_t)c2 * W;
+        if (!L.acc_smem) {
+          add_row_ilp(prow, arow, w2, d, W);
+        } else {
+          for (int j = lane; j < d; j += 32)
+            arow[j] += __fmul_rn(load1(prow + j), w2);
+          if (lane == 0) arow[d] += w2;
+        }
+      }
+    }
+  };
+
   if (L.resident && steps > 0)
     copy_rows_async(smem + L.off_c, L.c_pitch,
                     static_cast<const char*>(cpad), c_row, L.k_pad, L.k_pad,
@@ -459,6 +524,12 @@ assign_sum_partial(const PT* __restrict__ p, const float* __restrict__ w,
     cp_async_wait_all();
     __syncthreads();  // step s's data landed; step s-1 is done everywhere
     if (s + 1 < steps) issue(s + 1, true);
+    // with three point buffers (bf16 mode) the sums of a tile are added
+    // while the next tile is scored, spread over its first chunks: warps
+    // that finish their rows early go on to the scores, instead of waiting
+    // at a barrier for the others
+    if (defer && ti > 0 && ch * gps < BM / 32)
+      accumulate(ti - 1, ch * gps, min(BM / 32, (ch + 1) * gps));
 
     const char* pt = smem + L.off_p + (ti % L.pbufs) * p_tile;
     const char* cb = smem + L.off_c +
@@ -504,28 +575,33 @@ assign_sum_partial(const PT* __restrict__ p, const float* __restrict__ w,
           merge_min(red_v[g * BM + r], red_i[g * BM + r], bv, bi);
         cid[r] = bi;
       }
-      __syncthreads();
-
-      // warp `warp` adds the rows of its centroids (c % 16 == warp), in
-      // row order, lanes over the d+1 columns
-      const float* ws = reinterpret_cast<const float*>(smem + L.off_w) +
-                        (ti % L.pbufs) * BM;
-      const ST* prows = reinterpret_cast<const ST*>(pt);
-      for (int g = 0; g < BM; g += 32) {
-        const int cc = cid[g + lane];
-        const float wr = ws[g + lane];
-        unsigned mine = __ballot_sync(
-            0xffffffffu, wr != 0.f && (cc & (NWARPS - 1)) == warp);
-        while (mine) {
-          const int b = __ffs(mine) - 1;
-          mine &= mine - 1;
-          const int c2 = __shfl_sync(0xffffffffu, cc, b);
-          const float w2 = __shfl_sync(0xffffffffu, wr, b);
-          const ST* prow = prows + (g + b) * pp;
-          float* arow = acc + (size_t)c2 * W;
-          for (int j = lane; j < d; j += 32)
-            arow[j] += __fmul_rn(load1(prow + j), w2);
-          if (lane == 0) arow[d] += w2;
+      if (!defer) {
+        // warp `warp` adds the rows of its centroids (c % 16 == warp), in
+        // row order, lanes over the d+1 columns
+        __syncthreads();
+        const float* ws = reinterpret_cast<const float*>(smem + L.off_w) +
+                          (ti % L.pbufs) * BM;
+        const ST* prows = reinterpret_cast<const ST*>(pt);
+        for (int g = 0; g < BM; g += 32) {
+          const int cc = cid[g + lane];
+          const float wr = ws[g + lane];
+          unsigned mine = __ballot_sync(
+              0xffffffffu, wr != 0.f && (cc & (NWARPS - 1)) == warp);
+          while (mine) {
+            const int b = __ffs(mine) - 1;
+            mine &= mine - 1;
+            const int c2 = __shfl_sync(0xffffffffu, cc, b);
+            const float w2 = __shfl_sync(0xffffffffu, wr, b);
+            const ST* prow = prows + (g + b) * pp;
+            float* arow = acc + (size_t)c2 * W;
+            if (!BF16 && !L.acc_smem) {
+              add_row_ilp(prow, arow, w2, d, W);
+            } else {
+              for (int j = lane; j < d; j += 32)
+                arow[j] += __fmul_rn(load1(prow + j), w2);
+              if (lane == 0) arow[d] += w2;
+            }
+          }
         }
       }
     }
@@ -538,6 +614,10 @@ assign_sum_partial(const PT* __restrict__ p, const float* __restrict__ w,
       ch = 0;
       ++ti;
     }
+  }
+  if (defer && steps > 0) {
+    __syncthreads();  // the last tile's assignments are in cid
+    accumulate(my_tiles - 1, 0, BM / 32);
   }
   if (L.acc_smem) {
     __syncthreads();
