@@ -333,7 +333,7 @@ def phase_kmeans(tmp: str, backend: str, n: int, d: int, k: int,
                                  f"{got.shape}")
     launches = {w.__name__: w.launches for w in wrappers}
     log(f"kmeans launches over both runs: {launches}")
-    kernel_ms = profile_fit_steps(pts, k)
+    prof = profile_fit_steps(pts, k, iters)
 
     # one iteration against the NumPy oracle; the blobs are separated far
     # past any rounding, so the assignment is the same, and from the exact
@@ -356,56 +356,71 @@ def phase_kmeans(tmp: str, backend: str, n: int, d: int, k: int,
                    for p, r in runs.items()}
     for precision, ms in ms_per_iter.items():
         log(f"kmeans {precision}: fit {ms:.3f} ms/iter, its kernel alone "
-            f"{kernel_ms[precision]:.3f} ms per call")
-    return {"launches": launches, "ms_per_iter": ms_per_iter,
-            "kernel_ms": kernel_ms}
+            f"{prof['kernel_ms'][precision]:.3f} ms per call")
+    return {"launches": launches, "ms_per_iter": ms_per_iter, **prof}
 
 
-def profile_fit_steps(pts: np.ndarray, k: int) -> dict:
-    """For each precision, on the fit's device-resident points: the
-    kernel's own time per call (CUDA events), then a ``torch.profiler``
-    trace of two iterations of the fit's step (``_kmeans_step_impl``): the
-    device's busy share of the window and its top device operations.
-    Returns the kernel ms per precision."""
+def profile_fit_steps(pts: np.ndarray, k: int, iters: int) -> dict:
+    """For each precision, on the fit's points, after the counted fits:
+    the kernel's own time per call and the fit step's (CUDA events), a
+    second fit's ms/iter (the counted ones are the first fits of the
+    process), and a ``torch.profiler`` trace of four fit steps
+    (``_kmeans_step_impl``): device busy time over the device span and over
+    the host window, and the top device operations.  Returns the kernel ms,
+    step ms and second-fit ms/iter per precision."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from map_oxidize_tpu_torch.ops.kmeans_kernel import fused_assign_sum
-    from map_oxidize_tpu_torch.workloads.kmeans import _kmeans_step_impl
+    from map_oxidize_tpu_torch.workloads.kmeans import (
+        _kmeans_step_impl,
+        kmeans_fit_device,
+    )
 
-    kernel_ms = {}
+    out = {"kernel_ms": {}, "step_ms": {}, "refit_ms_per_iter": {}}
     for precision in ("highest", "bf16"):
+        timings = {}
+        kmeans_fit_device(pts, pts[:k], iters, device="cuda", timings=timings,
+                          precision=precision)
+        out["refit_ms_per_iter"][precision] = timings["iter_s"] / iters * 1e3
         p = torch.from_numpy(pts).cuda()
         if precision == "bf16":
             p = p.to(torch.bfloat16)
         c0 = p[:k].float().contiguous()
-        kernel_ms[precision] = time_ms(
+        out["kernel_ms"][precision] = time_ms(
             lambda: fused_assign_sum(p, c0, k, precision), reps=10)
+        out["step_ms"][precision] = time_ms(
+            lambda: _kmeans_step_impl(c0, p, k, precision), reps=10)
         c = c0
-        for _ in range(2):  # warm
-            c = _kmeans_step_impl(c, p, k, precision)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for _ in range(2):
+            for _ in range(4):
                 c = _kmeans_step_impl(c, p, k, precision)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         # device-side entries only (kernels, copies, sets): a CPU op's
         # device time repeats its kernels'
+        dev = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+        busy = sum(e.time_range.elapsed_us() for e in dev)
+        span = (max(e.time_range.end for e in dev)
+                - min(e.time_range.start for e in dev)) if dev else 0.0
         ops = [(e.key, e.self_device_time_total) for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA")
                and e.self_device_time_total > 0]
         ops.sort(key=lambda kv: -kv[1])
-        busy = sum(t for _, t in ops)
-        log(f"kmeans {precision} profile of 2 steps: wall {wall_us:.0f} us, "
-            f"device busy {busy:.0f} us ({busy / wall_us:.1%}); top device "
-            "ops: " + "; ".join(f"{name[:60]} {t:.0f} us"
-                                for name, t in ops[:6]))
+        log(f"kmeans {precision}: kernel {out['kernel_ms'][precision]:.3f} "
+            f"ms/call, fit step {out['step_ms'][precision]:.3f} ms, second "
+            f"fit {out['refit_ms_per_iter'][precision]:.3f} ms/iter; "
+            f"profile of 4 steps: {len(dev)} device ops busy {busy:.0f} us "
+            f"of a {span:.0f} us device span ({busy / max(span, 1e-9):.1%}) "
+            f"and a {wall_us:.0f} us host window "
+            f"({busy / wall_us:.1%}); top: " + "; ".join(
+                f"{name[:48]} {t:.0f} us" for name, t in ops[:5]))
         del p, c, c0
         torch.cuda.empty_cache()
-    return kernel_ms
+    return out
 
 
 # --- phase 5 ----------------------------------------------------------------

@@ -104,8 +104,7 @@ def _library() -> ctypes.CDLL:
 
 
 _PLAN_KEYS = ("grid", "blocks_per_sm", "smem_bytes", "resident",
-              "acc_in_smem", "scratch_bytes", "point_buffers",
-              "centroid_buffers")
+              "acc_in_smem", "scratch_bytes")
 
 
 @functools.lru_cache(maxsize=64)
@@ -116,8 +115,8 @@ def plan(device: int, p_bf16: bool, bf16_mode: bool, n: int, d: int,
     attribute cost nothing on later calls): ``grid`` (one persistent block
     per resident slot, at most one per tile), ``blocks_per_sm``,
     ``smem_bytes``, whether the centroids stay ``resident`` in shared
-    memory and the partial sum ``acc_in_smem``, ``scratch_bytes``, and the
-    point and centroid buffers.  Raises when the kernel cannot take ``d``."""
+    memory and the partial sum ``acc_in_smem``, and ``scratch_bytes``.
+    Raises when the kernel cannot take ``d``."""
     lib = _library()
     out = (ctypes.c_longlong * len(_PLAN_KEYS))()
     rc = lib.moxt_kmeans_plan(device, int(p_bf16), int(bf16_mode), n, d, k,
