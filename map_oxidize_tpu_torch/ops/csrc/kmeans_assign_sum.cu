@@ -577,8 +577,8 @@ assign_sum_partial(const PT* __restrict__ p, const float* __restrict__ w,
       }
       if (!defer) {
         // the same sums as `accumulate`, written out: through the lambda or
-        // a shared function the highest kernel's FMA loop compiled about 4%
-        // slower (H100 timings)
+        // a shared function, ptxas scheduled the highest kernel's FMA loop
+        // measurably slower
         __syncthreads();
         const float* ws = reinterpret_cast<const float*>(smem + L.off_w) +
                           (ti % L.pbufs) * BM;
