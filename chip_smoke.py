@@ -11,9 +11,10 @@ Phases (any failure exits non-zero, before the result line):
 
 1. card      the card's name and power limit (``nvidia-smi``);
 2. build     every kernel of the port from the checkout's sources, one
-             ``nvcc`` each, all started together; each kernel's registers
-             and spills (``-Xptxas -v``) and its HMMA (tensor-core)
-             instruction count (``cuobjdump -sass``);
+             ``nvcc`` each, all started together, and beside them the
+             native C++ host map library with ``g++``; each kernel's
+             registers and spills (``-Xptxas -v``) and its HMMA
+             (tensor-core) instruction count (``cuobjdump -sass``);
 3. kernels   each kernel against its plain version on the card at the
              k-means path's shapes, with times (CUDA events), the plain
              version's and one PyTorch library call's time, the bound, and
@@ -26,7 +27,16 @@ Phases (any failure exits non-zero, before the result line):
              of two fit steps (device busy share, top device ops); one
              iteration against the NumPy oracle ``kmeans_model``;
 5. wordcount ``run_job("wordcount")`` on a seeded Zipf corpus (~256 MB, ~1M
-             mixed-case words) against a ``collections.Counter`` oracle.
+             mixed-case words), once with ``mapper='auto'`` (the native C++
+             scan in the prefetch thread) and once with ``mapper='python'``,
+             each against a ``collections.Counter`` oracle, the two
+             ``final_result.txt`` byte-identical;
+6. resume    the same word count killed after 3 chunks and resumed from its
+             checkpoint (phase 5's bytes, the prefix replayed, not
+             re-mapped); the phase 4 k-means fit in both precisions killed
+             after 4 of 10 iterations by an ``on_iter`` that raises, and
+             resumed from its snapshot (bit-equal to phase 4's centroids,
+             6 kernel launches).
 
 Then one JSON line with every kernel, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Inputs are made from fixed
@@ -56,7 +66,10 @@ KMEANS_N, KMEANS_D, KMEANS_K, KMEANS_ITERS = 1 << 22, 64, 256, 10
 KERNEL_N = (1 << 22) + 777   # a ragged tail past the last full tile
 KERNEL_KS = (256, 2048)
 CORPUS_BYTES = 256 << 20
+CHUNK_BYTES = 32 << 20  # JobConfig's default: 8 chunks of the corpus
 VOCAB = 1_000_000
+WC_KILL_AFTER = 3       # chunks mapped before the simulated kill
+KMEANS_KILL_AFTER = 4   # iterations run before the simulated kill
 
 
 def log(msg: str) -> None:
@@ -108,15 +121,33 @@ def variant(mangled: str) -> str:
     return mangled
 
 
+def build_native() -> float:
+    """Builds the native host map library with ``g++``, always (a library
+    already on disk is rebuilt, so the build is this host's); returns
+    seconds."""
+    from map_oxidize_tpu_torch.native import build
+
+    t0 = time.perf_counter()
+    build._compile(force=True)
+    return time.perf_counter() - t0
+
+
 def build_kernels() -> dict:
-    """Builds every kernel; logs each kernel's registers, spills and static
-    shared bytes (``-Xptxas -v``) and its HMMA (tensor-core) instruction
-    count; returns both, by variant."""
+    """Builds every kernel, and the native library beside them; logs each
+    kernel's registers, spills and static shared bytes (``-Xptxas -v``) and
+    its HMMA (tensor-core) instruction count; returns both, by variant."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from map_oxidize_tpu_torch.ops import build
 
     t0 = time.perf_counter()
-    paths = build.build(*build.KERNELS)
-    log(f"built {len(paths)} kernel(s) in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(1) as pool:
+        native = pool.submit(build_native)
+        paths = build.build(*build.KERNELS)
+        log(f"built {len(paths)} kernel(s) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        log(f"built the native map library (g++) in {native.result():.1f} "
+            "s")
     resources = {}
     for name, text in build.build_logs.items():
         fn = None
@@ -351,13 +382,13 @@ def phase_kmeans(tmp: str, backend: str, n: int, d: int, k: int,
                     f"{np.abs(got - want).max()}")
         log(f"kmeans {precision}: 1 and {iters} iterations match "
             f"kmeans_model (max |d| {np.abs(one - want).max():.3g})")
-    os.remove(path)
     ms_per_iter = {p: r.metrics["time/iter_s"] / iters * 1e3
                    for p, r in runs.items()}
     for precision, ms in ms_per_iter.items():
         log(f"kmeans {precision}: fit {ms:.3f} ms/iter, its kernel alone "
             f"{prof['kernel_ms'][precision]:.3f} ms per call")
-    return {"launches": launches, "ms_per_iter": ms_per_iter, **prof}
+    return {"launches": launches, "ms_per_iter": ms_per_iter, "path": path,
+            "centroids": {p: r.centroids for p, r in runs.items()}, **prof}
 
 
 def profile_fit_steps(pts: np.ndarray, k: int, iters: int) -> dict:
@@ -453,10 +484,31 @@ def make_corpus(nbytes: int, vocab: int, seed: int) -> bytes:
     return buf.tobytes()
 
 
+def wordcount_line(name: str, m: dict, launches: dict,
+                   mapped: int | None = None) -> str:
+    """One run's counts, times and rate; ``mapped``, for a resumed run, is
+    the tokens of the chunks it mapped (not replayed), which its rate
+    counts."""
+    mapped = m["records_in"] if mapped is None else mapped
+    return (f"wordcount {name}: {m['records_in']} tokens, "
+            f"{m['distinct_keys']} distinct, {m['chunks']} chunks "
+            f"({m['checkpoint/chunks_replayed']} replayed), job "
+            f"{m['time/job_s']:.2f} s ({mapped} tokens mapped in this run, "
+            f"{mapped / m['time/job_s']:.0f} words/s), "
+            f"map+reduce {m['time/map+reduce_s']:.2f} s, "
+            f"finalize {m['time/finalize_s']:.2f} s, write "
+            f"{m['time/write_s']:.2f} s, accumulator on "
+            f"{m['accumulator_device']} at {m['capacity_rows']} rows; "
+            f"launches {launches}")
+
+
 def phase_wordcount(tmp: str, backend: str, nbytes: int, vocab: int,
                     wrappers) -> dict:
+    """The corpus through ``mapper='auto'`` (which must resolve to the
+    native C++ mapper) and ``mapper='python'``: each against the Counter
+    oracle and its top-10, the two outputs byte-identical."""
     from map_oxidize_tpu_torch.config import JobConfig
-    from map_oxidize_tpu_torch.runtime import run_job
+    from map_oxidize_tpu_torch.runtime import resolve_mapper, run_job
 
     t0 = time.perf_counter()
     data = make_corpus(nbytes, vocab, SEED + 2)
@@ -465,42 +517,204 @@ def phase_wordcount(tmp: str, backend: str, nbytes: int, vocab: int,
         f.write(data)
     log(f"corpus: {len(data)} bytes ({time.perf_counter() - t0:.1f} s to "
         "make)")
-    out = os.path.join(tmp, "final_result.txt")
-    cfg = JobConfig(input_path=path, output_path=out, backend=backend,
-                    top_k=10, metrics=False)
+    t0 = time.perf_counter()
+    oracle = collections.Counter(data.lower().split())
+    want_top = sorted(oracle.items(), key=lambda kv: (-kv[1], kv[0]))[:10]
+    del data
+    log(f"Counter oracle: {len(oracle)} distinct "
+        f"({time.perf_counter() - t0:.1f} s)")
+    runs = {}
+    for mapper in ("auto", "python"):
+        out = os.path.join(tmp, f"final_result_{mapper}.txt")
+        cfg = JobConfig(input_path=path, output_path=out, backend=backend,
+                        chunk_bytes=CHUNK_BYTES, top_k=10, mapper=mapper,
+                        metrics=False)
+        resolved = resolve_mapper(cfg, "wordcount")
+        if resolved != ("native" if mapper == "auto" else "python"):
+            raise AssertionError(f"mapper={mapper!r} resolved to "
+                                 f"{resolved!r}")
+        for w in wrappers:
+            w.launches = 0
+        r = run_job(cfg, "wordcount")
+        launches = {w.__name__: w.launches for w in wrappers}
+        m = r.metrics
+        log(wordcount_line(f"mapper={mapper} ({resolved})", m, launches))
+        if not m["accumulator_device"].startswith(backend):
+            raise AssertionError(f"accumulator on {m['accumulator_device']}")
+        if m["capacity_rows"] <= JobConfig.initial_key_capacity:
+            raise AssertionError("accumulator never grew past "
+                                 f"{JobConfig.initial_key_capacity}")
+        t0 = time.perf_counter()
+        if r.counts != oracle:
+            raise AssertionError(f"wordcount {resolved}: counts differ from "
+                                 "the Counter oracle")
+        if r.top != want_top:
+            raise AssertionError(f"top-10 {r.top} != oracle {want_top}")
+        with open(out, "rb") as f:
+            n_lines = sum(1 for _ in f)
+        if n_lines != len(oracle):
+            raise AssertionError("final_result.txt rows != distinct words")
+        log(f"wordcount {resolved} matches the Counter oracle and its "
+            f"top-10 ({time.perf_counter() - t0:.1f} s to check): "
+            f"{r.top[:3]}")
+        runs[resolved] = {"launches": launches, "metrics": m, "out": out}
+        del r
+    with open(runs["native"]["out"], "rb") as f:
+        native_bytes = f.read()
+    with open(runs["python"]["out"], "rb") as f:
+        if f.read() != native_bytes:
+            raise AssertionError("native and python final_result.txt "
+                                 "differ")
+    log(f"native and python final_result.txt byte-identical "
+        f"({len(native_bytes)} bytes)")
+    return {"path": path, "runs": runs}
+
+
+# --- phase 6 ----------------------------------------------------------------
+
+def phase_resume_wordcount(tmp: str, backend: str, wc: dict,
+                           wrappers) -> dict:
+    """Phase 5's native word count with a checkpoint directory, killed
+    (``KeyboardInterrupt`` from the native chunk iterator, which runs in the
+    prefetch thread) after ``WC_KILL_AFTER`` chunks, then resumed through
+    ``run_job``: phase 5's bytes, the killed prefix replayed and not
+    re-mapped, the checkpoint directory removed."""
+    from map_oxidize_tpu_torch.api import SumReducer
+    from map_oxidize_tpu_torch.config import JobConfig
+    from map_oxidize_tpu_torch.runtime import run_job
+    from map_oxidize_tpu_torch.runtime.driver import run_wordcount_job
+    from map_oxidize_tpu_torch.workloads.wordcount import WordCountMapper
+
+    class DyingMapper(WordCountMapper):
+        mapped = 0
+        records = 0
+
+        def map_file(self, *a, **k):
+            def gen(it):
+                for item in it:
+                    if self.mapped == WC_KILL_AFTER:
+                        raise KeyboardInterrupt("simulated kill")
+                    self.mapped += 1
+                    self.records += item[0].records_in
+                    yield item
+            return gen(super().map_file(*a, **k))
+
+    ck = os.path.join(tmp, "wc_checkpoint")
+    out = os.path.join(tmp, "final_result_resumed.txt")
+    cfg = JobConfig(input_path=wc["path"], output_path=out, backend=backend,
+                    chunk_bytes=CHUNK_BYTES, top_k=10, checkpoint_dir=ck,
+                    metrics=False)
     for w in wrappers:
         w.launches = 0
+    t0 = time.perf_counter()
+    dying = DyingMapper()
+    try:
+        run_wordcount_job(cfg, dying, SumReducer())
+        raise AssertionError("the killed word count ran to its end")
+    except KeyboardInterrupt:
+        pass
+    t_killed = time.perf_counter() - t0
+    saved = sorted(n for n in os.listdir(ck) if n.startswith("chunk_"))
+    if saved != [f"chunk_{i:06d}.npz" for i in range(WC_KILL_AFTER)]:
+        raise AssertionError(f"killed run spilled {saved}")
+    log(f"wordcount killed after {WC_KILL_AFTER} chunks "
+        f"({t_killed:.2f} s), spill: {saved}")
     r = run_job(cfg, "wordcount")
     launches = {w.__name__: w.launches for w in wrappers}
     m = r.metrics
-    log(f"wordcount: {m['records_in']} tokens, {m['distinct_keys']} distinct,"
-        f" {m['chunks']} chunks, job {m['time/job_s']:.2f} s "
-        f"({m['records_in'] / m['time/job_s']:.0f} words/s), "
-        f"map+reduce {m['time/map+reduce_s']:.2f} s, "
-        f"finalize {m['time/finalize_s']:.2f} s, write "
-        f"{m['time/write_s']:.2f} s, accumulator on "
-        f"{m['accumulator_device']} at {m['capacity_rows']} rows; "
-        f"launches {launches}")
-    if not m["accumulator_device"].startswith(backend):
-        raise AssertionError(f"accumulator on {m['accumulator_device']}")
-    if m["capacity_rows"] <= JobConfig.initial_key_capacity:
-        raise AssertionError("accumulator never grew past "
-                             f"{JobConfig.initial_key_capacity}")
-    t0 = time.perf_counter()
-    oracle = collections.Counter(data.lower().split())
-    if r.counts != oracle:
-        raise AssertionError("wordcount counts differ from the Counter "
-                             "oracle")
-    want_top = sorted(oracle.items(), key=lambda kv: (-kv[1], kv[0]))[:10]
-    if r.top != want_top:
-        raise AssertionError(f"top-10 {r.top} != oracle {want_top}")
-    with open(out, "rb") as f:
-        lines = f.read().splitlines()
-    if len(lines) != len(oracle):
-        raise AssertionError("final_result.txt rows != distinct words")
-    log(f"wordcount matches the Counter oracle and its top-10 "
-        f"({time.perf_counter() - t0:.1f} s to check): {r.top[:3]}")
-    return {"launches": launches, "metrics": m}
+    mapped = m["records_in"] - dying.records
+    log(wordcount_line("resumed", m, launches, mapped))
+    want = wc["runs"]["native"]
+    if m["checkpoint/chunks_replayed"] != WC_KILL_AFTER:
+        raise AssertionError(f"replayed {m['checkpoint/chunks_replayed']}")
+    if m["chunks"] != want["metrics"]["chunks"]:
+        raise AssertionError(f"resumed run took {m['chunks']} chunks, a "
+                             f"fresh one {want['metrics']['chunks']}: the "
+                             "prefix was re-mapped")
+    if m["records_in"] != want["metrics"]["records_in"]:
+        raise AssertionError("resumed run counted other records")
+    with open(out, "rb") as f, open(want["out"], "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError("resumed final_result.txt differs from "
+                                 "phase 5's")
+    if os.path.exists(ck):
+        raise AssertionError("checkpoint directory left after success")
+    log("wordcount resume: byte-identical to phase 5, prefix replayed, "
+        "checkpoint removed")
+    return {"launches": launches, "metrics": m, "mapped": mapped}
+
+
+def phase_resume_kmeans(tmp: str, backend: str, km: dict, wrappers) -> dict:
+    """Phase 4's fit with a checkpoint directory, killed by an ``on_iter``
+    that raises after ``KMEANS_KILL_AFTER`` of ``KMEANS_ITERS`` iterations,
+    then resumed through ``run_job``: centroids bit-equal to phase 4's
+    uninterrupted fit, one kernel launch per remaining iteration."""
+    from map_oxidize_tpu_torch.config import JobConfig
+    from map_oxidize_tpu_torch.runtime import run_job
+    from map_oxidize_tpu_torch.workloads import kmeans as tkm
+
+    real_fit = tkm.kmeans_fit_device
+
+    def dying_fit(*a, on_iter=None, **kw):
+        def hook(i, c):
+            on_iter(i, c)
+            if i == KMEANS_KILL_AFTER:
+                raise KeyboardInterrupt("simulated kill")
+        return real_fit(*a, on_iter=hook, **kw)
+
+    out = {"ms_per_iter": {}, "launches": {}}
+    for precision in ("highest", "bf16"):
+        ck = os.path.join(tmp, f"km_checkpoint_{precision}")
+        cfg = JobConfig(input_path=km["path"], output_path="",
+                        backend=backend, kmeans_k=KMEANS_K,
+                        kmeans_iters=KMEANS_ITERS, checkpoint_dir=ck,
+                        kmeans_precision=precision, metrics=False)
+        for w in wrappers:
+            w.launches = 0
+        tkm.kmeans_fit_device = dying_fit
+        t0 = time.perf_counter()
+        try:
+            run_job(cfg, "kmeans")
+            raise AssertionError("the killed fit ran to its end")
+        except KeyboardInterrupt:
+            pass
+        finally:
+            tkm.kmeans_fit_device = real_fit
+        t_killed = time.perf_counter() - t0
+        killed = {w.__name__: w.launches for w in wrappers}
+        for w in wrappers:
+            w.launches = 0
+        r = run_job(cfg, "kmeans")
+        launches = {w.__name__: w.launches for w in wrappers}
+        ran = KMEANS_ITERS - KMEANS_KILL_AFTER
+        ms = r.metrics["time/iter_s"] / ran * 1e3
+        log(f"kmeans {precision} resume: killed after {KMEANS_KILL_AFTER} "
+            f"iterations ({t_killed:.2f} s, launches {killed}); resumed "
+            f"{r.metrics.get('resumed_iters')} -> {r.metrics['iters']}: "
+            f"{ran} iterations in {r.metrics['time/iter_s']:.4f} s "
+            f"({ms:.3f} ms/iter with a snapshot per iteration; phase 4 "
+            f"{km['ms_per_iter'][precision]:.3f} ms/iter without), launches "
+            f"{launches}")
+        if killed["fused_assign_sum"] != KMEANS_KILL_AFTER:
+            raise AssertionError(f"killed fit launched {killed}")
+        if launches["fused_assign_sum"] != ran:
+            raise AssertionError(f"resumed fit launched {launches}, "
+                                 f"expected {ran}")
+        if r.metrics.get("resumed_iters") != KMEANS_KILL_AFTER:
+            raise AssertionError(f"resumed at {r.metrics}")
+        want = km["centroids"][precision]
+        if r.centroids.tobytes() != want.tobytes():
+            raise AssertionError(
+                f"kmeans {precision}: resumed centroids differ from the "
+                f"uninterrupted fit (max |d| "
+                f"{np.abs(r.centroids - want).max()})")
+        if os.path.exists(ck):
+            raise AssertionError("snapshot left after success")
+        log(f"kmeans {precision} resume: bit-equal to phase 4's "
+            f"uninterrupted {KMEANS_ITERS}-iteration fit")
+        out["ms_per_iter"][precision] = ms
+        out["launches"][precision] = launches
+    return out
 
 
 def main() -> int:
@@ -526,6 +740,8 @@ def main() -> int:
         km = phase_kmeans(tmp, "cuda", KMEANS_N, KMEANS_D, KMEANS_K,
                           KMEANS_ITERS, wrappers)
         wc = phase_wordcount(tmp, "cuda", CORPUS_BYTES, VOCAB, wrappers)
+        wc_resume = phase_resume_wordcount(tmp, "cuda", wc, wrappers)
+        km_resume = phase_resume_kmeans(tmp, "cuda", km, wrappers)
     launches = km["launches"]["fused_assign_sum"]
     if launches != 2 * KMEANS_ITERS:
         raise AssertionError(f"kmeans path launched the kernel {launches} "
@@ -548,9 +764,15 @@ def main() -> int:
         "resources": resources,
         "configs": configs,
     }]
-    log(f"kmeans ms/iter {km['ms_per_iter']}, kernel ms per call "
-        f"{km['kernel_ms']}; wordcount launches "
-        f"{wc['launches']}; total {time.perf_counter() - t_start:.1f} s")
+    wc_rate = {name: run["metrics"]["records_in"]
+               / run["metrics"]["time/job_s"]
+               for name, run in wc["runs"].items()}
+    log(f"kmeans ms/iter {km['ms_per_iter']}, resumed "
+        f"{km_resume['ms_per_iter']}, kernel ms per call "
+        f"{km['kernel_ms']}; wordcount words/s {wc_rate}, resumed "
+        f"{wc_resume['mapped'] / wc_resume['metrics']['time/job_s']:.0f} "
+        f"(tokens mapped in that run over its job time); "
+        f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,6 +4,7 @@
     python -m map_oxidize_tpu_torch kmeans points.npy --kmeans-k 256 \\
         --kmeans-iters 10 --kmeans-precision bf16
     python -m map_oxidize_tpu_torch wordcount corpus.txt --backend cpu
+    python -m map_oxidize_tpu_torch wordcount corpus.txt --checkpoint-dir ck
 
 Flag names and defaults are the JAX package's CLI's; ``--backend`` takes
 ``cuda`` (the default, which needs a CUDA device) or ``cpu``.
@@ -17,7 +18,9 @@ import os
 import sys
 
 from map_oxidize_tpu_torch.config import WORKLOADS, JobConfig
-from map_oxidize_tpu_torch.utils.logging import configure
+from map_oxidize_tpu_torch.utils.logging import configure, get_logger
+
+_log = get_logger(__name__)
 
 
 def _dispatch_batch_arg(v: str) -> int:
@@ -51,8 +54,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="final result path")
     p.add_argument("--top-k", type=int, default=10,
                    help="top-k words to report")
+    p.add_argument("--map-workers", type=int, default=8,
+                   help="host map threads (reference: 8)")
+    p.add_argument("--num-chunks", type=int, default=0,
+                   help="fixed chunk count with round-robin line chunking "
+                        "(reference compat mode); 0 = streaming byte ranges")
     p.add_argument("--batch-size", type=int, default=1 << 20,
                    help="device feed batch rows")
+    p.add_argument("--pipeline-depth", type=int, default=2,
+                   help="bounded-prefetch pipeline depth: chunks of host "
+                        "read+tokenize allowed to run ahead of the device "
+                        "feed (1 = strictly serial; outputs are "
+                        "byte-identical at any depth)")
     p.add_argument("--dispatch-batch", type=_dispatch_batch_arg, default=0,
                    metavar="{auto,N}",
                    help="full feed batches shipped per host->device "
@@ -65,8 +78,8 @@ def build_parser() -> argparse.ArgumentParser:
                    default="ascii")
     p.add_argument("--mapper", choices=["auto", "device", "native", "python"],
                    default="auto",
-                   help="map-phase placement (auto: python, the one map "
-                        "path ported so far)")
+                   help="map-phase placement: C++ host loop or pure "
+                        "Python (auto: native); device is not ported yet")
     p.add_argument("--kmeans-k", type=int, default=16,
                    help="k-means cluster count (init: first k points)")
     p.add_argument("--kmeans-iters", type=int, default=1,
@@ -75,6 +88,13 @@ def build_parser() -> argparse.ArgumentParser:
                    default="highest",
                    help="k-means score-product precision: plain f32, or "
                         "bf16 operands with f32 accumulation")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="directory for resumable map-output checkpoints "
+                        "(kmeans: per-iteration snapshots; a SUCCESSFUL "
+                        "run deletes its snapshot, so continuing training "
+                        "past a completed run needs --keep-intermediates "
+                        "on the earlier run)")
+    p.add_argument("--keep-intermediates", action="store_true")
     p.add_argument("-v", "--verbose", action="store_true")
     p.add_argument("-q", "--quiet", action="store_true")
     return p
@@ -85,7 +105,10 @@ def config_from_args(args: argparse.Namespace) -> JobConfig:
         input_path=args.input,
         output_path=args.output,
         top_k=args.top_k,
+        num_map_workers=args.map_workers,
+        num_chunks=args.num_chunks,
         batch_size=args.batch_size,
+        pipeline_depth=args.pipeline_depth,
         dispatch_batch=args.dispatch_batch,
         key_capacity=args.key_capacity,
         backend=args.backend,
@@ -94,6 +117,8 @@ def config_from_args(args: argparse.Namespace) -> JobConfig:
         kmeans_k=args.kmeans_k,
         kmeans_iters=args.kmeans_iters,
         kmeans_precision=args.kmeans_precision,
+        checkpoint_dir=args.checkpoint_dir,
+        keep_intermediates=args.keep_intermediates,
     ).validate()
 
 
@@ -110,6 +135,10 @@ def main(argv: list[str] | None = None) -> int:
         print(f"error: cannot open input {config.input_path!r}",
               file=sys.stderr)
         return 2
+    if config.keep_intermediates and not config.checkpoint_dir:
+        _log.warning("--keep-intermediates has no effect without "
+                     "--checkpoint-dir (there are no intermediates: map "
+                     "outputs stay on device)")
     from map_oxidize_tpu_torch.runtime import run_job
 
     result = run_job(config, args.workload)

@@ -1,7 +1,8 @@
 """Job configuration of the port.
 
-The fields the two ported paths read (word count on one device and the
-device-resident k-means fit), with the JAX package's defaults.  ``backend``
+The fields the ported paths read (word count on one device with the native
+or Python host map, the device-resident k-means fit, and checkpoint/resume
+for both), with the JAX package's defaults and validation.  ``backend``
 names a torch device family: ``cuda`` (the default) or ``cpu``; nothing
 falls back from one to the other.
 """
@@ -18,11 +19,22 @@ WORKLOADS = ("wordcount", "kmeans")
 class JobConfig:
     #: input corpus path (a text file, or a .npy points file for kmeans)
     input_path: str = "shakes.txt"
+    #: host map worker threads (the Python map; the native mmap path maps
+    #: inline in C++)
+    num_map_workers: int = 8
+    #: input chunks; 0 = derive from file size / chunk_bytes; N > 0 = the
+    #: reference's round-robin line chunking into N chunks
+    num_chunks: int = 0
     #: target bytes per streamed chunk (the corpus is never host-resident)
     chunk_bytes: int = 32 * 1024 * 1024
     #: max rows per device feed batch; short batches are padded only to the
     #: next power of two, so tiny chunks don't pay full-batch sort cost
     batch_size: int = 1 << 18
+    #: bounded-prefetch pipeline depth: how many chunks of host work
+    #: (read+tokenize) may run ahead of the device feed (runtime/pipeline.py).
+    #: 1 = the strictly serial schedule; outputs are byte-identical at any
+    #: depth (the pipeline preserves chunk order)
+    pipeline_depth: int = 2
     #: full feed batches shipped per host->device transfer by the fold
     #: engine (0 = auto, which the fold engine treats as 1; N > 1 stacks N
     #: batches into one transfer).  Outputs are identical at any value.
@@ -40,12 +52,22 @@ class JobConfig:
     num_shards: int = 0
     #: tokenizer mode: 'ascii' (byte path) or 'unicode'
     tokenizer: str = "ascii"
-    #: map-phase placement: 'auto' resolves to 'python' in the port
+    #: map-phase placement: 'native' (the C++ host loop), 'python', or
+    #: 'auto' (= 'native'); 'device' is not ported yet
     mapper: str = "auto"
     #: reduce engine: 'fold' (the streaming device accumulator) or 'auto'
     reduce_mode: str = "auto"
     #: output file
     output_path: str = "final_result.txt"
+    #: directory for spill/checkpoint artifacts; None disables checkpointing
+    checkpoint_dir: str | None = None
+    #: keep the checkpoint directory after success instead of deleting it
+    keep_intermediates: bool = False
+    #: per-chunk map retry budget (the Python map's worker pool)
+    max_retries: int = 2
+    #: use the C++ native tokenizer when available (the JAX package's field;
+    #: ``mapper`` alone chooses the map path)
+    use_native: bool = True
     #: k-means device-fit budget in bytes for mapper='auto'; 0 = half the
     #: device's memory
     kmeans_device_fit_bytes: int = 0
@@ -78,8 +100,10 @@ class JobConfig:
                 f"reduce_mode must be auto|fold|collect, got {self.reduce_mode!r}")
         if self.num_shards < 0:
             raise ValueError("num_shards must be >= 0")
-        if self.chunk_bytes <= 0:
-            raise ValueError("chunk_bytes must be positive")
+        if self.num_chunks <= 0 and self.chunk_bytes <= 0:
+            raise ValueError("chunk_bytes must be positive (or set num_chunks)")
+        if self.pipeline_depth < 1:
+            raise ValueError("pipeline_depth must be >= 1 (1 = serial)")
         if not 0 <= self.dispatch_batch <= 1024:
             raise ValueError(
                 "dispatch_batch must be 0 (auto) or 1..1024 batches per "
@@ -87,8 +111,8 @@ class JobConfig:
         if self.kmeans_device_fit_bytes < 0:
             raise ValueError(
                 "kmeans_device_fit_bytes must be >= 0 (0 = probe the device)")
-        if self.top_k <= 0:
-            raise ValueError("top_k must be positive")
+        if self.top_k <= 0 or self.num_map_workers <= 0:
+            raise ValueError("top_k and num_map_workers must be positive")
         if self.kmeans_k <= 0 or self.kmeans_iters <= 0:
             raise ValueError("kmeans_k and kmeans_iters must be positive")
         if self.kmeans_precision not in ("highest", "bf16"):

@@ -121,3 +121,20 @@ def plan_chunks(path: str, chunk_bytes: int, num_chunks: int = 0) -> tuple[int, 
         cb = max(1, -(-size // num_chunks))  # ceil div
         return num_chunks, cb
     return max(1, -(-size // chunk_bytes)), chunk_bytes
+
+
+def split_round_robin(path: str, num_chunks: int) -> list[bytes]:
+    """Reference-exact chunking: line ``i`` goes to chunk ``i % num_chunks``
+    with '\\n' re-appended (the reference's src/main.rs:44-48).  Whole file
+    resident — only for the ``--num-chunks`` compat mode and tiny inputs."""
+    chunks = [bytearray() for _ in range(num_chunks)]
+    with open(path, "rb") as f:
+        data = f.read()
+    lines = data.split(b"\n")
+    if lines and lines[-1] == b"":
+        lines.pop()  # trailing newline does not produce an empty final line
+    i = 0
+    for line in lines:
+        chunks[i] += line + b"\n"
+        i = (i + 1) % num_chunks
+    return [bytes(c) for c in chunks]

@@ -10,20 +10,17 @@ from map_oxidize_tpu_torch.config import JobConfig
 
 
 def resolve_mapper(config: JobConfig, workload: str) -> str:
-    """'auto' -> 'python', the only map path this slice of the port has.
-    The native C++ host mapper and the device tokenizer are not ported yet:
-    asking for either raises rather than silently running another path."""
+    """'auto' -> 'native', the C++ host loop, as in the JAX package.  The
+    device tokenizer is not ported yet: asking for it raises rather than
+    silently running another path, and a failed native build raises too
+    (pass 'python' for the Python map)."""
     mode = config.mapper
     if mode == "auto":
-        return "python"
-    if mode == "native":
-        raise NotImplementedError(
-            "the native C++ host mapper is not ported yet (ROADMAP: native "
-            "host mapper); use mapper='auto' or 'python'")
+        return "native"
     if mode == "device":
         raise NotImplementedError(
             "the device mapper is not ported yet (ROADMAP: device mapper); "
-            "use mapper='auto' or 'python'")
+            "use mapper='auto', 'native' or 'python'")
     return mode
 
 
@@ -39,6 +36,6 @@ def run_job(config: JobConfig, workload: str = "wordcount"):
     from map_oxidize_tpu_torch.runtime.driver import run_wordcount_job
     from map_oxidize_tpu_torch.workloads.wordcount import make_wordcount
 
-    resolve_mapper(config, workload)
-    mapper, reducer = make_wordcount(config.tokenizer)
+    use_native = resolve_mapper(config, workload) == "native"
+    mapper, reducer = make_wordcount(config.tokenizer, use_native)
     return run_wordcount_job(config, mapper, reducer, workload=workload)

@@ -1,17 +1,22 @@
 """Job drivers of the port: word count on one device, and the
 device-resident k-means fit.
 
-Cut down from the JAX package's driver to the single-device fold: the map
-runs in the calling thread, chunk by chunk, and feeds one
-:class:`~map_oxidize_tpu_torch.runtime.engine.DeviceReduceEngine`; PyTorch's
-asynchronous launches let the device fold one batch while the host maps the
-next chunk.  There is no observability bundle, checkpointing or pipelined
-transport in this slice; the sharded engines and the collect reduce raise
-``NotImplementedError``.
+Cut down from the JAX package's driver to the single-device fold.  The map
+runs in a bounded prefetch thread (:mod:`~map_oxidize_tpu_torch.runtime.
+pipeline`): the native C++ mmap scan, or the Python map through the worker
+pool of :mod:`~map_oxidize_tpu_torch.runtime.executor`; the calling thread
+feeds one :class:`~map_oxidize_tpu_torch.runtime.engine.DeviceReduceEngine`,
+and PyTorch's asynchronous launches let the device fold one batch while the
+host maps the next chunks.  With ``checkpoint_dir`` set, word count spills
+every mapped chunk and k-means snapshots every iteration
+(:mod:`~map_oxidize_tpu_torch.runtime.checkpoint`); a re-run resumes.  There
+is no observability bundle or push transport in this slice; the sharded
+engines and the collect reduce raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import hashlib
 import time
 from collections.abc import Mapping
 from dataclasses import dataclass, field
@@ -21,15 +26,22 @@ import torch
 
 from map_oxidize_tpu_torch.api import Mapper, Reducer
 from map_oxidize_tpu_torch.config import JobConfig
-from map_oxidize_tpu_torch.io.splitter import iter_chunks, plan_chunks
+from map_oxidize_tpu_torch.io.splitter import (
+    iter_chunks,
+    plan_chunks,
+    split_round_robin,
+)
 from map_oxidize_tpu_torch.io.writer import format_top_words, write_final_result
 from map_oxidize_tpu_torch.ops.hashing import SENTINEL, HashDictionary, join_u64
 from map_oxidize_tpu_torch.ops.topk import top_k_candidate_indices
+from map_oxidize_tpu_torch.runtime.checkpoint import CheckpointStore
 from map_oxidize_tpu_torch.runtime.engine import (
     DeviceReduceEngine,
     StreamingEngineBase,
     pick_device,
 )
+from map_oxidize_tpu_torch.runtime.executor import run_map_phase
+from map_oxidize_tpu_torch.runtime.pipeline import pipelined
 from map_oxidize_tpu_torch.utils.logging import get_logger
 
 _log = get_logger(__name__)
@@ -172,10 +184,25 @@ def _readback(engine: StreamingEngineBase, dictionary: HashDictionary
     return LazyCounts(k64, vals[live], dictionary)
 
 
+def _track_offsets(chunk_iter, start_off: int, offsets: dict, base_idx: int):
+    """Pass chunks through, recording each one's absolute end offset keyed by
+    global chunk index — chunks from ``iter_chunks`` are contiguous consumed
+    byte ranges, so the end offset is the running sum of lengths."""
+    off = start_off
+    for i, mv in enumerate(chunk_iter):
+        off += len(mv)
+        offsets[base_idx + i] = off
+        yield mv
+
+
 def run_wordcount_job(config: JobConfig, mapper: Mapper, reducer: Reducer,
                       workload: str = "wordcount") -> JobResult:
     """End-to-end word-count-shaped job (scalar values, string keys): split,
-    map, fold on the device, read back, check conservation, write."""
+    map, fold on the device, read back, check conservation, write.
+
+    With ``config.checkpoint_dir`` set, every mapped chunk is spilled
+    atomically and a re-run replays the spilled prefix instead of re-mapping
+    it (see :mod:`map_oxidize_tpu_torch.runtime.checkpoint`)."""
     config.validate()
     t_job = time.perf_counter()
     engine = make_engine(config, reducer, value_shape=mapper.value_shape,
@@ -184,10 +211,9 @@ def run_wordcount_job(config: JobConfig, mapper: Mapper, reducer: Reducer,
     dictionary = HashDictionary()
     records_in = 0
     n_chunks = 0
-    _, chunk_bytes = plan_chunks(config.input_path, config.chunk_bytes)
-    t0 = time.perf_counter()
-    for chunk in iter_chunks(config.input_path, chunk_bytes):
-        out = mapper.map_chunk(chunk)
+
+    def _ingest(out) -> None:
+        nonlocal records_in, n_chunks
         dictionary.update(out.dictionary)
         records_in += out.records_in
         n_chunks += 1
@@ -196,6 +222,64 @@ def run_wordcount_job(config: JobConfig, mapper: Mapper, reducer: Reducer,
             # distinct keys: growth needs no device sync
             engine.hint_total_keys(dictionary.upper_bound())
         engine.feed(out)
+
+    t0 = time.perf_counter()
+    # --- replay checkpointed chunks (resume), if any
+    ckpt = None
+    resume_k = 0      # chunks already mapped in a previous run
+    resume_off = 0    # input byte offset where mapping resumes
+    if config.checkpoint_dir:
+        ckpt = CheckpointStore(config.checkpoint_dir,
+                               CheckpointStore.job_meta(config, workload))
+        for idx, out, next_off in ckpt.replay():
+            _ingest(out)
+            resume_k, resume_off = idx + 1, next_off
+        if resume_k:
+            _log.info("resumed %d checkpointed chunks%s", resume_k,
+                      f" (input offset {resume_off})" if resume_off >= 0
+                      else " (round-robin mode)")
+        resume_off = max(resume_off, 0)  # -1 = round-robin: offsets unused
+
+    # --- split (plan only; chunks stream lazily)
+    native_file_iter = None
+    offsets: dict[int, int] = {}  # global chunk idx -> end byte offset
+    if config.num_chunks > 0:
+        # round-robin compat mode: chunk identity is the index, not a byte
+        # offset — resume skips the first resume_k chunks
+        chunks = split_round_robin(config.input_path,
+                                   config.num_chunks)[resume_k:]
+    else:
+        _, chunk_bytes = plan_chunks(config.input_path, config.chunk_bytes)
+        # native mmap fast path: C++ scans page-cache pages in place (zero
+        # kernel->user copies) and owns the chunk cuts; chunks map inline
+        # in C++, so num_map_workers/max_retries do not apply (a map error
+        # there is a hash collision or invalid UTF-8, which no retry fixes)
+        if hasattr(mapper, "map_file"):
+            native_file_iter = mapper.map_file(config.input_path,
+                                               chunk_bytes, resume_off)
+        if native_file_iter is None:
+            chunks = _track_offsets(
+                iter_chunks(config.input_path, chunk_bytes, resume_off),
+                resume_off, offsets, resume_k)
+
+    # --- map + reduce: the host half (C++ scan / Python map) runs in a
+    # bounded prefetch thread, so chunk i+1's read+tokenize overlaps chunk
+    # i's feed; order is preserved, so the spill and the output are
+    # byte-identical to depth 1
+    if native_file_iter is not None:
+        it = pipelined(native_file_iter, config.pipeline_depth, name="map")
+        for i, (out, next_off) in enumerate(it):
+            _ingest(out)
+            if ckpt is not None:
+                ckpt.save(resume_k + i, out, next_off)
+    else:
+        for idx, out in run_map_phase(
+                chunks, mapper, config.num_map_workers, config.max_retries,
+                pipeline_depth=config.pipeline_depth):
+            gidx = resume_k + idx
+            _ingest(out)
+            if ckpt is not None:
+                ckpt.save(gidx, out, offsets.get(gidx, -1))
     t_map = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -217,6 +301,10 @@ def run_wordcount_job(config: JobConfig, mapper: Mapper, reducer: Reducer,
         write_final_result(config.output_path, counts.items())
     t_write = time.perf_counter() - t0
 
+    # keep_intermediates preserves the resumable spill
+    if ckpt is not None:
+        ckpt.finish(config.keep_intermediates)
+
     acc_keys = engine.export_state()["acc_keys"]
     metrics = {
         "workload": workload,
@@ -225,6 +313,7 @@ def run_wordcount_job(config: JobConfig, mapper: Mapper, reducer: Reducer,
         "records_in": records_in,
         "distinct_keys": len(counts),
         "chunks": n_chunks,
+        "checkpoint/chunks_replayed": resume_k,
         "device_rows_fed": engine.rows_fed,
         "time/map+reduce_s": t_map,
         "time/finalize_s": t_finalize,
@@ -269,7 +358,14 @@ def run_kmeans_job(config: JobConfig,
     resident: the points transfer once and every iteration runs on the
     device.  Initial centroids default to the first ``kmeans_k`` points.
     The streamed paths (points beyond the fit, or a host mapper) are not
-    ported yet and raise."""
+    ported yet and raise.
+
+    With ``config.checkpoint_dir`` set, each iteration ends with one atomic
+    snapshot of (centroids, iterations done); a re-run of the same job
+    resumes from it.  ``kmeans_iters`` is not identity: a snapshot at
+    iteration i resumes any same-job run asking for >= i iterations, and one
+    covering every requested iteration is the result.  A successful run
+    deletes its snapshot unless ``keep_intermediates``."""
     from map_oxidize_tpu_torch.workloads.kmeans import (
         kmeans_fit_device,
         write_centroids,
@@ -303,22 +399,72 @@ def run_kmeans_job(config: JobConfig,
             f"k-means mapper {config.mapper!r} (host-assign streaming) is "
             "not ported yet (ROADMAP: streamed k-means); use 'auto' or "
             "'device'")
+
+    # --- checkpoint/resume: the iteration boundary is k-means's natural
+    # materialization barrier (centroids fully summarize progress).  k,
+    # mode, shard count, backend and precision change the float
+    # accumulation order, so they are identity; the digest pins the INITIAL
+    # centroids, so a different init invalidates rather than being silently
+    # overridden.  The keys are the JAX package's.
+    store = None
+    start_iter = 0
+    if config.checkpoint_dir:
+        store = CheckpointStore(
+            config.checkpoint_dir,
+            CheckpointStore.job_meta(config, "kmeans", extra={
+                "kmeans_k": config.kmeans_k,
+                "kmeans_mode": "device",
+                "kmeans_shards": 1,
+                "kmeans_backend": config.backend,
+                "kmeans_precision": config.kmeans_precision,
+                "kmeans_init": hashlib.sha256(
+                    centroids.tobytes()).hexdigest()[:16],
+            }))
+        snap = store.load_snapshot()
+        if snap is not None:
+            state, _d, start_iter, _n, _x = snap
+            centroids = np.asarray(state["centroids"], np.float32)
+            _log.info("k-means resumed at iteration %d", start_iter)
+
+    def _iter_done(i: int, c: np.ndarray) -> None:
+        store.save_snapshot({"centroids": np.asarray(c, np.float32)},
+                            HashDictionary(), start_iter + i, start_iter + i)
+
     timings: dict = {}
-    centroids = kmeans_fit_device(
-        pts, centroids, iters=config.kmeans_iters,
-        device=device, timings=timings, precision=config.kmeans_precision)
+    remaining = config.kmeans_iters - start_iter
+    if remaining > 0:
+        centroids = kmeans_fit_device(
+            pts, centroids, iters=remaining, device=device,
+            on_iter=_iter_done if store is not None else None,
+            timings=timings, precision=config.kmeans_precision)
+    elif remaining < 0:
+        # the snapshot already covers every requested iteration; its state
+        # IS the result (use a fresh checkpoint_dir to recompute)
+        _log.warning("checkpoint has %d iterations, more than the %d "
+                     "requested; returning the snapshotted state",
+                     start_iter, config.kmeans_iters)
     if config.output_path:
         write_centroids(config.output_path, centroids)
+    ran_iters = max(remaining, 0)
+    if store is not None:
+        # a zero-work run (the snapshot already covered every requested
+        # iteration) is a read of the continue-training state, not a
+        # completion of it: deleting the snapshot would destroy it
+        store.finish(config.keep_intermediates or ran_iters == 0)
+    # records_in counts the work THIS run did: a resume ran only the
+    # remaining iterations; ``iters`` is what the centroids represent
     metrics = {
         "workload": "kmeans",
         "kmeans_mode": "device",
         "device": str(device),
-        "records_in": int(n) * config.kmeans_iters,
+        "records_in": int(n) * ran_iters,
         "points": int(n),
         "dim": int(d),
-        "iters": config.kmeans_iters,
+        "iters": start_iter + ran_iters,
         **{f"time/{k}": v for k, v in timings.items()},
     }
+    if start_iter:
+        metrics["resumed_iters"] = start_iter
     if config.metrics:
         _log.info("metrics: %s", metrics)
     return KMeansResult(centroids=centroids, metrics=metrics)

@@ -71,8 +71,9 @@ def kmeans_fit_device(points, centroids, iters: int = 1, device=None,
 
     ``on_iter(i, centroids_np)`` sees the state after each iteration (one
     ``(k, d)`` fetch per iteration).  ``timings`` (when a dict is passed)
-    receives ``transfer_s`` (host->device copy of the points) and, without
-    ``on_iter``, ``iter_s`` (the whole iteration chain, synchronised)."""
+    receives ``transfer_s`` (host->device copy of the points) and
+    ``iter_s`` (the whole iteration chain, synchronised, ``on_iter``'s
+    calls included)."""
     if device is None:
         from map_oxidize_tpu_torch.runtime.engine import pick_device
 
@@ -100,7 +101,7 @@ def kmeans_fit_device(points, centroids, iters: int = 1, device=None,
         if on_iter is not None:
             on_iter(i + 1, c.cpu().numpy())
     out = c.cpu().numpy()
-    if timings is not None and on_iter is None:
+    if timings is not None:
         timings["iter_s"] = time.perf_counter() - t0
     return out
 

@@ -8,10 +8,11 @@ Two tokenizer modes, as in the JAX package:
 * ``unicode``: decode UTF-8 and use ``str.split()`` / ``str.lower()``.
 
 The mapper is a *combiner*: it counts within the chunk and emits one row per
-distinct token.  This slice ports the Python map path only; its keys are
-:func:`~map_oxidize_tpu_torch.ops.hashing.moxt64_bytes`, which mirrors the JAX
-package's C++ hash bit for bit, so the output bytes match that package's
-native path too.
+distinct token.  Two map paths give the same bytes: the native C++ loop
+(``use_native``, :mod:`map_oxidize_tpu_torch.native`), and the Python
+``tokenize`` path, whose keys are
+:func:`~map_oxidize_tpu_torch.ops.hashing.moxt64_bytes`, the C++ hash
+mirrored bit for bit.
 """
 
 from __future__ import annotations
@@ -44,10 +45,28 @@ class WordCountMapper(Mapper):
     value_dtype = np.int32
     keys_have_dictionary = True
 
-    def __init__(self, tokenizer: str = "ascii"):
+    def __init__(self, tokenizer: str = "ascii", use_native: bool = True):
         self.tokenizer = tokenizer
+        self.use_native = use_native
+        self._native = None
+        if use_native:
+            from map_oxidize_tpu_torch.native import bindings
+
+            self._native = bindings.stream(ngram=1, tokenizer=tokenizer)
+
+    def map_file(self, path: str, chunk_bytes: int, start_offset: int = 0):
+        """Native mmap fast path: a ``(MapOutput, next_offset)`` generator
+        over the file, or None for the Python map (the driver then streams
+        the splitter's chunks through ``map_chunk``)."""
+        if self._native is None:
+            return None
+        return self._native.iter_file(path, chunk_bytes, start_offset)
 
     def map_chunk(self, chunk: bytes) -> MapOutput:
+        if self._native is not None:
+            # dictionary carries only the delta of newly seen keys — the
+            # driver's per-chunk dictionary.update() accumulates the union
+            return self._native.map_chunk(chunk)
         toks = tokenize(chunk, self.tokenizer)
         counts = Counter(toks)
         d = HashDictionary()
@@ -63,6 +82,6 @@ class WordCountMapper(Mapper):
                          records_in=len(toks))
 
 
-def make_wordcount(tokenizer: str = "ascii"):
+def make_wordcount(tokenizer: str = "ascii", use_native: bool = True):
     """(mapper, reducer) pair for the word-count workload."""
-    return WordCountMapper(tokenizer), SumReducer()
+    return WordCountMapper(tokenizer, use_native), SumReducer()

@@ -142,3 +142,73 @@ def test_wordcount_and_kmeans_on_the_card_match_the_cpu(cuda, tmp_path):
             backend=backend, kmeans_k=16, kmeans_iters=3,
             metrics=False), "kmeans").centroids
     np.testing.assert_allclose(cents["cuda"], cents["cpu"], atol=1e-3)
+
+
+def test_native_wordcount_on_the_card_matches_the_python_map(cuda, tmp_path):
+    """mapper='auto' (the C++ scan in the prefetch thread, the fold on the
+    card) against mapper='python': the same bytes and top-k."""
+    from map_oxidize_tpu_torch.runtime import resolve_mapper
+
+    rng = np.random.default_rng(43)
+    words = np.array([b"W%d" % i for i in range(5000)])
+    text = b"\n".join(b" ".join(words[rng.zipf(1.2, size=40) % 5000])
+                      for _ in range(3000)) + b"\n"
+    inp = tmp_path / "c.txt"
+    inp.write_bytes(text)
+    outs = {}
+    for mapper in ("auto", "python"):
+        out = tmp_path / f"{mapper}.txt"
+        cfg = JobConfig(input_path=str(inp), output_path=str(out),
+                        chunk_bytes=64 << 10, batch_size=4096,
+                        initial_key_capacity=256, mapper=mapper,
+                        metrics=False)
+        r = run_job(cfg)
+        assert r.metrics["accumulator_device"].startswith("cuda")
+        outs[resolve_mapper(cfg, "wordcount")] = (out.read_bytes(), r.top)
+    assert set(outs) == {"native", "python"}
+    assert outs["native"] == outs["python"]
+
+
+@pytest.mark.parametrize("precision", ["highest", "bf16"])
+def test_kmeans_kill_and_resume_on_the_card_is_bit_equal(cuda, tmp_path,
+                                                         monkeypatch,
+                                                         precision):
+    """Killed by ``on_iter`` after 4 of 10 iterations, resumed from the
+    snapshot: bit-equal to an uninterrupted fit, and the resumed run
+    launches the kernel once per remaining iteration."""
+    import os
+
+    from map_oxidize_tpu_torch.workloads import kmeans as tkm
+
+    rng = np.random.default_rng(44)
+    centres = rng.normal(0, 2, size=(64, 32)).astype(np.float32)
+    pts = (centres[rng.integers(0, 64, size=200_000)]
+           + rng.normal(0, 1.0, size=(200_000, 32))).astype(np.float32)
+    np.save(tmp_path / "p.npy", pts)
+
+    def cfg(ck):
+        return JobConfig(input_path=str(tmp_path / "p.npy"), output_path="",
+                         kmeans_k=64, kmeans_iters=10, checkpoint_dir=ck,
+                         kmeans_precision=precision, metrics=False)
+
+    want = run_job(cfg(None), "kmeans").centroids
+    real = tkm.kmeans_fit_device
+
+    def dying(*a, on_iter=None, **kw):
+        def hook(i, c):
+            on_iter(i, c)
+            if i == 4:
+                raise KeyboardInterrupt("simulated kill")
+        return real(*a, on_iter=hook, **kw)
+
+    ck = str(tmp_path / "ck")
+    monkeypatch.setattr(tkm, "kmeans_fit_device", dying)
+    with pytest.raises(KeyboardInterrupt):
+        run_job(cfg(ck), "kmeans")
+    monkeypatch.setattr(tkm, "kmeans_fit_device", real)
+    fused_assign_sum.launches = 0
+    res = run_job(cfg(ck), "kmeans")
+    assert fused_assign_sum.launches == 6
+    assert res.metrics["resumed_iters"] == 4
+    assert res.centroids.tobytes() == want.tobytes()
+    assert not os.path.isdir(ck)

@@ -42,7 +42,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, map_oxidize_tpu_torch.cli, "
             "map_oxidize_tpu_torch.runtime.driver, "
             "map_oxidize_tpu_torch.workloads.kmeans, "
-            "map_oxidize_tpu_torch.convert\n"
+            "map_oxidize_tpu_torch.convert, "
+            "map_oxidize_tpu_torch.native.build, "
+            "map_oxidize_tpu_torch.runtime.checkpoint\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
@@ -64,10 +66,34 @@ def test_cuda_is_required_unless_cpu_is_asked_for(monkeypatch, tmp_path):
         JobConfig(backend="tpu").validate()
 
 
-@pytest.mark.parametrize("mapper", ["native", "device"])
+@pytest.mark.parametrize("mapper", ["device"])
 def test_unported_mapper_raises_instead_of_swapping(tmp_path, mapper):
     inp = tmp_path / "c.txt"
     inp.write_bytes(b"a b a\n")
     with pytest.raises(NotImplementedError, match="not ported"):
+        run_job(JobConfig(input_path=str(inp), output_path="",
+                          backend="cpu", mapper=mapper))
+
+
+@pytest.mark.parametrize("mapper", ["auto", "native"])
+def test_failed_native_build_raises_instead_of_swapping(tmp_path,
+                                                        monkeypatch, mapper):
+    """No compiler: the native mapper raises with the cause and the way
+    out, and the Python map never runs."""
+    from map_oxidize_tpu_torch.native import build
+    from map_oxidize_tpu_torch.workloads import wordcount
+
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "_build"))
+    monkeypatch.setattr(build, "CXX", str(tmp_path / "no-such-g++"))
+    monkeypatch.setattr(build, "_lib", None)
+
+    def python_map(*a, **k):
+        raise AssertionError("the Python map ran")
+
+    monkeypatch.setattr(wordcount, "tokenize", python_map)
+    inp = tmp_path / "c.txt"
+    inp.write_bytes(b"a b a\n")
+    with pytest.raises(RuntimeError, match="native build failed.*"
+                       "--mapper python"):
         run_job(JobConfig(input_path=str(inp), output_path="",
                           backend="cpu", mapper=mapper))
