@@ -36,7 +36,28 @@ Phases (any failure exits non-zero, before the result line):
              re-mapped); the phase 4 k-means fit in both precisions killed
              after 4 of 10 iterations by an ``on_iter`` that raises, and
              resumed from its snapshot (bit-equal to phase 4's centroids,
-             6 kernel launches).
+             6 kernel launches);
+7. stream    the streamed k-means: seeded blobs, n=2^24, d=64, k=512 (a
+             4 GiB ``.npy``), ``run_job`` with ``mapper='auto'`` and no fit
+             budget set, which must route to ``stream_device``; 5
+             iterations in each precision, launch counts reset just before
+             and read just after (one launch per chunk per iteration),
+             ms/iter, host-to-device bytes and GB/s, ``feed_wait_s`` and
+             ``overlap_ratio``; three stager schedules in turns (depth
+             2 with B=1 as counted, the serial depth 1, and B=8; 2
+             iterations each, two rounds), bit-equal, with their ms/iter;
+             the kernel against its plain version at the chunk shapes; a
+             ``torch.profiler`` window over one iteration (device busy,
+             kernel and copy shares, the kernel's device time per chunk
+             launch); ``mapper='device'`` on the same file
+             (ms/iter) and one iteration of it against one of the stream
+             (counts equal, centroids within 1e-5 * max|x|); the
+             host-assign stream (``mapper='native'``, n=2^20, d=64, k=64)
+             against ``kmeans_model``, twice, bit-equal; a streamed fit at
+             n=2^22 killed after 2 of 5 iterations and resumed with a fit
+             budget under which ``auto`` would pick ``device``: it adopts
+             ``stream_device`` from the snapshot and ends bit-equal to the
+             uninterrupted streamed fit.
 
 Then one JSON line with every kernel, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Inputs are made from fixed
@@ -70,6 +91,10 @@ CHUNK_BYTES = 32 << 20  # JobConfig's default: 8 chunks of the corpus
 VOCAB = 1_000_000
 WC_KILL_AFTER = 3       # chunks mapped before the simulated kill
 KMEANS_KILL_AFTER = 4   # iterations run before the simulated kill
+STREAM_N, STREAM_K, STREAM_ITERS = 1 << 24, 512, 5
+SCHEDULE_ITERS = 2      # iterations per run of the stager schedules
+HOST_N, HOST_K = 1 << 20, 64               # the host-assign stream
+RESUME_N, RESUME_ITERS, RESUME_KILL_AFTER = 1 << 22, 5, 2
 
 
 def log(msg: str) -> None:
@@ -717,6 +742,364 @@ def phase_resume_kmeans(tmp: str, backend: str, km: dict, wrappers) -> dict:
     return out
 
 
+# --- phase 7 ----------------------------------------------------------------
+
+def save_blobs(path: str, n: int, d: int, k: int, seed: int) -> np.ndarray:
+    """:func:`make_blobs`'s distribution, written to a ``.npy`` in slices of
+    2^20 rows (no n x d float64 temporary); returns the centres."""
+    rng = np.random.default_rng(seed)
+    centres = rng.normal(0, 10, size=(k, d)).astype(np.float32)
+    out = np.lib.format.open_memmap(path, mode="w+", dtype=np.float32,
+                                    shape=(n, d))
+    for s in range(0, n, 1 << 20):
+        m = min(1 << 20, n - s)
+        block = rng.standard_normal((m, d), dtype=np.float32)
+        block *= 0.5
+        block += centres[rng.integers(0, k, size=m)]
+        out[s:s + m] = block
+    out[:k] = centres
+    out.flush()
+    del out
+    return centres
+
+
+def device_intervals(prof) -> tuple[list, float, float]:
+    """The device events of a ``torch.profiler`` trace as (start, end, name)
+    in us, and the union of all their intervals and of the copies'."""
+    ev = [(e.time_range.start, e.time_range.end, e.name)
+          for e in prof.events() if str(e.device_type).endswith("CUDA")]
+
+    def union(iv):
+        total, end = 0.0, None
+        for a, b in sorted(iv):
+            if end is None or a > end:
+                total += b - a
+                end = b
+            elif b > end:
+                total += b - end
+                end = b
+        return total
+
+    return (ev, union([(a, b) for a, b, _ in ev]),
+            union([(a, b) for a, b, name in ev if "Memcpy HtoD" in name]))
+
+
+def profile_stream_iteration(path: str, init: np.ndarray, chunk_rows: int,
+                             precision: str) -> dict:
+    """One streamed iteration under ``torch.profiler``: the host window, the
+    device's busy time (union of every device interval), the kernel's and
+    the host-to-device copies' busy time, and the largest device ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from map_oxidize_tpu_torch.workloads.kmeans import (
+        kmeans_fit_streamed_device,
+    )
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        kmeans_fit_streamed_device(path, init, iters=1,
+                                   chunk_rows=chunk_rows, device="cuda",
+                                   precision=precision)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    ev, busy, copy = device_intervals(prof)
+    kernel = sum(b - a for a, b, name in ev if "assign_sum" in name)
+    # the wrapper's three kernels: centroid prep, assign + sum, partials
+    wrapper = sum(b - a for a, b, name in ev if any(
+        t in name for t in ("assign_sum", "prep_centroids", "sum_partials")))
+    ops = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+           if str(e.device_type).endswith("CUDA")
+           and e.self_device_time_total > 0]
+    ops.sort(key=lambda kv: -kv[1])
+    return {"wall_ms": wall_us / 1e3, "busy_share": busy / wall_us,
+            "kernel_share": kernel / wall_us, "copy_share": copy / wall_us,
+            "wrapper_device_ms": wrapper / 1e3, "copy_ms": copy / 1e3,
+            "device_ops": len(ev),
+            "top": [(name[:48], round(t / 1e3, 3)) for name, t in ops[:5]]}
+
+
+def phase_stream(tmp: str, backend: str, wrappers, g) -> dict:
+    """The streamed k-means at n=2^24, d=64, k=512 (see the module
+    docstring, phase 7)."""
+    import torch
+
+    from map_oxidize_tpu_torch.config import JobConfig
+    from map_oxidize_tpu_torch.ops.kmeans_kernel import fused_assign_sum
+    from map_oxidize_tpu_torch.runtime import run_job
+    from map_oxidize_tpu_torch.workloads import kmeans as tkm
+
+    n, d, k = STREAM_N, KMEANS_D, STREAM_K
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "stream_points.npy")
+    save_blobs(path, n, d, k, SEED + 3)
+    log(f"stream input: {n} x {d} points, k={k}, "
+        f"{os.path.getsize(path)} bytes ({time.perf_counter() - t0:.1f} s "
+        "to make)")
+    chunk_rows = CHUNK_BYTES // (4 * (d + 2 * k))
+    n_chunks = -(-n // chunk_rows)
+    tail = n - (n_chunks - 1) * chunk_rows
+    fit_bytes = torch.cuda.mem_get_info()[1] // 2
+    log(f"fit budget (half the card) {fit_bytes} bytes, working set "
+        f"4n(d+2k) = {4 * n * (d + 2 * k)} bytes; chunks of {chunk_rows} "
+        f"rows, {n_chunks} per iteration (tail {tail})")
+
+    def cfg(precision, iters, **kw):
+        return JobConfig(input_path=path, output_path="", backend=backend,
+                         kmeans_k=k, kmeans_iters=iters,
+                         kmeans_precision=precision, metrics=False, **kw)
+
+    out = {"chunk_rows": chunk_rows, "n_chunks": n_chunks,
+           "runs": {}, "configs": []}
+    for w in wrappers:
+        w.launches = 0
+    for precision in ("highest", "bf16"):
+        r = run_job(cfg(precision, STREAM_ITERS), "kmeans")
+        m = r.metrics
+        if m["kmeans_mode"] != "stream_device":
+            raise AssertionError(f"auto routed n={n} to {m['kmeans_mode']}")
+        if not np.isfinite(r.centroids).all() or r.centroids.shape != (k, d):
+            raise AssertionError(f"stream {precision}: bad centroids")
+        ms = m["time/feed_s"] / STREAM_ITERS * 1e3
+        nbytes = n * d * (2 if precision == "bf16" else 4)
+        out["runs"][precision] = {
+            "ms_per_iter": ms, "h2d_bytes_per_iter": nbytes,
+            "gb_per_s": nbytes / ms / 1e6,
+            "feed_wait_s": m.get("pipeline/feed_wait_ms", 0.0) / 1e3,
+            "overlap_ratio": m.get("pipeline/overlap_ratio"),
+            "centroids": r.centroids}
+        log(f"stream_device {precision}: {STREAM_ITERS} iterations in "
+            f"{m['time/feed_s']:.3f} s ({ms:.3f} ms/iter), {nbytes} bytes "
+            f"host->device per iteration ({nbytes / ms / 1e6:.3f} GB/s), "
+            f"feed_wait {m.get('pipeline/feed_wait_ms', 0.0) / 1e3:.3f} s, "
+            f"overlap_ratio {m.get('pipeline/overlap_ratio')}, B "
+            f"{m['dispatch/batch']}")
+    launches = {w.__name__: w.launches for w in wrappers}
+    out["launches"] = launches
+    want = 2 * STREAM_ITERS * n_chunks
+    log(f"stream launches over both runs: {launches} (2 x {STREAM_ITERS} "
+        f"iterations x {n_chunks} chunks = {want})")
+    if launches["fused_assign_sum"] != want:
+        raise AssertionError(f"stream launched {launches}, expected {want}")
+
+    # beside the counted runs, three stager schedules in turns (two
+    # rounds, the second in reverse order): the counted one (depth 2, B 1),
+    # the serial one (depth 1: no stager thread) and blocks of 8 chunks
+    # (the port has no auto-B resolver yet); all give the same bits
+    schedules = (("depth 2, B 1", {}), ("depth 1, B 1",
+                                        dict(pipeline_depth=1)),
+                 ("depth 2, B 8", dict(dispatch_batch=8)))
+    for precision in ("highest", "bf16"):
+        times, ref = {}, None
+        for rnd in range(2):
+            for name, kw in (schedules if rnd == 0 else schedules[::-1]):
+                r = run_job(cfg(precision, SCHEDULE_ITERS, **kw), "kmeans")
+                times.setdefault(name, []).append(
+                    r.metrics["time/feed_s"] / SCHEDULE_ITERS * 1e3)
+                ref = r.centroids if ref is None else ref
+                if r.centroids.tobytes() != ref.tobytes():
+                    raise AssertionError(f"stream_device {precision} {name} "
+                                         "differs from depth 2, B 1")
+        out["runs"][precision]["schedules"] = times
+        log(f"stream_device {precision}, {SCHEDULE_ITERS} iterations per "
+            "run, in turns, ms/iter: " + "; ".join(
+                f"{name} {', '.join(f'{t:.3f}' for t in ts)}"
+                for name, ts in times.items()) + "; all bit-equal")
+
+    # the kernel at the chunk shapes, against its plain version
+    for rows in (chunk_rows, tail):
+        for precision in ("highest", "bf16"):
+            r = check_assign_sum(rows, d, k, precision, False, g)
+            out["configs"].append(r)
+            log(f"kmeans_assign_sum n={rows} k={k} {precision:7s}: kernel "
+                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, p@c.T "
+                f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}, {r['roofline_share']:.1%} of it "
+                f"reached), max|dsum| {r['max_abs_err']:.3g}; {r['plan']}")
+    init = np.load(path, mmap_mode="r")[:k].copy()
+    for precision in ("highest", "bf16"):
+        prof = profile_stream_iteration(path, init, chunk_rows, precision)
+        run = out["runs"][precision]
+        run["profile"] = prof
+        nbytes = run["h2d_bytes_per_iter"]
+        log(f"stream_device {precision} profile of one iteration: "
+            f"{prof['wall_ms']:.3f} ms host window, device busy "
+            f"{prof['busy_share']:.1%} of it (kernel "
+            f"{prof['kernel_share']:.1%}, host->device copies "
+            f"{prof['copy_share']:.1%}: {prof['copy_ms']:.3f} ms, "
+            f"{nbytes / prof['copy_ms'] / 1e6:.3f} GB/s while copying), "
+            f"{prof['device_ops']} device ops; top (ms): {prof['top']}")
+        # device time of the wrapper's kernels per launch; the CUDA-event
+        # time above is of back-to-back calls, which at this size includes
+        # the host's launch gaps
+        kern = prof["wrapper_device_ms"] / n_chunks
+        run["kernel_device_ms_per_chunk"] = kern
+        log(f"stream_device {precision}: the kernel's device time "
+            f"{kern:.4f} ms per chunk launch (prep + assign_sum + "
+            f"sum_partials) x {n_chunks} = {prof['wrapper_device_ms']:.3f} "
+            f"ms of {run['ms_per_iter']:.3f} ms/iter")
+
+    # beside it: the device-resident fit of the same file
+    pts = np.load(path)
+    for precision in ("highest", "bf16"):
+        r = run_job(cfg(precision, STREAM_ITERS, mapper="device"), "kmeans")
+        ms = r.metrics["time/iter_s"] / STREAM_ITERS * 1e3
+        out["runs"][precision]["device_ms_per_iter"] = ms
+        log(f"device {precision} on the same file: {ms:.3f} ms/iter "
+            f"(transfer {r.metrics['time/transfer_s']:.3f} s once)")
+        parts = []
+        c_s = tkm.kmeans_fit_streamed_device(path, init, iters=1,
+                                             chunk_rows=chunk_rows,
+                                             device="cuda",
+                                             precision=precision,
+                                             partials=parts)
+        p = torch.from_numpy(pts).cuda()
+        if precision == "bf16":
+            p = p.to(torch.bfloat16)
+        c0 = torch.from_numpy(init).cuda()
+        _, counts = fused_assign_sum(p, c0, k, precision)
+        c_d = tkm._kmeans_step_impl(c0, p, k, precision).cpu().numpy()
+        counts = counts.cpu().numpy()
+        del p
+        torch.cuda.empty_cache()
+        if not np.array_equal(parts[0][:, -1], counts):
+            raise AssertionError(
+                f"{precision}: stream and device counts differ in "
+                f"{int((parts[0][:, -1] != counts).sum())} centroids")
+        bound = 1e-5 * float(np.abs(pts).max())
+        err = float(np.abs(c_s - c_d).max())
+        if err > bound:
+            raise AssertionError(f"{precision}: stream vs device centroids "
+                                 f"max |d| {err} past {bound}")
+        log(f"{precision}: one streamed iteration against one device-"
+            f"resident iteration: counts equal, centroids max |d| "
+            f"{err:.3g} (bound 1e-5 * max|x| = {bound:.3g})")
+    del pts
+
+    # the host-assign stream
+    hpath = os.path.join(tmp, "host_points.npy")
+    save_blobs(hpath, HOST_N, d, HOST_K, SEED + 4)
+    hpts = np.load(hpath)
+    want_c = tkm.kmeans_model(hpts, hpts[:HOST_K])
+    hcfg = JobConfig(input_path=hpath, output_path="", backend=backend,
+                     kmeans_k=HOST_K, kmeans_iters=1, mapper="native",
+                     metrics=False)
+    host = [run_job(hcfg, "kmeans") for _ in range(2)]
+    m = host[0].metrics
+    if m["kmeans_mode"] != "stream":
+        raise AssertionError(f"mapper=native ran {m['kmeans_mode']}")
+    if host[0].centroids.tobytes() != host[1].centroids.tobytes():
+        raise AssertionError("host-assign stream: two runs differ")
+    if not np.allclose(host[0].centroids, want_c, rtol=1e-4, atol=1e-3):
+        raise AssertionError(
+            f"host-assign stream vs kmeans_model: max |d| "
+            f"{np.abs(host[0].centroids - want_c).max()}")
+    out["host"] = {"ms_per_iter": m["time/iter_s"] * 1e3,
+                   "overlap_ratio": m.get("pipeline/overlap_ratio"),
+                   "second_ms_per_iter": host[1].metrics["time/iter_s"] * 1e3}
+    log(f"stream (host assign, n={HOST_N}, k={HOST_K}): "
+        f"{m['time/iter_s'] * 1e3:.3f} ms/iter "
+        f"(second run {out['host']['second_ms_per_iter']:.3f}), "
+        f"overlap_ratio {m.get('pipeline/overlap_ratio')}; matches "
+        f"kmeans_model (max |d| "
+        f"{np.abs(host[0].centroids - want_c).max():.3g}), two runs "
+        "bit-equal")
+    del hpts
+    out["resume"] = phase_stream_resume(tmp, backend, path, wrappers)
+    return out
+
+
+def phase_stream_resume(tmp: str, backend: str, big: str, wrappers) -> dict:
+    """A streamed fit of the first 2^22 points killed after
+    ``RESUME_KILL_AFTER`` of ``RESUME_ITERS`` iterations, resumed with a fit
+    budget under which ``auto`` would pick ``device``: it adopts
+    ``stream_device`` from the snapshot and ends bit-equal to the
+    uninterrupted streamed fit."""
+    from map_oxidize_tpu_torch.config import JobConfig
+    from map_oxidize_tpu_torch.runtime import run_job
+    from map_oxidize_tpu_torch.workloads import kmeans as tkm
+
+    path = os.path.join(tmp, "resume_points.npy")
+    np.save(path, np.load(big, mmap_mode="r")[:RESUME_N])
+    d, k = KMEANS_D, STREAM_K
+    chunk_rows = CHUNK_BYTES // (4 * (d + 2 * k))
+    n_chunks = -(-RESUME_N // chunk_rows)
+    small = 4 * RESUME_N * (d + 2 * k) - 1  # auto streams under this budget
+    real_fit = tkm.kmeans_fit_streamed_device
+
+    def dying_fit(*a, on_iter=None, **kw):
+        def hook(i, c):
+            on_iter(i, c)
+            if i == RESUME_KILL_AFTER:
+                raise KeyboardInterrupt("simulated kill")
+        return real_fit(*a, on_iter=hook, **kw)
+
+    out = {}
+    for precision in ("highest", "bf16"):
+        ck = os.path.join(tmp, f"stream_checkpoint_{precision}")
+
+        def cfg(fit_bytes, ckdir):
+            return JobConfig(input_path=path, output_path="",
+                             backend=backend, kmeans_k=k,
+                             kmeans_iters=RESUME_ITERS,
+                             kmeans_precision=precision,
+                             kmeans_device_fit_bytes=fit_bytes,
+                             checkpoint_dir=ckdir, metrics=False)
+
+        want = run_job(cfg(small, None), "kmeans")
+        if want.metrics["kmeans_mode"] != "stream_device":
+            raise AssertionError(f"budget {small} ran "
+                                 f"{want.metrics['kmeans_mode']}")
+        for w in wrappers:
+            w.launches = 0
+        tkm.kmeans_fit_streamed_device = dying_fit
+        try:
+            run_job(cfg(small, ck), "kmeans")
+            raise AssertionError("the killed streamed fit ran to its end")
+        except KeyboardInterrupt:
+            pass
+        finally:
+            tkm.kmeans_fit_streamed_device = real_fit
+        killed = {w.__name__: w.launches for w in wrappers}
+        for w in wrappers:
+            w.launches = 0
+        r = run_job(cfg(1 << 50, ck), "kmeans")
+        launches = {w.__name__: w.launches for w in wrappers}
+        ran = RESUME_ITERS - RESUME_KILL_AFTER
+        log(f"stream_device {precision} resume (n={RESUME_N}): killed after "
+            f"{RESUME_KILL_AFTER} iterations (launches {killed}); resumed "
+            f"in mode {r.metrics['kmeans_mode']} at "
+            f"{r.metrics.get('resumed_iters')} -> {r.metrics['iters']}, "
+            f"{r.metrics['time/feed_s'] / ran * 1e3:.3f} ms/iter with a "
+            f"snapshot per iteration (uninterrupted "
+            f"{want.metrics['time/feed_s'] / RESUME_ITERS * 1e3:.3f}), "
+            f"launches {launches}")
+        if killed["fused_assign_sum"] != RESUME_KILL_AFTER * n_chunks:
+            raise AssertionError(f"killed fit launched {killed}")
+        if launches["fused_assign_sum"] != ran * n_chunks:
+            raise AssertionError(f"resumed fit launched {launches}")
+        if (r.metrics["kmeans_mode"] != "stream_device"
+                or r.metrics.get("resumed_iters") != RESUME_KILL_AFTER):
+            raise AssertionError(f"resume did not adopt the snapshot: "
+                                 f"{r.metrics}")
+        if r.centroids.tobytes() != want.centroids.tobytes():
+            raise AssertionError(
+                f"stream_device {precision}: resumed centroids differ from "
+                f"the uninterrupted fit (max |d| "
+                f"{np.abs(r.centroids - want.centroids).max()})")
+        if os.path.exists(ck):
+            raise AssertionError("snapshot left after success")
+        log(f"stream_device {precision} resume: adopted stream_device, "
+            "bit-equal to the uninterrupted streamed fit")
+        out[precision] = {
+            "ms_per_iter": r.metrics["time/feed_s"] / ran * 1e3,
+            "uninterrupted_ms_per_iter":
+                want.metrics["time/feed_s"] / RESUME_ITERS * 1e3}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -732,7 +1115,8 @@ def main() -> int:
     t_start = time.perf_counter()
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+        f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}; host "
+        f"{os.cpu_count()} CPUs")
     resources = build_kernels()
     wrappers = [fused_assign_sum]
     configs = phase_kernels()
@@ -742,10 +1126,15 @@ def main() -> int:
         wc = phase_wordcount(tmp, "cuda", CORPUS_BYTES, VOCAB, wrappers)
         wc_resume = phase_resume_wordcount(tmp, "cuda", wc, wrappers)
         km_resume = phase_resume_kmeans(tmp, "cuda", km, wrappers)
-    launches = km["launches"]["fused_assign_sum"]
-    if launches != 2 * KMEANS_ITERS:
-        raise AssertionError(f"kmeans path launched the kernel {launches} "
-                             f"times, expected {2 * KMEANS_ITERS}")
+        stream = phase_stream(tmp, "cuda", wrappers, torch.Generator(
+            device="cuda").manual_seed(SEED + 5))
+    if km["launches"]["fused_assign_sum"] != 2 * KMEANS_ITERS:
+        raise AssertionError(f"kmeans path launched the kernel "
+                             f"{km['launches']} times, expected "
+                             f"{2 * KMEANS_ITERS}")
+    # the counted runs of both k-means paths: phase 4's and phase 7's
+    launches = (km["launches"]["fused_assign_sum"]
+                + stream["launches"]["fused_assign_sum"])
     main_cfg = next(c for c in configs if c["k"] == KMEANS_K
                     and c["precision"] == "highest" and not c["weighted"])
     kernels = [{
@@ -762,14 +1151,18 @@ def main() -> int:
         "library_ms": main_cfg["library_ms"],
         "checked_against_plain": True,
         "resources": resources,
-        "configs": configs,
+        "configs": configs + stream["configs"],
     }]
     wc_rate = {name: run["metrics"]["records_in"]
                / run["metrics"]["time/job_s"]
                for name, run in wc["runs"].items()}
     log(f"kmeans ms/iter {km['ms_per_iter']}, resumed "
         f"{km_resume['ms_per_iter']}, kernel ms per call "
-        f"{km['kernel_ms']}; wordcount words/s {wc_rate}, resumed "
+        f"{km['kernel_ms']}; stream_device ms/iter "
+        f"{ {p: r['ms_per_iter'] for p, r in stream['runs'].items()} }, "
+        f"device-resident on that file "
+        f"{ {p: r['device_ms_per_iter'] for p, r in stream['runs'].items()} }"
+        f"; wordcount words/s {wc_rate}, resumed "
         f"{wc_resume['mapped'] / wc_resume['metrics']['time/job_s']:.0f} "
         f"(tokens mapped in that run over its job time); "
         f"total {time.perf_counter() - t_start:.1f} s")

@@ -78,8 +78,11 @@ def build_parser() -> argparse.ArgumentParser:
                    default="ascii")
     p.add_argument("--mapper", choices=["auto", "device", "native", "python"],
                    default="auto",
-                   help="map-phase placement: C++ host loop or pure "
-                        "Python (auto: native); device is not ported yet")
+                   help="map-phase placement.  wordcount: C++ host loop "
+                        "or pure Python (auto: native); device is not "
+                        "ported yet.  kmeans: device-resident (device), "
+                        "resident or streamed through the device by fit "
+                        "(auto), host assign (native, python)")
     p.add_argument("--kmeans-k", type=int, default=16,
                    help="k-means cluster count (init: first k points)")
     p.add_argument("--kmeans-iters", type=int, default=1,

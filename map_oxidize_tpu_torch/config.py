@@ -1,8 +1,9 @@
 """Job configuration of the port.
 
 The fields the ported paths read (word count on one device with the native
-or Python host map, the device-resident k-means fit, and checkpoint/resume
-for both), with the JAX package's defaults and validation.  ``backend``
+or Python host map, k-means in its three single-device modes, and
+checkpoint/resume for both), with the JAX package's defaults and
+validation.  ``backend``
 names a torch device family: ``cuda`` (the default) or ``cpu``; nothing
 falls back from one to the other.
 """
@@ -52,8 +53,11 @@ class JobConfig:
     num_shards: int = 0
     #: tokenizer mode: 'ascii' (byte path) or 'unicode'
     tokenizer: str = "ascii"
-    #: map-phase placement: 'native' (the C++ host loop), 'python', or
-    #: 'auto' (= 'native'); 'device' is not ported yet
+    #: map-phase placement.  wordcount: 'native' (the C++ host loop),
+    #: 'python', or 'auto' (= 'native'); 'device' is not ported yet.
+    #: kmeans: 'device' (points resident on the device), 'auto' (resident
+    #: when 4n(d+2k) fits kmeans_device_fit_bytes, else streamed through
+    #: the device), 'native' / 'python' (host assign)
     mapper: str = "auto"
     #: reduce engine: 'fold' (the streaming device accumulator) or 'auto'
     reduce_mode: str = "auto"

@@ -98,7 +98,15 @@ def segment_reduce_sorted(keys, vals, combine: str = "sum"):
     seg_ids = torch.cumsum(new_seg, 0) - 1
     n_seg = seg_ids[-1] + 1
     ident = _identity(combine, vals.dtype)
-    if combine == "sum":
+    if combine == "sum" and vals.dtype.is_floating_point:
+        # each segment summed in row order, as the JAX package's
+        # segment_sum on the CPU: index_add_ on CUDA adds floats with
+        # atomics, in an order that changes from run to run
+        offsets = torch.searchsorted(
+            seg_ids, torch.arange(n + 1, device=keys.device))
+        reduced = torch.segment_reduce(vals, "sum", offsets=offsets, axis=0,
+                                       unsafe=True, initial=0)
+    elif combine == "sum":
         reduced = torch.zeros_like(vals).index_add_(0, seg_ids, vals)
     else:
         # empty segments keep the identity they start from

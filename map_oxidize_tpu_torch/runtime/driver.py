@@ -1,5 +1,6 @@
-"""Job drivers of the port: word count on one device, and the
-device-resident k-means fit.
+"""Job drivers of the port: word count on one device, and k-means in its
+three single-device modes (device-resident, streamed through the device,
+host-assign stream).
 
 Cut down from the JAX package's driver to the single-device fold.  The map
 runs in a bounded prefetch thread (:mod:`~map_oxidize_tpu_torch.runtime.
@@ -41,7 +42,7 @@ from map_oxidize_tpu_torch.runtime.engine import (
     pick_device,
 )
 from map_oxidize_tpu_torch.runtime.executor import run_map_phase
-from map_oxidize_tpu_torch.runtime.pipeline import pipelined
+from map_oxidize_tpu_torch.runtime.pipeline import overlap_ratio, pipelined
 from map_oxidize_tpu_torch.utils.logging import get_logger
 
 _log = get_logger(__name__)
@@ -352,24 +353,61 @@ def _kmeans_device_fit_bytes(config: JobConfig, device: torch.device) -> int:
     return _KMEANS_DEVICE_FIT_BYTES
 
 
+def _adopt_checkpoint_kmeans_mode(config: JobConfig,
+                                  meta_wo_mode: dict) -> str | None:
+    """Best-effort read of an existing snapshot's ``kmeans_mode``.
+
+    An ``auto`` resume must land on the mode its snapshot was cut from even
+    if the auto heuristic would now choose another (a larger fit budget, a
+    bigger card): otherwise the identity mismatch would silently discard
+    training progress.  The stored mode is honoured only when every OTHER
+    identity field matches (a stale foreign checkpoint must not flip a
+    fresh job's mode)."""
+    import json
+    import os
+
+    try:
+        with open(os.path.join(config.checkpoint_dir, "meta.json")) as f:
+            existing = json.load(f)
+    except (OSError, ValueError):
+        return None
+    stored = existing.get("kmeans_mode")
+    if stored not in ("device", "stream", "stream_device"):
+        return None
+    probe = {k: v for k, v in existing.items()
+             if k not in ("kmeans_mode", "kmeans_shards", "version")}
+    want = {k: v for k, v in meta_wo_mode.items()
+            if k not in ("kmeans_mode", "kmeans_shards", "version")}
+    return stored if probe == want else None
+
+
 def run_kmeans_job(config: JobConfig,
                    centroids: np.ndarray | None = None) -> KMeansResult:
-    """k-means over a ``.npy`` float32 ``(n, d)`` points file, device-
-    resident: the points transfer once and every iteration runs on the
-    device.  Initial centroids default to the first ``kmeans_k`` points.
-    The streamed paths (points beyond the fit, or a host mapper) are not
-    ported yet and raise.
+    """k-means over a ``.npy`` float32 ``(n, d)`` points file, in one of
+    three modes (``kmeans_mode`` in the metrics and the checkpoint):
+
+    * ``device`` (``mapper='device'``, and ``'auto'`` when the points fit):
+      the points transfer once and every iteration runs on the device;
+    * ``stream_device`` (``'auto'`` beyond the fit): every iteration
+      streams the points through the device in chunks of
+      ``chunk_bytes // (4 (d + 2k))`` rows;
+    * ``stream`` (``mapper='native'`` or ``'python'``): every iteration
+      assigns on the host in the prefetch thread, in chunks of
+      ``chunk_bytes // (4 d)`` rows, and folds the per-chunk partial sums
+      in the device reduce engine.
+
+    The points file is memory-mapped.  Initial centroids default to the
+    first ``kmeans_k`` points.
 
     With ``config.checkpoint_dir`` set, each iteration ends with one atomic
     snapshot of (centroids, iterations done); a re-run of the same job
-    resumes from it.  ``kmeans_iters`` is not identity: a snapshot at
-    iteration i resumes any same-job run asking for >= i iterations, and one
-    covering every requested iteration is the result.  A successful run
-    deletes its snapshot unless ``keep_intermediates``."""
-    from map_oxidize_tpu_torch.workloads.kmeans import (
-        kmeans_fit_device,
-        write_centroids,
-    )
+    resumes from it, and an ``auto`` run takes the snapshot's mode.
+    ``kmeans_iters`` is not identity: a snapshot at iteration i resumes any
+    same-job run asking for >= i iterations, and one covering every
+    requested iteration is the result.  A successful run deletes its
+    snapshot unless ``keep_intermediates``."""
+    from map_oxidize_tpu_torch.api import SumReducer
+    from map_oxidize_tpu_torch.workloads import kmeans as km
 
     config.validate()
     if config.num_shards > 1:
@@ -387,39 +425,46 @@ def run_kmeans_job(config: JobConfig,
         centroids = np.asarray(pts[:config.kmeans_k], np.float32)
     centroids = np.asarray(centroids, np.float32)
     device = pick_device(config.backend)
-    if config.mapper == "auto":
-        fits = (4 * int(n) * (int(d) + 2 * config.kmeans_k)
-                <= _kmeans_device_fit_bytes(config, device))
-        if not fits:
-            raise NotImplementedError(
-                "points beyond the device fit need the streamed k-means, "
-                "which is not ported yet (ROADMAP: streamed k-means)")
-    elif config.mapper != "device":
-        raise NotImplementedError(
-            f"k-means mapper {config.mapper!r} (host-assign streaming) is "
-            "not ported yet (ROADMAP: streamed k-means); use 'auto' or "
-            "'device'")
-
-    # --- checkpoint/resume: the iteration boundary is k-means's natural
-    # materialization barrier (centroids fully summarize progress).  k,
-    # mode, shard count, backend and precision change the float
+    # k, mode, shard count, backend and precision change the float
     # accumulation order, so they are identity; the digest pins the INITIAL
     # centroids, so a different init invalidates rather than being silently
     # overridden.  The keys are the JAX package's.
+    identity = {
+        "kmeans_k": config.kmeans_k,
+        "kmeans_backend": config.backend,
+        "kmeans_precision": config.kmeans_precision,
+        "kmeans_init": hashlib.sha256(centroids.tobytes()).hexdigest()[:16],
+    }
+    if config.mapper == "device":
+        mode = "device"
+    elif config.mapper == "auto":
+        # the working set the JAX package budgets for: points plus the
+        # (n, k) distance and one-hot intermediates (the fused kernel never
+        # allocates them; the formula is kept so that both packages pick
+        # the same mode, and so the same checkpoint identity)
+        fits = (4 * int(n) * (int(d) + 2 * config.kmeans_k)
+                <= _kmeans_device_fit_bytes(config, device))
+        mode = "device" if fits else "stream_device"
+        if config.checkpoint_dir:
+            # an existing snapshot's mode wins over the heuristic: resume
+            # continues the trajectory it was cut from
+            stored = _adopt_checkpoint_kmeans_mode(
+                config, CheckpointStore.job_meta(config, "kmeans",
+                                                 extra=identity))
+            if stored is not None:
+                mode = stored
+    else:
+        mode = "stream"
+
+    # --- checkpoint/resume: the iteration boundary is k-means's natural
+    # materialization barrier (centroids fully summarize progress)
     store = None
     start_iter = 0
     if config.checkpoint_dir:
         store = CheckpointStore(
             config.checkpoint_dir,
             CheckpointStore.job_meta(config, "kmeans", extra={
-                "kmeans_k": config.kmeans_k,
-                "kmeans_mode": "device",
-                "kmeans_shards": 1,
-                "kmeans_backend": config.backend,
-                "kmeans_precision": config.kmeans_precision,
-                "kmeans_init": hashlib.sha256(
-                    centroids.tobytes()).hexdigest()[:16],
-            }))
+                **identity, "kmeans_mode": mode, "kmeans_shards": 1}))
         snap = store.load_snapshot()
         if snap is not None:
             state, _d, start_iter, _n, _x = snap
@@ -430,21 +475,65 @@ def run_kmeans_job(config: JobConfig,
         store.save_snapshot({"centroids": np.asarray(c, np.float32)},
                             HashDictionary(), start_iter + i, start_iter + i)
 
-    timings: dict = {}
+    on_iter = _iter_done if store is not None else None
+    metrics: dict = {}
     remaining = config.kmeans_iters - start_iter
-    if remaining > 0:
-        centroids = kmeans_fit_device(
-            pts, centroids, iters=remaining, device=device,
-            on_iter=_iter_done if store is not None else None,
-            timings=timings, precision=config.kmeans_precision)
-    elif remaining < 0:
+    if remaining < 0:
         # the snapshot already covers every requested iteration; its state
         # IS the result (use a fresh checkpoint_dir to recompute)
         _log.warning("checkpoint has %d iterations, more than the %d "
                      "requested; returning the snapshotted state",
                      start_iter, config.kmeans_iters)
+    elif remaining > 0 and mode == "device":
+        timings: dict = {}
+        centroids = km.kmeans_fit_device(
+            pts, centroids, iters=remaining, device=device, on_iter=on_iter,
+            timings=timings, precision=config.kmeans_precision)
+        metrics.update({f"time/{k}": v for k, v in timings.items()})
+    elif remaining > 0 and mode == "stream_device":
+        # the divisor budgets the per-chunk working set as the fit
+        # heuristic does; chunking does not depend on dispatch_batch
+        chunk_rows = max(1, config.chunk_bytes
+                         // (4 * (int(d) + 2 * config.kmeans_k)))
+        timings = {}
+        centroids = km.kmeans_fit_streamed_device(
+            config.input_path, centroids, iters=remaining,
+            chunk_rows=chunk_rows, device=device,
+            precision=config.kmeans_precision, timings=timings,
+            on_iter=on_iter, pipeline_depth=config.pipeline_depth,
+            dispatch_batch=config.dispatch_batch)
+        metrics["time/feed_s"] = timings["feed_s"]
+        metrics["dispatch/batch"] = timings["dispatch_batch"]
+        if "overlap_ratio" in timings:
+            metrics["pipeline/feed_wait_ms"] = timings["feed_wait_s"] * 1e3
+            metrics["pipeline/overlap_ratio"] = timings["overlap_ratio"]
+    elif remaining > 0:
+        # the host assign (map_chunk) runs in the prefetch thread, so
+        # assigning chunk i+1 overlaps chunk i's engine feed
+        rows = max(1, config.chunk_bytes // (4 * d))
+        pipe: dict = {}
+        t0 = time.perf_counter()
+        for it in range(start_iter, config.kmeans_iters):
+            engine = make_engine(config, SumReducer(), value_shape=(d + 1,),
+                                 value_dtype=np.float32)
+            mapper = km.KMeansMapper(centroids)
+            mapped = pipelined(
+                (mapper.map_chunk(c) for c in
+                 km.iter_point_chunks(config.input_path, rows)),
+                config.pipeline_depth, name="kmeans/map", timings=pipe)
+            centroids = km.kmeans_iteration(engine, centroids, (),
+                                            mapper=mapper, mapped=mapped)
+            if on_iter is not None:
+                on_iter(it + 1 - start_iter, centroids)
+        metrics["time/iter_s"] = time.perf_counter() - t0
+        if pipe.get("produce_s"):
+            metrics["pipeline/depth"] = config.pipeline_depth
+            metrics["pipeline/produce_ms"] = pipe["produce_s"] * 1e3
+            metrics["pipeline/feed_wait_ms"] = pipe["wait_s"] * 1e3
+            metrics["pipeline/overlap_ratio"] = round(
+                overlap_ratio(pipe["produce_s"], pipe["wait_s"]), 4)
     if config.output_path:
-        write_centroids(config.output_path, centroids)
+        km.write_centroids(config.output_path, centroids)
     ran_iters = max(remaining, 0)
     if store is not None:
         # a zero-work run (the snapshot already covered every requested
@@ -455,13 +544,14 @@ def run_kmeans_job(config: JobConfig,
     # remaining iterations; ``iters`` is what the centroids represent
     metrics = {
         "workload": "kmeans",
-        "kmeans_mode": "device",
+        "kmeans_mode": mode,
+        "kmeans_shards": 1,
         "device": str(device),
         "records_in": int(n) * ran_iters,
         "points": int(n),
         "dim": int(d),
         "iters": start_iter + ran_iters,
-        **{f"time/{k}": v for k, v in timings.items()},
+        **metrics,
     }
     if start_iter:
         metrics["resumed_iters"] = start_iter

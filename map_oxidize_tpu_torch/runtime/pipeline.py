@@ -7,7 +7,12 @@ device dispatch.
 
 :class:`ChunkPrefetcher` wraps ANY iterator with a depth-``N`` bounded
 queue (the backpressure bound: at most ``depth`` chunks of host memory in
-flight).
+flight) and measures the overlap it achieved:
+
+* ``produce_s`` — host time spent producing items (the work to hide);
+* ``wait_s``    — consumer time spent stalled for the next item (the part
+  of ``produce_s`` that was NOT hidden);
+* ``overlap_ratio`` — ``1 - wait_s / produce_s``.
 
 Ordering is the queue's FIFO, i.e. identical to the serial iteration, so
 outputs — including checkpoint spill order and kill-resume replay — are
@@ -18,17 +23,36 @@ iteration.
 
 ``pipelined()`` is the driver-facing wrapper: depth <= 1 returns the
 iterator untouched (the serial schedule, no thread).
+
+:class:`BlockStager` is the prefetcher as a device stager: its producer
+runs the caller's ``stage_fn`` over pre-grouped blocks (:func:`chunk_groups`),
+which fills a :class:`StagingRing` slot and issues the block's
+host-to-device copy, so staging and transferring block i+1 overlap the
+device's work on block i.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Iterable, Iterator, TypeVar
+
+import numpy as np
+import torch
 
 T = TypeVar("T")
 
 _DONE = object()
+
+
+def overlap_ratio(produce_s: float, wait_s: float) -> float:
+    """Fraction of host produce time hidden behind consumer work: 1.0 means
+    every produce second ran behind the consumer, 0.0 the serial
+    schedule."""
+    if produce_s <= 0.0:
+        return 1.0
+    return max(0.0, 1.0 - wait_s / produce_s)
 
 
 class ChunkPrefetcher:
@@ -51,15 +75,21 @@ class ChunkPrefetcher:
         self._err: BaseException | None = None
         self._thread = threading.Thread(target=self._produce, daemon=True,
                                         name=f"{name}-prefetch")
+        #: host time spent producing items
+        self.produce_s = 0.0
+        #: consumer time spent stalled waiting for the next item
+        self.wait_s = 0.0
 
     # --- producer ---------------------------------------------------------
 
     def _produce(self) -> None:
         try:
             while not self._stop:
+                t0 = time.perf_counter()
                 item = next(self._it, _DONE)
                 if item is _DONE:
                     return
+                self.produce_s += time.perf_counter() - t0
                 # timed put loop instead of a blocking put: an abandoned
                 # consumer only drains once, so a producer stuck in a
                 # plain put() could miss the wakeup and leak its chunk
@@ -83,11 +113,17 @@ class ChunkPrefetcher:
 
     # --- consumer ---------------------------------------------------------
 
+    @property
+    def overlap_ratio(self) -> float:
+        return overlap_ratio(self.produce_s, self.wait_s)
+
     def __iter__(self) -> Iterator[T]:
         self._thread.start()
         try:
             while True:
+                t0 = time.perf_counter()
                 item = self._q.get()
+                self.wait_s += time.perf_counter() - t0
                 if item is _DONE:
                     if self._err is not None:
                         raise self._err
@@ -104,12 +140,148 @@ class ChunkPrefetcher:
                 pass
 
 
-def pipelined(it: Iterable[T], depth: int,
-              name: str = "pipeline") -> Iterable[T]:
+def pipelined(it: Iterable[T], depth: int, name: str = "pipeline",
+              timings: dict | None = None) -> Iterable[T]:
     """Prefetch ``it`` with ``depth - 1`` items queued ahead of the one the
     consumer holds.  ``depth <= 1`` returns ``it`` unchanged — the serial
     schedule, no thread — so ``--pipeline-depth 1`` is a true control
-    arm, not a degenerate pipeline."""
+    arm, not a degenerate pipeline.  ``timings`` (a dict) accumulates the
+    prefetcher's ``produce_s`` and ``wait_s`` when the stream ends."""
     if depth <= 1:
         return it
-    return iter(ChunkPrefetcher(it, depth - 1, name=name))
+    pf = ChunkPrefetcher(it, depth - 1, name=name)
+    if timings is None:
+        return iter(pf)
+
+    def _run():
+        try:
+            yield from pf
+        finally:
+            timings["produce_s"] = timings.get("produce_s", 0.0) + pf.produce_s
+            timings["wait_s"] = timings.get("wait_s", 0.0) + pf.wait_s
+
+    return _run()
+
+
+def chunk_groups(items: Iterable, batch: int) -> list:
+    """Group ``items`` into lists of at most ``batch`` (the last group may
+    be short): the block layout :func:`staged_blocks` and
+    :class:`BlockStager` consume."""
+    if batch < 1:
+        raise ValueError(f"dispatch batch must be >= 1, got {batch}")
+    items = list(items)
+    return [items[i:i + batch] for i in range(0, len(items), batch)]
+
+
+def staged_blocks(groups: Iterable, stage_fn):
+    """Serial staging: yields ``stage_fn(group)`` for each group (the
+    ``depth <= 1`` control arm of :class:`BlockStager`, and its producer
+    body)."""
+    for group in groups:
+        yield stage_fn(group)
+
+
+class BlockStager(ChunkPrefetcher):
+    """Runs ``stage_fn(group)`` for each pre-built group in the producer
+    thread, so staging (and the host-to-device copy it issues) of block
+    i+1 overlaps the consumer's work on block i.  The group sequence may
+    span the iterations of a multi-pass consumer: data blocks do not
+    depend on the consumer's evolving state, so iteration i+1's first
+    block stages while iteration i's last block computes.
+
+    ``stage_fn`` must not refill memory that a block in flight still
+    reads (the CUDA form of the JAX package's ownership handoff at the
+    put): :class:`StagingRing` guards its slots with events.
+    ``produce_s`` measures staging per block, ``wait_s`` the consumer's
+    stalls."""
+
+    def __init__(self, groups: Iterable, stage_fn, depth: int = 1,
+                 name: str = "stager"):
+        super().__init__(staged_blocks(groups, stage_fn), depth, name=name)
+
+
+class StagingRing:
+    """A fixed ring of ``slots`` staging blocks of ``rows`` x ``d`` points
+    of ``dtype``, for a producer (:meth:`stage`) and a consumer
+    (:meth:`acquire` / :meth:`release`) in one or two threads.
+
+    On a CUDA device each slot is a pinned host buffer and a device block.
+    :meth:`stage` fills the pinned buffer from a host array (cast to
+    ``dtype``, round to nearest even for bf16) and copies it to the device
+    block on a copy stream, recording the slot's ``copied`` event;
+    :meth:`acquire` makes the consumer's current stream wait on that event;
+    :meth:`release` records the slot's ``released`` event on the current
+    stream after the launches that read the block.  Before refilling a
+    slot, :meth:`stage` waits on the host for its ``released`` event, so
+    neither the pinned buffer nor the device block is overwritten while a
+    copy or a kernel still reads it.  A fixed ring also keeps the caching
+    allocator out of frees across streams.  A pinned buffer refilled from
+    pageable memory is what makes the copy asynchronous: a
+    ``non_blocking`` copy from pageable memory runs synchronously.
+
+    On the CPU a slot is one host tensor, which is also the block: no
+    pinned memory, no streams, no copy.
+
+    Blocks stage in sequence order, block ``seq`` into slot ``seq %
+    slots``; with a producer at most ``slots - 2`` blocks ahead of the
+    consumer (a :class:`BlockStager` of depth ``slots - 2``, or serial
+    staging with ``slots >= 2``), block ``seq - slots`` was released before
+    block ``seq`` stages.  :meth:`stage` checks that and raises if not."""
+
+    def __init__(self, slots: int, rows: int, d: int, dtype: torch.dtype,
+                 device: torch.device):
+        self.slots = slots
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        shape = (rows, d)
+        self._host = [torch.empty(shape, dtype=dtype, pin_memory=self.cuda)
+                      for _ in range(slots)]
+        # bf16 has no NumPy dtype: fill an f32 buffer, then cast in torch
+        self._f32 = (np.empty(shape, np.float32) if dtype != torch.float32
+                     else None)
+        self._released_seq = [-1] * slots
+        if self.cuda:
+            self._dev = [torch.empty(shape, dtype=dtype, device=self.device)
+                         for _ in range(slots)]
+            self._copy_stream = torch.cuda.Stream(self.device)
+            self._copied = [torch.cuda.Event() for _ in range(slots)]
+            self._released = [torch.cuda.Event() for _ in range(slots)]
+        else:
+            self._dev = self._host
+
+    def stage(self, seq: int, src: np.ndarray) -> int:
+        """Fill slot ``seq % slots`` with the rows of ``src`` and, on CUDA,
+        start their copy to the device.  Returns the slot."""
+        slot = seq % self.slots
+        if seq >= self.slots and self._released_seq[slot] != seq - self.slots:
+            raise RuntimeError(
+                f"staging ring overrun: block {seq} would refill slot {slot} "
+                f"before block {seq - self.slots} was released")
+        m = src.shape[0]
+        if self.cuda:
+            self._released[slot].synchronize()
+        host = self._host[slot]
+        if self._f32 is None:
+            np.copyto(host.numpy()[:m], src)
+        else:
+            np.copyto(self._f32[:m], src)
+            host[:m].copy_(torch.from_numpy(self._f32[:m]))
+        if self.cuda:
+            with torch.cuda.stream(self._copy_stream):
+                self._dev[slot][:m].copy_(host[:m], non_blocking=True)
+                self._copied[slot].record(self._copy_stream)
+        return slot
+
+    def acquire(self, slot: int) -> torch.Tensor:
+        """The slot's block, ordered after its copy on the current stream."""
+        if self.cuda:
+            torch.cuda.current_stream(self.device).wait_event(
+                self._copied[slot])
+        return self._dev[slot]
+
+    def release(self, slot: int, seq: int) -> None:
+        """The launches that read block ``seq`` in ``slot`` are issued; the
+        slot may be refilled once they finish."""
+        if self.cuda:
+            self._released[slot].record(torch.cuda.current_stream(self.device))
+        self._released_seq[slot] = seq

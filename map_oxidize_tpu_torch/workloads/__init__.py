@@ -1,1 +1,1 @@
-"""Built-in workloads of the port: word count and device-resident k-means."""
+"""Built-in workloads of the port: word count and k-means."""

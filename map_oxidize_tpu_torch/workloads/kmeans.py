@@ -1,4 +1,5 @@
-"""k-means with the points resident in device memory.
+"""k-means: the device-resident fit, the fit streamed through the device,
+and the host-assign stream.
 
 MapReduce formulation, as in the JAX package:
 
@@ -6,12 +7,22 @@ MapReduce formulation, as in the JAX package:
     reduce: per-key vector sum
     emit:   new centroid c_k = sum_k[:d] / sum_k[d]
 
-:func:`kmeans_fit_device` puts the points on the device ONCE and runs every
-iteration there; each iteration is one call of the fused assign + sum
+Three fits, one per ``kmeans_mode`` of the driver:
+
+* :func:`kmeans_fit_device` (``device``) puts the points on the device ONCE
+  and runs every iteration there;
+* :func:`kmeans_fit_streamed_device` (``stream_device``) streams the points
+  through the device in fixed-row chunks every iteration, for point sets
+  beyond the device fit;
+* :class:`KMeansMapper` + :func:`kmeans_iteration` (``stream``) assign on
+  the host with NumPy and fold the per-chunk partial sums as ``(d+1,)`` f32
+  values in the device reduce engine.
+
+The device fits call the fused assign + sum
 (:func:`~map_oxidize_tpu_torch.ops.kmeans_kernel.fused_assign_sum`: the
 hand-written CUDA kernel for a CUDA tensor, its plain version for a CPU
-tensor) and a centroid update.  Only the final ``(k, d)`` centroids cross
-back.  Input convention: a ``.npy`` file of float32 ``(n, d)`` points.
+tensor) and a centroid update on the device.  Input convention: a ``.npy``
+file of float32 ``(n, d)`` points, memory-mapped and read by row ranges.
 """
 
 from __future__ import annotations
@@ -22,13 +33,16 @@ import time
 import numpy as np
 import torch
 
+from map_oxidize_tpu_torch.api import Mapper, MapOutput, SumReducer
 from map_oxidize_tpu_torch.ops.kmeans_kernel import (
     fused_assign_sum,
     fused_assign_sum_plain as assign_and_sum,
 )
 
-__all__ = ["assign_and_sum", "assign_points", "kmeans_fit_device",
-           "kmeans_model", "write_centroids"]
+__all__ = ["KMeansMapper", "assign_and_sum", "assign_points",
+           "iter_point_chunks", "kmeans_fit_device",
+           "kmeans_fit_streamed_device", "kmeans_iteration", "kmeans_model",
+           "make_kmeans", "write_centroids"]
 
 
 def assign_points(points: np.ndarray, centroids: np.ndarray) -> np.ndarray:
@@ -36,6 +50,92 @@ def assign_points(points: np.ndarray, centroids: np.ndarray) -> np.ndarray:
     (the ||p||^2 term is constant per point and dropped)."""
     d2 = -2.0 * points @ centroids.T + (centroids * centroids).sum(1)
     return np.argmin(d2, axis=1).astype(np.int32)
+
+
+class KMeansMapper(Mapper):
+    """Chunk of points -> per-centroid partial ``[sum_x..., count]`` rows
+    (keys ``hi = 0, lo = centroid id``, no dictionary)."""
+
+    value_dtype = np.float32
+    keys_have_dictionary = False
+
+    def __init__(self, centroids: np.ndarray):
+        self.centroids = np.asarray(centroids, np.float32)
+        self.k, self.d = self.centroids.shape
+        self.value_shape = (self.d + 1,)
+
+    def map_chunk(self, points) -> MapOutput:
+        points = np.asarray(points, np.float32)
+        n = points.shape[0]
+        if n == 0:
+            return MapOutput(hi=np.empty(0, np.uint32),
+                             lo=np.empty(0, np.uint32),
+                             values=np.empty((0, self.d + 1), np.float32),
+                             records_in=0)
+        cid = assign_points(points, self.centroids)
+        # per-chunk combine: one row per non-empty centroid (a bincount per
+        # dimension is O(n*d) with no Python work per point)
+        sums = np.empty((self.k, self.d + 1), np.float32)
+        for j in range(self.d):
+            sums[:, j] = np.bincount(cid, weights=points[:, j],
+                                     minlength=self.k)
+        counts = np.bincount(cid, minlength=self.k)
+        sums[:, self.d] = counts
+        live = counts > 0
+        ids = np.nonzero(live)[0].astype(np.uint32)
+        return MapOutput(hi=np.zeros(ids.shape[0], np.uint32), lo=ids,
+                         values=sums[live], records_in=n)
+
+
+def iter_point_chunks(path: str, rows_per_chunk: int):
+    """Stream ``(n, d)`` float32 rows from a .npy file without loading it
+    (``np.load`` memory-maps; slices fault in lazily)."""
+    pts = np.load(path, mmap_mode="r")
+    for start in range(0, pts.shape[0], rows_per_chunk):
+        yield np.asarray(pts[start:start + rows_per_chunk], np.float32)
+
+
+def kmeans_iteration(engine, centroids: np.ndarray, chunks,
+                     mapper: "KMeansMapper | None" = None,
+                     mapped=None) -> np.ndarray:
+    """One host-assign iteration: feed every chunk's partial sums through
+    the engine, reduce on the device, return the updated centroids.  An
+    empty centroid keeps its position.
+
+    ``mapped`` (an iterable of MapOutputs) replaces the chunk + map loop
+    when the caller runs the host assign elsewhere (the driver passes a
+    prefetch-pipelined map stream)."""
+    centroids = np.asarray(centroids, np.float32)
+    if mapped is None:
+        if mapper is None:
+            mapper = KMeansMapper(centroids)
+        mapped = (mapper.map_chunk(chunk) for chunk in chunks)
+    n_points = 0
+    for out in mapped:
+        n_points += out.records_in
+        engine.feed(out)
+    hi, lo, vals, _n = engine.finalize()
+    live = ~(hi == np.uint32(0xFFFFFFFF))  # the SENTINEL hi plane pads
+    ids = lo[live].astype(np.int64)
+    sums = vals[live]
+    new = centroids.copy()
+    counts = sums[:, -1]
+    # conservation: every point lands in exactly one centroid's count.
+    # Counts fold as f32, which rounds once a cluster passes 2^24 points,
+    # so the check has a tolerance
+    total = float(np.asarray(counts, np.float64).sum())
+    if n_points and abs(total - n_points) > max(1.0, 1e-4 * n_points):
+        raise RuntimeError(
+            f"k-means conservation violated: {n_points} points in, "
+            f"{total} counted")
+    nz = counts > 0
+    new[ids[nz]] = sums[nz, :-1] / counts[nz, None]
+    return new
+
+
+def make_kmeans(centroids: np.ndarray):
+    """(mapper, reducer) pair of the host-assign k-means."""
+    return KMeansMapper(centroids), SumReducer()
 
 
 def kmeans_model(points: np.ndarray, centroids: np.ndarray) -> np.ndarray:
@@ -103,6 +203,110 @@ def kmeans_fit_device(points, centroids, iters: int = 1, device=None,
     out = c.cpu().numpy()
     if timings is not None:
         timings["iter_s"] = time.perf_counter() - t0
+    return out
+
+
+def kmeans_fit_streamed_device(path: str, centroids, iters: int = 1,
+                               chunk_rows: int = 1 << 21, device=None,
+                               precision: str = "highest",
+                               timings: dict | None = None, on_iter=None,
+                               pipeline_depth: int = 2,
+                               dispatch_batch: int = 0,
+                               partials: list | None = None) -> np.ndarray:
+    """k-means beyond the device fit: every iteration streams the points of
+    the ``.npy`` file at ``path`` through ``device`` in chunks of
+    ``chunk_rows`` rows; the centroids stay on the device.
+
+    Each chunk is one call of the fused assign + sum on its real rows (the
+    kernel takes any row count, so a short tail chunk needs no padding);
+    its ``(k, d+1)`` partial adds to an f32 accumulator in chunk order,
+    starting from zeros, and the last chunk of an iteration moves every
+    non-empty centroid to its mean (an empty one keeps its position).
+    Chunks stage in blocks of ``dispatch_batch`` (B; 0 means 1) through a
+    :class:`~map_oxidize_tpu_torch.runtime.pipeline.StagingRing` of
+    ``pipeline_depth + 1`` slots; with ``pipeline_depth > 1`` one
+    :class:`~map_oxidize_tpu_torch.runtime.pipeline.BlockStager` thread
+    spans every iteration, filling pinned buffers from the memory map and
+    copying them on a copy stream while the device works on earlier
+    blocks.  The accumulation order is the left fold of per-chunk partials
+    whatever B and the depth, so the result is bit-identical across both.
+    In ``bf16`` mode the chunks are rounded to bf16 on the host before the
+    copy (half the bytes over the link).
+
+    ``on_iter(i, centroids_np)`` sees the state after each iteration (one
+    ``(k, d)`` fetch).  ``partials``, a list, receives each iteration's
+    ``(k, d+1)`` accumulator (sums, counts) as NumPy (one more fetch).
+    ``timings`` receives ``feed_s`` (the whole block loop, synchronised),
+    ``dispatch_batch`` and, when a stager thread ran, ``feed_wait_s`` and
+    ``overlap_ratio``."""
+    from map_oxidize_tpu_torch.runtime.pipeline import (
+        BlockStager,
+        StagingRing,
+        chunk_groups,
+        staged_blocks,
+    )
+
+    if device is None:
+        from map_oxidize_tpu_torch.runtime.engine import pick_device
+
+        device = pick_device("cuda")
+    device = torch.device(device)
+    pts = np.load(path, mmap_mode="r")
+    n, d = pts.shape
+    c = torch.from_numpy(np.array(centroids, np.float32)).to(device)
+    k = c.shape[0]
+    chunk_rows = max(1, min(chunk_rows, n))
+    starts = list(range(0, n, chunk_rows))
+    B = max(1, dispatch_batch)
+    groups = chunk_groups(starts, B)
+    n_blocks = len(groups)
+    dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+    ring = StagingRing(pipeline_depth + 1, B * chunk_rows, d, dtype, device)
+
+    def _stage(item):
+        seq, group = item
+        lo, hi = group[0], min(group[-1] + chunk_rows, n)
+        return seq, ring.stage(seq, pts[lo:hi]), group
+
+    t0 = time.perf_counter()
+    # ONE stager spans every iteration: the blocks do not depend on the
+    # centroids, so iteration i+1's first block stages while iteration i's
+    # last block computes
+    all_groups = list(enumerate(groups * iters))
+    pf = None
+    if pipeline_depth > 1 and len(all_groups) > 1:
+        pf = BlockStager(all_groups, _stage, depth=pipeline_depth - 1,
+                         name="kmeans/stage")
+        blocks = iter(pf)
+    else:
+        blocks = staged_blocks(all_groups, _stage)
+    acc = None
+    for seq, slot, group in blocks:
+        bi = seq % n_blocks
+        if bi == 0:
+            acc = torch.zeros((k, d + 1), dtype=torch.float32, device=device)
+        block = ring.acquire(slot)
+        for s in group:
+            lo, hi = s - group[0], min(s + chunk_rows, n) - group[0]
+            sums, counts = fused_assign_sum(block[lo:hi], c, k, precision)
+            acc[:, :d] += sums
+            acc[:, d] += counts
+        ring.release(slot, seq)
+        if bi == n_blocks - 1:
+            counts = acc[:, d:]
+            c = torch.where(counts > 0, acc[:, :d] / counts.clamp_min(1.0),
+                            c)
+            if partials is not None:
+                partials.append(acc.cpu().numpy())
+            if on_iter is not None:
+                on_iter(seq // n_blocks + 1, c.cpu().numpy())
+    out = c.cpu().numpy()
+    if timings is not None:
+        timings["feed_s"] = time.perf_counter() - t0
+        timings["dispatch_batch"] = B
+        if pf is not None and pf.produce_s:
+            timings["feed_wait_s"] = pf.wait_s
+            timings["overlap_ratio"] = round(pf.overlap_ratio, 4)
     return out
 
 

@@ -1,5 +1,6 @@
 """Tests of the port that need a CUDA card: the hand-written kernel against
-its plain version, and the fold on the card against the fold on the CPU.
+its plain version, the fold on the card against the fold on the CPU, and
+the streamed k-means through the pinned staging ring.
 They skip without a card.  On a card (no JAX needed):
 
     python -m pytest tests/test_torch_cuda.py -m cuda
@@ -212,3 +213,135 @@ def test_kmeans_kill_and_resume_on_the_card_is_bit_equal(cuda, tmp_path,
     assert res.metrics["resumed_iters"] == 4
     assert res.centroids.tobytes() == want.tobytes()
     assert not os.path.isdir(ck)
+
+
+# --- the streamed k-means ---------------------------------------------------
+
+
+def _int_points(seed, n, d, k):
+    """Integer points (exact in f32 and bf16, every sum exact) in clusters
+    20 apart: every streamed schedule and the CPU give the same bits."""
+    rng = np.random.default_rng(seed)
+    centres = 20 * rng.integers(-2, 3, size=(k, d))
+    centres[:, 0] = 20 * np.arange(k) - 20 * (k // 2)
+    pts = (centres[rng.integers(0, k, size=n)]
+           + rng.integers(-3, 4, size=(n, d))).astype(np.float32)
+    pts[:k] = centres
+    return pts
+
+
+def test_stream_device_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """``mapper='auto'`` past a tiny fit budget streams through the card:
+    ``kmeans_mode`` says so, the kernel launches once per chunk per
+    iteration, and the centroids are within atol 1e-3 of the CPU backend's
+    (the sums add in another order), in both precisions."""
+    from map_oxidize_tpu_torch.workloads.kmeans import kmeans_model
+
+    rng = np.random.default_rng(45)
+    centres = rng.normal(0, 10, size=(16, 8)).astype(np.float32)
+    pts = (centres[rng.integers(0, 16, size=20_000)]
+           + rng.normal(0, 0.5, size=(20_000, 8))).astype(np.float32)
+    pts[:16] = centres
+    np.save(tmp_path / "p.npy", pts)
+    chunk_rows = 4096 // (4 * (8 + 2 * 16))
+    n_chunks = -(-20_000 // chunk_rows)
+    for precision in ("highest", "bf16"):
+        cents = {}
+        for backend in ("cuda", "cpu"):
+            fused_assign_sum.launches = 0
+            r = run_job(JobConfig(
+                input_path=str(tmp_path / "p.npy"), output_path="",
+                backend=backend, kmeans_k=16, kmeans_iters=3,
+                chunk_bytes=4096, kmeans_device_fit_bytes=64,
+                kmeans_precision=precision, metrics=False), "kmeans")
+            assert r.metrics["kmeans_mode"] == "stream_device"
+            assert r.metrics["device"].startswith(backend)
+            assert fused_assign_sum.launches == (
+                3 * n_chunks if backend == "cuda" else 0)
+            cents[backend] = r.centroids
+        np.testing.assert_allclose(cents["cuda"], cents["cpu"], atol=1e-3)
+        if precision == "highest":
+            want = pts[:16]
+            for _ in range(3):
+                want = kmeans_model(pts, want)
+            np.testing.assert_allclose(cents["cuda"], want, atol=1e-3)
+
+
+@pytest.mark.parametrize("precision", ["highest", "bf16"])
+def test_stream_device_is_bit_identical_across_b_and_depth(cuda, tmp_path,
+                                                           precision):
+    """Integer inputs, 29 chunks with a ragged tail: every B and depth gives
+    the CPU backend's bits, and the ring stages through pinned memory."""
+    from map_oxidize_tpu_torch.runtime.pipeline import StagingRing
+    from map_oxidize_tpu_torch.workloads.kmeans import (
+        kmeans_fit_streamed_device,
+    )
+
+    pts = _int_points(46, 20_003, 16, 8)
+    path = str(tmp_path / "p.npy")
+    np.save(path, pts)
+    kw = dict(iters=3, chunk_rows=700, precision=precision)
+    want = kmeans_fit_streamed_device(path, pts[:8], device="cpu", **kw)
+    for batch in (1, 2, 3, 7):
+        for depth in (1, 2, 3):
+            got = kmeans_fit_streamed_device(path, pts[:8], device=cuda,
+                                             dispatch_batch=batch,
+                                             pipeline_depth=depth, **kw)
+            assert got.tobytes() == want.tobytes(), (batch, depth)
+    ring = StagingRing(2, 4, 16, torch.float32, cuda)
+    assert ring.acquire(ring.stage(0, pts[:4])).device.type == "cuda"
+    assert ring._host[0].is_pinned()
+
+
+def test_many_blocks_through_the_ring_equal_one_block(cuda, tmp_path):
+    """60 blocks over 3 iterations through a 3-slot ring (depth 2, B=1)
+    against one block per iteration (B = every chunk): bit-identical, so no
+    slot was refilled while a copy or a kernel still read it; on integer
+    inputs also equal to one chunk of all the points."""
+    from map_oxidize_tpu_torch.workloads.kmeans import (
+        kmeans_fit_streamed_device,
+    )
+
+    rng = np.random.default_rng(47)
+    centres = rng.normal(0, 10, size=(32, 64)).astype(np.float32)
+    pts = (centres[rng.integers(0, 32, size=200_000)]
+           + rng.normal(0, 1.0, size=(200_000, 64))).astype(np.float32)
+    path = str(tmp_path / "p.npy")
+    np.save(path, pts)
+    kw = dict(iters=3, chunk_rows=10_000, device=cuda)
+    fused_assign_sum.launches = 0
+    many = kmeans_fit_streamed_device(path, pts[:32], pipeline_depth=2,
+                                      dispatch_batch=1, **kw)
+    assert fused_assign_sum.launches == 60
+    one = kmeans_fit_streamed_device(path, pts[:32], pipeline_depth=2,
+                                     dispatch_batch=20, **kw)
+    assert many.tobytes() == one.tobytes()
+
+    ipts = _int_points(48, 200_000, 64, 32)
+    np.save(path, ipts)
+    many = kmeans_fit_streamed_device(path, ipts[:32], pipeline_depth=2,
+                                      dispatch_batch=1, **kw)
+    whole = kmeans_fit_streamed_device(path, ipts[:32], iters=3,
+                                       chunk_rows=200_000, device=cuda)
+    assert many.tobytes() == whole.tobytes()
+
+
+def test_host_assign_stream_on_the_card_is_deterministic(cuda, tmp_path):
+    """``mapper='native'`` folds the f32 partial sums on the card in a fixed
+    order: two runs give the same bits, within atol 1e-4 of the CPU
+    backend's."""
+    rng = np.random.default_rng(49)
+    centres = rng.normal(0, 10, size=(16, 8)).astype(np.float32)
+    pts = (centres[rng.integers(0, 16, size=50_000)]
+           + rng.normal(0, 0.5, size=(50_000, 8))).astype(np.float32)
+    np.save(tmp_path / "p.npy", pts)
+    cents = []
+    for backend in ("cuda", "cuda", "cpu"):
+        r = run_job(JobConfig(
+            input_path=str(tmp_path / "p.npy"), output_path="",
+            backend=backend, kmeans_k=16, kmeans_iters=3, chunk_bytes=8192,
+            batch_size=512, mapper="native", metrics=False), "kmeans")
+        assert r.metrics["kmeans_mode"] == "stream"
+        cents.append(r.centroids)
+    assert cents[0].tobytes() == cents[1].tobytes()
+    np.testing.assert_allclose(cents[0], cents[2], atol=1e-4)
