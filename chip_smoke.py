@@ -22,15 +22,24 @@ Phases (any failure exits non-zero, before the result line):
              centroids, partial in shared memory);
 4. kmeans    ``run_job("kmeans")`` on seeded blobs (n=2^22, d=64, k=256,
              10 iterations) in both precisions, launch counts reset just
-             before and read just after; then the kernel's own time per
-             call beside the fit's ms/iter, and a ``torch.profiler`` trace
-             of two fit steps (device busy share, top device ops); one
-             iteration against the NumPy oracle ``kmeans_model``;
+             before and read just after; each fit's ``attrib/*`` buckets and
+             ``device/compute_ms``, and its ``iterate`` phase over the
+             iterations agreeing within 10% with the fit's own timers
+             (the one-time transfer plus the iterations) over them;
+             then the kernel's own time per call beside the fit's ms/iter,
+             and a ``torch.profiler`` trace of two fit steps (device busy
+             share, top device ops); one iteration against the NumPy
+             oracle ``kmeans_model``;
 5. wordcount ``run_job("wordcount")`` on a seeded Zipf corpus (~256 MB, ~1M
              mixed-case words), once with ``mapper='auto'`` (the native C++
              scan in the prefetch thread) and once with ``mapper='python'``,
-             each against a ``collections.Counter`` oracle, the two
-             ``final_result.txt`` byte-identical;
+             both with ``metrics_out`` and ``trace_out``, each against a
+             ``collections.Counter`` oracle, the two ``final_result.txt``
+             byte-identical; each run's ``attrib/*`` split,
+             ``device/compute_ms``, ``feed_block_ms``, ``engine/flush_ms``,
+             ``pipeline/*`` and the data audit (no conservation violation),
+             ``records_per_sec`` beside words/s over the whole job; a third
+             native run with ``data_audit=False``, the audit's price;
 6. resume    the same word count killed after 3 chunks and resumed from its
              checkpoint (phase 5's bytes, the prefix replayed, not
              re-mapped); the phase 4 k-means fit in both precisions killed
@@ -43,7 +52,9 @@ Phases (any failure exits non-zero, before the result line):
              iterations in each precision, launch counts reset just before
              and read just after (one launch per chunk per iteration),
              ms/iter, host-to-device bytes and GB/s, ``feed_wait_s`` and
-             ``overlap_ratio``; three stager schedules in turns (depth
+             ``overlap_ratio``, the ``attrib/*`` buckets and
+             ``device/compute_ms``, the ``iterate`` phase agreeing with the
+             ms/iter within 10%; three stager schedules in turns (depth
              2 with B=1 as counted, the serial depth 1, and B=8; 2
              iterations each, two rounds), bit-equal, with their ms/iter;
              the kernel against its plain version at the chunk shapes; a
@@ -57,7 +68,16 @@ Phases (any failure exits non-zero, before the result line):
              n=2^22 killed after 2 of 5 iterations and resumed with a fit
              budget under which ``auto`` would pick ``device``: it adopts
              ``stream_device`` from the snapshot and ends bit-equal to the
-             uninterrupted streamed fit.
+             uninterrupted streamed fit;
+8. obs       a small k-means (n=2^16, d=64, k=256) with ``trace_dir``,
+             run after phase 3 as the process's first profiler capture:
+             its ``torch.profiler`` trace must name the kernel
+             (``kmeans_assign_sum``); after phase 7, the same fit with an
+             ``on_iter`` that raises, with ``crash_dir``, ``metrics_out``
+             and ``trace_out``: the crash bundle and the partial metrics
+             and trace must be on disk, the phase span closed with the
+             error; then the ``trace_dir`` fit once more, its trace's
+             contents logged.
 
 Then one JSON line with every kernel, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Inputs are made from fixed
@@ -92,6 +112,7 @@ VOCAB = 1_000_000
 WC_KILL_AFTER = 3       # chunks mapped before the simulated kill
 KMEANS_KILL_AFTER = 4   # iterations run before the simulated kill
 STREAM_N, STREAM_K, STREAM_ITERS = 1 << 24, 512, 5
+OBS_N = 1 << 16         # the small fit of phase 8
 SCHEDULE_ITERS = 2      # iterations per run of the stager schedules
 HOST_N, HOST_K = 1 << 20, 64               # the host-assign stream
 RESUME_N, RESUME_ITERS, RESUME_KILL_AFTER = 1 << 22, 5, 2
@@ -99,6 +120,42 @@ RESUME_N, RESUME_ITERS, RESUME_KILL_AFTER = 1 << 22, 5, 2
 
 def log(msg: str) -> None:
     print(f"[{time.strftime('%H:%M:%S')}] {msg}", flush=True)
+
+
+def attrib_line(m: dict) -> str:
+    """A job's wall attribution (``attrib/*``, ms) and its blocking device
+    fetches (``device/compute_ms``), from its metrics."""
+    from map_oxidize_tpu_torch.obs.attrib import BUCKETS
+
+    buckets = ", ".join(f"{b} {m[f'attrib/{b}_ms']:.1f}"
+                        for b in BUCKETS if m[f"attrib/{b}_ms"])
+    return (f"wall {m['attrib/wall_ms']:.1f} ms: {buckets}, unattributed "
+            f"{m['attrib/unattributed_ms']:.1f} "
+            f"({m['attrib/unattributed_pct']}%); device/compute_ms "
+            f"{m['device/compute_ms/count']} fetches, p50 "
+            f"{m['device/compute_ms/p50']:.3f}, max "
+            f"{m['device/compute_ms/max']:.3f}, total "
+            f"{m['attrib/device_compute_ms']:.3f}")
+
+
+def check_iterate(name: str, m: dict, iters: int, own_s: float,
+                  own: str) -> float:
+    """The ``iterate`` phase over the iterations against the fit's own
+    timers over the same iterations (``own_s``: what the fit measures of
+    the phase, e.g. its one-time transfer plus its iterations): within
+    10%.  Logs the phase's time outside the fit's timers."""
+    phase_ms = m["time/iterate_s"] / iters * 1e3
+    own_ms = own_s / iters * 1e3
+    log(f"{name}: iterate phase {m['time/iterate_s']:.4f} s = "
+        f"{phase_ms:.3f} ms/iter against the fit's {own} {own_s:.4f} s = "
+        f"{own_ms:.3f} ms/iter ({phase_ms / own_ms - 1:+.1%}; "
+        f"{(m['time/iterate_s'] - own_s) * 1e3:.1f} ms of the phase outside "
+        "the fit's timers)")
+    if abs(phase_ms - own_ms) > 0.1 * own_ms:
+        raise AssertionError(f"{name}: the iterate phase ({phase_ms:.3f} "
+                             f"ms/iter) and the fit ({own_ms:.3f}) differ "
+                             "by more than 10%")
+    return phase_ms
 
 
 def card_line() -> str:
@@ -382,7 +439,10 @@ def phase_kmeans(tmp: str, backend: str, n: int, d: int, k: int,
             f"{r.metrics['time/iter_s']:.4f} s "
             f"({r.metrics['time/iter_s'] / iters * 1e3:.3f} ms/iter), "
             f"transfer {r.metrics['time/transfer_s']:.3f} s, "
-            f"device {r.metrics['device']}")
+            f"device {r.metrics['device']}; {attrib_line(r.metrics)}")
+        check_iterate(f"kmeans {precision}", r.metrics, iters,
+                      r.metrics["time/transfer_s"] + r.metrics["time/iter_s"],
+                      "transfer + iterations")
         got = np.load(out)
         if got.shape != (k, d) or not np.isfinite(got).all():
             raise AssertionError(f"kmeans {precision}: bad centroids "
@@ -509,22 +569,48 @@ def make_corpus(nbytes: int, vocab: int, seed: int) -> bytes:
     return buf.tobytes()
 
 
+def job_s(m: dict) -> float:
+    """A job's wall in seconds (``attrib/wall_ms``)."""
+    return m["attrib/wall_ms"] / 1e3
+
+
 def wordcount_line(name: str, m: dict, launches: dict,
                    mapped: int | None = None) -> str:
-    """One run's counts, times and rate; ``mapped``, for a resumed run, is
-    the tokens of the chunks it mapped (not replayed), which its rate
-    counts."""
+    """One run's counts, times and rates; ``mapped``, for a resumed run, is
+    the tokens of the chunks it mapped (not replayed), which its words/s
+    counts.  ``records_per_sec`` is the registry's: records over
+    map+reduce and finalize."""
     mapped = m["records_in"] if mapped is None else mapped
     return (f"wordcount {name}: {m['records_in']} tokens, "
             f"{m['distinct_keys']} distinct, {m['chunks']} chunks "
-            f"({m['checkpoint/chunks_replayed']} replayed), job "
-            f"{m['time/job_s']:.2f} s ({mapped} tokens mapped in this run, "
-            f"{mapped / m['time/job_s']:.0f} words/s), "
+            f"({m.get('checkpoint/chunks_replayed', 0)} replayed), job "
+            f"{job_s(m):.2f} s ({mapped} tokens mapped in this run, "
+            f"{mapped / job_s(m):.0f} words/s over the job; "
+            f"records_per_sec {m['records_per_sec']}), "
+            f"split {m['time/split_s']:.2f} s, "
             f"map+reduce {m['time/map+reduce_s']:.2f} s, "
             f"finalize {m['time/finalize_s']:.2f} s, write "
             f"{m['time/write_s']:.2f} s, accumulator on "
-            f"{m['accumulator_device']} at {m['capacity_rows']} rows; "
+            f"{m['accumulator_device']} at "
+            f"{m.get('engine/capacity_rows', 'its initial')} rows; "
             f"launches {launches}")
+
+
+def wordcount_obs_line(name: str, m: dict) -> str:
+    """The seams of one word count: the wall attribution, the device
+    fetch, the per-block feed, the flushes and the pipeline."""
+    return (f"wordcount {name} seams: {attrib_line(m)}; feed_block_ms "
+            f"{m['feed_block_ms/count']} feeds p50 "
+            f"{m['feed_block_ms/p50']:.3f} max {m['feed_block_ms/max']:.3f} "
+            f"(host_stage {m['attrib/host_stage_ms']:.1f} ms total); "
+            f"engine/flush_ms {m['engine/flushes']} flushes p50 "
+            f"{m['engine/flush_ms/p50']:.3f} max "
+            f"{m['engine/flush_ms/max']:.3f}, "
+            f"{m['engine/device_put_bytes']} bytes put; pipeline depth "
+            f"{m.get('pipeline/depth')}, {m.get('pipeline/chunks')} chunks, "
+            f"produce {m.get('pipeline/produce_ms', 0.0):.1f} ms, feed_wait "
+            f"{m.get('pipeline/feed_wait_ms', 0.0):.1f} ms, overlap_ratio "
+            f"{m.get('pipeline/overlap_ratio')}")
 
 
 def phase_wordcount(tmp: str, backend: str, nbytes: int, vocab: int,
@@ -551,9 +637,11 @@ def phase_wordcount(tmp: str, backend: str, nbytes: int, vocab: int,
     runs = {}
     for mapper in ("auto", "python"):
         out = os.path.join(tmp, f"final_result_{mapper}.txt")
+        m_out = os.path.join(tmp, f"wc_metrics_{mapper}.json")
+        t_out = os.path.join(tmp, f"wc_trace_{mapper}.json")
         cfg = JobConfig(input_path=path, output_path=out, backend=backend,
                         chunk_bytes=CHUNK_BYTES, top_k=10, mapper=mapper,
-                        metrics=False)
+                        metrics=False, metrics_out=m_out, trace_out=t_out)
         resolved = resolve_mapper(cfg, "wordcount")
         if resolved != ("native" if mapper == "auto" else "python"):
             raise AssertionError(f"mapper={mapper!r} resolved to "
@@ -564,9 +652,11 @@ def phase_wordcount(tmp: str, backend: str, nbytes: int, vocab: int,
         launches = {w.__name__: w.launches for w in wrappers}
         m = r.metrics
         log(wordcount_line(f"mapper={mapper} ({resolved})", m, launches))
+        log(wordcount_obs_line(resolved, m))
+        check_wordcount_documents(resolved, m, m_out, t_out)
         if not m["accumulator_device"].startswith(backend):
             raise AssertionError(f"accumulator on {m['accumulator_device']}")
-        if m["capacity_rows"] <= JobConfig.initial_key_capacity:
+        if m["engine/capacity_rows"] <= JobConfig.initial_key_capacity:
             raise AssertionError("accumulator never grew past "
                                  f"{JobConfig.initial_key_capacity}")
         t0 = time.perf_counter()
@@ -592,7 +682,62 @@ def phase_wordcount(tmp: str, backend: str, nbytes: int, vocab: int,
                                  "differ")
     log(f"native and python final_result.txt byte-identical "
         f"({len(native_bytes)} bytes)")
+
+    # the audit's price: the native run again with data_audit off
+    out = os.path.join(tmp, "final_result_no_audit.txt")
+    r = run_job(JobConfig(input_path=path, output_path=out, backend=backend,
+                          chunk_bytes=CHUNK_BYTES, top_k=10, metrics=False,
+                          data_audit=False), "wordcount")
+    m = r.metrics
+    if any(key.startswith("data/") for key in m):
+        raise AssertionError("data_audit=False still audited")
+    with open(out, "rb") as f:
+        if f.read() != native_bytes:
+            raise AssertionError("the run without the audit wrote other "
+                                 "bytes")
+    on = runs["native"]["metrics"]
+    log(wordcount_line("native, data_audit=False", m, {}))
+    log(wordcount_obs_line("native, data_audit=False", m))
+    log(f"the data audit's price: native {on['records_in'] / job_s(on):.0f} "
+        f"words/s with it, {m['records_in'] / job_s(m):.0f} without "
+        f"(map+reduce {on['time/map+reduce_s']:.2f} s against "
+        f"{m['time/map+reduce_s']:.2f} s)")
+    runs["native_no_audit"] = {"metrics": m, "out": out}
     return {"path": path, "runs": runs}
+
+
+def check_wordcount_documents(name: str, m: dict, m_out: str,
+                              t_out: str) -> None:
+    """The ``metrics_out`` document carries the registry, ``meta``,
+    ``attrib`` and ``data`` sections, the audit found no violation, and
+    the ``trace_out`` trace holds the phases in order after its
+    ``moxt_meta`` event."""
+    with open(m_out) as f:
+        doc = json.load(f)
+    missing = {"phases_s", "counters", "gauges", "histograms", "meta",
+               "attrib", "data"} - set(doc)
+    if missing:
+        raise AssertionError(f"wordcount {name}: metrics_out lacks {missing}")
+    if (m["data/conservation_violations"] != 0
+            or m["data/conservation_checks"] != 3
+            or doc["data"]["conservation"]["violations"]):
+        raise AssertionError(f"wordcount {name}: data audit "
+                             f"{doc['data']['conservation']}")
+    with open(t_out) as f:
+        trace = json.load(f)
+    phases = [e["name"] for e in trace if e["name"].startswith("phase/")]
+    if trace[0]["name"] != "moxt_meta" or phases != [
+            "phase/split", "phase/map+reduce", "phase/finalize",
+            "phase/write"]:
+        raise AssertionError(f"wordcount {name}: trace phases {phases}")
+    log(f"wordcount {name}: metrics_out and trace_out written "
+        f"({len(trace)} trace events); data audit: "
+        f"{m['data/conservation_checks']} checks, "
+        f"{m['data/conservation_violations']} violations, "
+        f"{m['data/rows_in']} map rows in, {m['data/distinct_out']} keys "
+        f"out (reduction {m['data/reduction_ratio']}), imbalance "
+        f"{m['data/imbalance_factor']}, hot-key share "
+        f"{m['data/hot_key_share']}")
 
 
 # --- phase 6 ----------------------------------------------------------------
@@ -650,7 +795,7 @@ def phase_resume_wordcount(tmp: str, backend: str, wc: dict,
     mapped = m["records_in"] - dying.records
     log(wordcount_line("resumed", m, launches, mapped))
     want = wc["runs"]["native"]
-    if m["checkpoint/chunks_replayed"] != WC_KILL_AFTER:
+    if m.get("checkpoint/chunks_replayed") != WC_KILL_AFTER:
         raise AssertionError(f"replayed {m['checkpoint/chunks_replayed']}")
     if m["chunks"] != want["metrics"]["chunks"]:
         raise AssertionError(f"resumed run took {m['chunks']} chunks, a "
@@ -875,7 +1020,9 @@ def phase_stream(tmp: str, backend: str, wrappers, g) -> dict:
             f"host->device per iteration ({nbytes / ms / 1e6:.3f} GB/s), "
             f"feed_wait {m.get('pipeline/feed_wait_ms', 0.0) / 1e3:.3f} s, "
             f"overlap_ratio {m.get('pipeline/overlap_ratio')}, B "
-            f"{m['dispatch/batch']}")
+            f"{m['dispatch/batch']}; {attrib_line(m)}")
+        check_iterate(f"stream_device {precision}", m, STREAM_ITERS,
+                      m["time/feed_s"], "block loop")
     launches = {w.__name__: w.launches for w in wrappers}
     out["launches"] = launches
     want = 2 * STREAM_ITERS * n_chunks
@@ -996,13 +1143,15 @@ def phase_stream(tmp: str, backend: str, wrappers, g) -> dict:
         raise AssertionError(
             f"host-assign stream vs kmeans_model: max |d| "
             f"{np.abs(host[0].centroids - want_c).max()}")
-    out["host"] = {"ms_per_iter": m["time/iter_s"] * 1e3,
+    out["host"] = {"ms_per_iter": m["time/iterate_s"] * 1e3,
                    "overlap_ratio": m.get("pipeline/overlap_ratio"),
-                   "second_ms_per_iter": host[1].metrics["time/iter_s"] * 1e3}
+                   "second_ms_per_iter":
+                       host[1].metrics["time/iterate_s"] * 1e3}
     log(f"stream (host assign, n={HOST_N}, k={HOST_K}): "
-        f"{m['time/iter_s'] * 1e3:.3f} ms/iter "
+        f"{m['time/iterate_s'] * 1e3:.3f} ms/iter "
         f"(second run {out['host']['second_ms_per_iter']:.3f}), "
-        f"overlap_ratio {m.get('pipeline/overlap_ratio')}; matches "
+        f"overlap_ratio {m.get('pipeline/overlap_ratio')}; "
+        f"{attrib_line(m)}; matches "
         f"kmeans_model (max |d| "
         f"{np.abs(host[0].centroids - want_c).max():.3g}), two runs "
         "bit-equal")
@@ -1100,6 +1249,100 @@ def phase_stream_resume(tmp: str, backend: str, big: str, wrappers) -> dict:
     return out
 
 
+# --- phase 8 ----------------------------------------------------------------
+
+def obs_points(tmp: str) -> str:
+    """The small fit's points (n=2^16, d=64, k=256), made once."""
+    path = os.path.join(tmp, "obs_points.npy")
+    if not os.path.exists(path):
+        np.save(path, make_blobs(OBS_N, KMEANS_D, KMEANS_K, SEED + 6))
+    return path
+
+
+def obs_config(tmp: str, backend: str, **kw):
+    from map_oxidize_tpu_torch.config import JobConfig
+
+    return JobConfig(input_path=obs_points(tmp), output_path="",
+                     backend=backend, kmeans_k=KMEANS_K, kmeans_iters=3,
+                     mapper="device", metrics=False, **kw)
+
+
+def trace_dir_kernels(tmp: str, backend: str, name: str) -> list:
+    """The small fit with ``trace_dir``: the device kernel events of its
+    ``torch.profiler`` trace that name ``kmeans_assign_sum``."""
+    from map_oxidize_tpu_torch.runtime import run_job
+
+    prof_dir = os.path.join(tmp, name)
+    r = run_job(obs_config(tmp, backend, trace_dir=prof_dir), "kmeans")
+    (f,) = os.listdir(prof_dir)
+    with open(os.path.join(prof_dir, f)) as fh:
+        events = json.load(fh)["traceEvents"]
+    cats = collections.Counter(e.get("cat", "-") for e in events)
+    kern = [e for e in events if "kmeans_assign_sum" in e.get("name", "")]
+    log(f"trace_dir ({name}): {len(events)} events in {f} "
+        f"(profile/captures {r.metrics.get('profile/captures')}), by "
+        f"category {dict(cats)}; {len(kern)} name kmeans_assign_sum"
+        + (f", e.g. {kern[0]['name'][:60]!r}" if kern else ""))
+    return kern
+
+
+def phase_trace_dir(tmp: str, backend: str) -> None:
+    """Phase 8, first half, run before any other profiler capture of the
+    process: the small fit's ``trace_dir`` trace must name the kernel."""
+    if not trace_dir_kernels(tmp, backend, "profile"):
+        raise AssertionError("trace_dir: no event names kmeans_assign_sum")
+
+
+def phase_flight(tmp: str, backend: str) -> None:
+    """Phase 8, second half: the small fit killed by an ``on_iter`` that
+    raises after its first iteration, with ``crash_dir``, ``metrics_out``
+    and ``trace_out``: the bundle and the partial documents must be on
+    disk."""
+    from map_oxidize_tpu_torch.runtime import run_job
+    from map_oxidize_tpu_torch.workloads import kmeans as tkm
+
+    real_fit = tkm.kmeans_fit_device
+
+    def dying_fit(*a, on_iter=None, **kw):
+        def hook(i, c):
+            if i == 1:
+                raise KeyboardInterrupt("simulated kill")
+        return real_fit(*a, on_iter=hook, **kw)
+
+    crash = os.path.join(tmp, "crash")
+    m_out = os.path.join(tmp, "crash_metrics.json")
+    t_out = os.path.join(tmp, "crash_trace.json")
+    tkm.kmeans_fit_device = dying_fit
+    try:
+        run_job(obs_config(tmp, backend, crash_dir=crash, metrics_out=m_out,
+                           trace_out=t_out), "kmeans")
+        raise AssertionError("the raising fit ran to its end")
+    except KeyboardInterrupt:
+        pass
+    finally:
+        tkm.kmeans_fit_device = real_fit
+    (bundle,) = os.listdir(crash)
+    files = sorted(os.listdir(os.path.join(crash, bundle)))
+    with open(m_out) as f:
+        doc = json.load(f)
+    with open(t_out) as f:
+        trace = json.load(f)
+    it = [e for e in trace if e["name"] == "phase/iterate"]
+    if (files != ["error.json", "metrics.json", "trace.json"]
+            or doc["gauges"].get("aborted") is not True
+            or "attrib" not in doc or len(it) != 1
+            or "simulated kill" not in it[0]["args"].get("error", "")):
+        raise AssertionError(f"flight recorder: bundle {files}, metrics "
+                             f"{sorted(doc)}, iterate span {it}")
+    log(f"flight recorder: {bundle}/{files}; partial metrics (aborted, "
+        f"wall {doc['attrib']['wall_ms']:.1f} ms) and trace "
+        f"({len(trace)} events, phase/iterate closed with "
+        f"{it[0]['args']['error']!r}) on disk")
+    # the same trace_dir job once more, after the process's other profiler
+    # captures (phases 4 and 7): what its trace holds is logged
+    trace_dir_kernels(tmp, backend, "profile_late")
+
+
 def main() -> int:
     import torch
 
@@ -1121,6 +1364,7 @@ def main() -> int:
     wrappers = [fused_assign_sum]
     configs = phase_kernels()
     with tempfile.TemporaryDirectory(prefix="moxt_smoke_") as tmp:
+        phase_trace_dir(tmp, "cuda")
         km = phase_kmeans(tmp, "cuda", KMEANS_N, KMEANS_D, KMEANS_K,
                           KMEANS_ITERS, wrappers)
         wc = phase_wordcount(tmp, "cuda", CORPUS_BYTES, VOCAB, wrappers)
@@ -1128,6 +1372,7 @@ def main() -> int:
         km_resume = phase_resume_kmeans(tmp, "cuda", km, wrappers)
         stream = phase_stream(tmp, "cuda", wrappers, torch.Generator(
             device="cuda").manual_seed(SEED + 5))
+        phase_flight(tmp, "cuda")
     if km["launches"]["fused_assign_sum"] != 2 * KMEANS_ITERS:
         raise AssertionError(f"kmeans path launched the kernel "
                              f"{km['launches']} times, expected "
@@ -1153,8 +1398,7 @@ def main() -> int:
         "resources": resources,
         "configs": configs + stream["configs"],
     }]
-    wc_rate = {name: run["metrics"]["records_in"]
-               / run["metrics"]["time/job_s"]
+    wc_rate = {name: run["metrics"]["records_in"] / job_s(run["metrics"])
                for name, run in wc["runs"].items()}
     log(f"kmeans ms/iter {km['ms_per_iter']}, resumed "
         f"{km_resume['ms_per_iter']}, kernel ms per call "
@@ -1163,7 +1407,7 @@ def main() -> int:
         f"device-resident on that file "
         f"{ {p: r['device_ms_per_iter'] for p, r in stream['runs'].items()} }"
         f"; wordcount words/s {wc_rate}, resumed "
-        f"{wc_resume['mapped'] / wc_resume['metrics']['time/job_s']:.0f} "
+        f"{wc_resume['mapped'] / job_s(wc_resume['metrics']):.0f} "
         f"(tokens mapped in that run over its job time); "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,6 +5,8 @@
         --kmeans-iters 10 --kmeans-precision bf16
     python -m map_oxidize_tpu_torch wordcount corpus.txt --backend cpu
     python -m map_oxidize_tpu_torch wordcount corpus.txt --checkpoint-dir ck
+    python -m map_oxidize_tpu_torch wordcount corpus.txt \\
+        --metrics-out m.json --trace-out t.json
 
 Flag names and defaults are the JAX package's CLI's; ``--backend`` takes
 ``cuda`` (the default, which needs a CUDA device) or ``cpu``.
@@ -59,6 +61,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-chunks", type=int, default=0,
                    help="fixed chunk count with round-robin line chunking "
                         "(reference compat mode); 0 = streaming byte ranges")
+    p.add_argument("--chunk-mb", type=int, default=32, help="streamed chunk size")
     p.add_argument("--batch-size", type=int, default=1 << 20,
                    help="device feed batch rows")
     p.add_argument("--pipeline-depth", type=int, default=2,
@@ -91,6 +94,10 @@ def build_parser() -> argparse.ArgumentParser:
                    default="highest",
                    help="k-means score-product precision: plain f32, or "
                         "bf16 operands with f32 accumulation")
+    p.add_argument("--kmeans-fit-bytes", type=int, default=0,
+                   help="kmeans mapper=auto device-fit budget in bytes; "
+                        "past it the job streams through the device "
+                        "(0 = probe the device's memory)")
     p.add_argument("--checkpoint-dir", default=None,
                    help="directory for resumable map-output checkpoints "
                         "(kmeans: per-iteration snapshots; a SUCCESSFUL "
@@ -98,6 +105,34 @@ def build_parser() -> argparse.ArgumentParser:
                         "past a completed run needs --keep-intermediates "
                         "on the earlier run)")
     p.add_argument("--keep-intermediates", action="store_true")
+    p.add_argument("--trace-dir", default=None,
+                   help="capture a torch.profiler trace of the run (host "
+                        "activity, and the device's kernels and copies on "
+                        "cuda) into this directory as Chrome trace JSON")
+    p.add_argument("--trace-out", default=None,
+                   help="capture framework spans (phases, per-block feeds, "
+                        "flushes, prefetch handoffs) and write Chrome "
+                        "trace-event JSON here — load in chrome://tracing "
+                        "or Perfetto")
+    p.add_argument("--metrics-out", default=None,
+                   help="write the structured metrics document (phase "
+                        "timings, counters, gauges, histograms) here as "
+                        "JSON")
+    p.add_argument("--crash-dir", default=None,
+                   help="failure flight recorder: on an abort, dump a "
+                        "post-mortem bundle (config, metrics-so-far, "
+                        "open-span-closed trace, traceback) under this "
+                        "directory before the error propagates")
+    p.add_argument("--progress", action="store_true",
+                   help="log periodic progress lines (rows/sec, percent "
+                        "done, ETA, phase) for long streamed jobs")
+    p.add_argument("--progress-interval", type=float, default=10.0,
+                   help="minimum seconds between --progress lines")
+    p.add_argument("--no-data-audit", action="store_true",
+                   help="disable the data-plane observatory (per-"
+                        "partition row-conservation audits, key-skew "
+                        "telemetry, data/* gauges — obs/dataplane.py); "
+                        "on by default, pure host-side accounting")
     p.add_argument("-v", "--verbose", action="store_true")
     p.add_argument("-q", "--quiet", action="store_true")
     return p
@@ -110,6 +145,7 @@ def config_from_args(args: argparse.Namespace) -> JobConfig:
         top_k=args.top_k,
         num_map_workers=args.map_workers,
         num_chunks=args.num_chunks,
+        chunk_bytes=args.chunk_mb * 1024 * 1024,
         batch_size=args.batch_size,
         pipeline_depth=args.pipeline_depth,
         dispatch_batch=args.dispatch_batch,
@@ -120,8 +156,16 @@ def config_from_args(args: argparse.Namespace) -> JobConfig:
         kmeans_k=args.kmeans_k,
         kmeans_iters=args.kmeans_iters,
         kmeans_precision=args.kmeans_precision,
+        kmeans_device_fit_bytes=args.kmeans_fit_bytes,
         checkpoint_dir=args.checkpoint_dir,
         keep_intermediates=args.keep_intermediates,
+        trace_dir=args.trace_dir,
+        trace_out=args.trace_out,
+        metrics_out=args.metrics_out,
+        crash_dir=args.crash_dir,
+        progress=args.progress,
+        progress_interval_s=args.progress_interval,
+        data_audit=not args.no_data_audit,
     ).validate()
 
 

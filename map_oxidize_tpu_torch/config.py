@@ -1,9 +1,9 @@
 """Job configuration of the port.
 
 The fields the ported paths read (word count on one device with the native
-or Python host map, k-means in its three single-device modes, and
-checkpoint/resume for both), with the JAX package's defaults and
-validation.  ``backend``
+or Python host map, k-means in its three single-device modes,
+checkpoint/resume for both, and the observability outputs), with the JAX
+package's defaults and validation.  ``backend``
 names a torch device family: ``cuda`` (the default) or ``cpu``; nothing
 falls back from one to the other.
 """
@@ -84,6 +84,29 @@ class JobConfig:
     kmeans_precision: str = "highest"
     #: log the metrics dict at the end of a job
     metrics: bool = True
+    #: ``torch.profiler`` trace output directory (host activity, and the
+    #: device's kernels and copies on a CUDA backend); None disables it
+    trace_dir: str | None = None
+    #: write the structured metrics document (phases, counters, gauges,
+    #: histograms, attribution, data audit) here as JSON; None skips
+    metrics_out: str | None = None
+    #: capture framework spans and write Chrome trace-event JSON here
+    #: (chrome://tracing / Perfetto); "-" collects the trace onto
+    #: ``result.trace`` without writing a file; None disables tracing
+    trace_out: str | None = None
+    #: failure flight recorder: on an abort, dump a post-mortem bundle
+    #: (config, metrics so far, the trace with open spans closed,
+    #: traceback) under this directory before propagating; None disables
+    crash_dir: str | None = None
+    #: emit periodic progress lines (rows/sec, percent, ETA, phase) for
+    #: long streamed jobs
+    progress: bool = False
+    #: minimum seconds between progress lines
+    progress_interval_s: float = 10.0
+    #: the data-plane audit (obs/dataplane.py): per-partition row
+    #: conservation, key skew and reduction ratio (``data/*``); host-side
+    #: accounting, on by default
+    data_audit: bool = True
 
     def validate(self) -> "JobConfig":
         if self.tokenizer not in ("ascii", "unicode"):
@@ -119,6 +142,8 @@ class JobConfig:
             raise ValueError("top_k and num_map_workers must be positive")
         if self.kmeans_k <= 0 or self.kmeans_iters <= 0:
             raise ValueError("kmeans_k and kmeans_iters must be positive")
+        if self.progress_interval_s <= 0:
+            raise ValueError("progress_interval_s must be positive")
         if self.kmeans_precision not in ("highest", "bf16"):
             raise ValueError(f"kmeans_precision must be highest|bf16, "
                              f"got {self.kmeans_precision!r}")

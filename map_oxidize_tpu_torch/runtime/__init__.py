@@ -24,12 +24,31 @@ def resolve_mapper(config: JobConfig, workload: str) -> str:
     return mode
 
 
-def run_job(config: JobConfig, workload: str = "wordcount"):
-    """Run a built-in workload end to end: 'wordcount' or 'kmeans'."""
+def run_job(config: JobConfig, workload: str = "wordcount", on_obs=None):
+    """Run a built-in workload end to end: 'wordcount' or 'kmeans'.
+
+    With ``config.trace_dir`` set, the whole job runs under a
+    ``torch.profiler`` trace written there (JAX ``runtime/__init__.py:38``,
+    there a ``jax.profiler`` trace), counted in ``profile/captures``.
+    ``on_obs`` receives the job's ``Obs`` bundle before the body starts."""
+    from map_oxidize_tpu_torch.obs.profiler import device_trace
+
+    if config.trace_dir:
+        def _on_obs(obs, _orig=on_obs):
+            obs.registry.count("profile/captures")
+            if _orig is not None:
+                _orig(obs)
+
+        with device_trace(config.trace_dir, cuda=config.backend == "cuda"):
+            return _run_job(config, workload, _on_obs)
+    return _run_job(config, workload, on_obs)
+
+
+def _run_job(config: JobConfig, workload: str, on_obs=None):
     if workload == "kmeans":
         from map_oxidize_tpu_torch.runtime.driver import run_kmeans_job
 
-        return run_kmeans_job(config)
+        return run_kmeans_job(config, on_obs=on_obs)
     if workload != "wordcount":
         raise NotImplementedError(
             f"workload {workload!r} is not ported yet (ROADMAP queue A)")
@@ -38,4 +57,5 @@ def run_job(config: JobConfig, workload: str = "wordcount"):
 
     use_native = resolve_mapper(config, workload) == "native"
     mapper, reducer = make_wordcount(config.tokenizer, use_native)
-    return run_wordcount_job(config, mapper, reducer, workload=workload)
+    return run_wordcount_job(config, mapper, reducer, workload=workload,
+                             on_obs=on_obs)

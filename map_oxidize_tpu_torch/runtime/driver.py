@@ -10,9 +10,11 @@ feeds one :class:`~map_oxidize_tpu_torch.runtime.engine.DeviceReduceEngine`,
 and PyTorch's asynchronous launches let the device fold one batch while the
 host maps the next chunks.  With ``checkpoint_dir`` set, word count spills
 every mapped chunk and k-means snapshots every iteration
-(:mod:`~map_oxidize_tpu_torch.runtime.checkpoint`); a re-run resumes.  There
-is no observability bundle or push transport in this slice; the sharded
-engines and the collect reduce raise ``NotImplementedError``.
+(:mod:`~map_oxidize_tpu_torch.runtime.checkpoint`); a re-run resumes.  Every
+job records into one ``Obs`` bundle (:mod:`map_oxidize_tpu_torch.obs`):
+phases, counters, the wall attribution, the data-plane audit, and the
+flight recorder around the body.  The sharded engines and the collect
+reduce raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ from map_oxidize_tpu_torch.io.splitter import (
     split_round_robin,
 )
 from map_oxidize_tpu_torch.io.writer import format_top_words, write_final_result
+from map_oxidize_tpu_torch.obs import Obs
+from map_oxidize_tpu_torch.obs.dataplane import map_output_rows
 from map_oxidize_tpu_torch.ops.hashing import SENTINEL, HashDictionary, join_u64
 from map_oxidize_tpu_torch.ops.topk import top_k_candidate_indices
 from map_oxidize_tpu_torch.runtime.checkpoint import CheckpointStore
@@ -42,7 +46,7 @@ from map_oxidize_tpu_torch.runtime.engine import (
     pick_device,
 )
 from map_oxidize_tpu_torch.runtime.executor import run_map_phase
-from map_oxidize_tpu_torch.runtime.pipeline import overlap_ratio, pipelined
+from map_oxidize_tpu_torch.runtime.pipeline import pipelined
 from map_oxidize_tpu_torch.utils.logging import get_logger
 
 _log = get_logger(__name__)
@@ -56,6 +60,8 @@ class JobResult:
     counts: "Mapping[bytes, int]"
     top: list[tuple[bytes, int]]
     metrics: dict = field(default_factory=dict)
+    #: Chrome trace events when the job traced (``trace_out``), else None
+    trace: list | None = None
 
     def top_report(self, k: int) -> str:
         return format_top_words(self.top, k)
@@ -197,44 +203,75 @@ def _track_offsets(chunk_iter, start_off: int, offsets: dict, base_idx: int):
 
 
 def run_wordcount_job(config: JobConfig, mapper: Mapper, reducer: Reducer,
-                      workload: str = "wordcount") -> JobResult:
+                      workload: str = "wordcount", on_obs=None) -> JobResult:
     """End-to-end word-count-shaped job (scalar values, string keys): split,
-    map, fold on the device, read back, check conservation, write.
+    map, fold on the device, read back, audit conservation, write.
 
     With ``config.checkpoint_dir`` set, every mapped chunk is spilled
     atomically and a re-run replays the spilled prefix instead of re-mapping
-    it (see :mod:`map_oxidize_tpu_torch.runtime.checkpoint`)."""
+    it (see :mod:`map_oxidize_tpu_torch.runtime.checkpoint`).
+
+    The body runs in the job's ``Obs`` envelope (``Obs.recording``): the
+    phases ``replay``, ``split``, ``map+reduce``, ``finalize`` and
+    ``write`` (JAX ``runtime/driver.py:419-516``), and any abort passes
+    through the flight recorder before it propagates.  ``on_obs`` receives
+    the bundle before the body starts."""
     config.validate()
-    t_job = time.perf_counter()
+    obs = Obs.from_config(config)
+    if on_obs is not None:
+        on_obs(obs)
+    with obs.recording(config, workload):
+        return _run_wordcount_body(config, obs, mapper, reducer, workload)
+
+
+def _run_wordcount_body(config: JobConfig, obs: Obs, mapper: Mapper,
+                        reducer: Reducer, workload: str) -> JobResult:
+    metrics = obs.registry
     engine = make_engine(config, reducer, value_shape=mapper.value_shape,
                          value_dtype=mapper.value_dtype,
                          wide_keys=getattr(mapper, "wide_keys", False))
+    engine.obs = obs
+    # the data-plane audit over virtual hash partitions (one device):
+    # conservation, skew, reduction
+    dp = obs.ensure_dataplane(
+        1, conserves=(reducer.combine == "sum"
+                      and getattr(mapper, "conserves_counts", True)))
     dictionary = HashDictionary()
     records_in = 0
     n_chunks = 0
 
-    def _ingest(out) -> None:
+    def _ingest(out, next_off: int | None = None) -> None:
         nonlocal records_in, n_chunks
         dictionary.update(out.dictionary)
         records_in += out.records_in
         n_chunks += 1
+        if dp is not None and len(out):
+            rows = map_output_rows(out)
+            if rows is not None:
+                dp.record_fold_in(*rows)
         if mapper.keys_have_dictionary:
             # the dictionary covers every key fed so far, so its size bounds
             # distinct keys: growth needs no device sync
             engine.hint_total_keys(dictionary.upper_bound())
-        engine.feed(out)
+        t0 = time.perf_counter()
+        with obs.feed_span(rows=len(out)):
+            engine.feed(out)
+        metrics.observe("feed_block_ms", (time.perf_counter() - t0) * 1e3)
+        if obs.heartbeat is not None:
+            obs.heartbeat.update(rows=out.records_in, bytes_done=next_off)
 
-    t0 = time.perf_counter()
     # --- replay checkpointed chunks (resume), if any
     ckpt = None
     resume_k = 0      # chunks already mapped in a previous run
     resume_off = 0    # input byte offset where mapping resumes
     if config.checkpoint_dir:
         ckpt = CheckpointStore(config.checkpoint_dir,
-                               CheckpointStore.job_meta(config, workload))
-        for idx, out, next_off in ckpt.replay():
-            _ingest(out)
-            resume_k, resume_off = idx + 1, next_off
+                               CheckpointStore.job_meta(config, workload),
+                               registry=metrics)
+        with obs.phase("replay"):
+            for idx, out, next_off in ckpt.replay():
+                _ingest(out)
+                resume_k, resume_off = idx + 1, next_off
         if resume_k:
             _log.info("resumed %d checkpointed chunks%s", resume_k,
                       f" (input offset {resume_off})" if resume_off >= 0
@@ -244,92 +281,96 @@ def run_wordcount_job(config: JobConfig, mapper: Mapper, reducer: Reducer,
     # --- split (plan only; chunks stream lazily)
     native_file_iter = None
     offsets: dict[int, int] = {}  # global chunk idx -> end byte offset
-    if config.num_chunks > 0:
-        # round-robin compat mode: chunk identity is the index, not a byte
-        # offset — resume skips the first resume_k chunks
-        chunks = split_round_robin(config.input_path,
-                                   config.num_chunks)[resume_k:]
-    else:
-        _, chunk_bytes = plan_chunks(config.input_path, config.chunk_bytes)
-        # native mmap fast path: C++ scans page-cache pages in place (zero
-        # kernel->user copies) and owns the chunk cuts; chunks map inline
-        # in C++, so num_map_workers/max_retries do not apply (a map error
-        # there is a hash collision or invalid UTF-8, which no retry fixes)
-        if hasattr(mapper, "map_file"):
-            native_file_iter = mapper.map_file(config.input_path,
-                                               chunk_bytes, resume_off)
-        if native_file_iter is None:
-            chunks = _track_offsets(
-                iter_chunks(config.input_path, chunk_bytes, resume_off),
-                resume_off, offsets, resume_k)
+    with obs.phase("split"):
+        if config.num_chunks > 0:
+            # round-robin compat mode: chunk identity is the index, not a
+            # byte offset — resume skips the first resume_k chunks
+            chunks = split_round_robin(config.input_path,
+                                       config.num_chunks)[resume_k:]
+        else:
+            _, chunk_bytes = plan_chunks(config.input_path,
+                                         config.chunk_bytes)
+            # native mmap fast path: C++ scans page-cache pages in place
+            # and owns the chunk cuts; chunks map inline in C++, so
+            # num_map_workers/max_retries do not apply
+            if hasattr(mapper, "map_file"):
+                native_file_iter = mapper.map_file(config.input_path,
+                                                   chunk_bytes, resume_off)
+            if native_file_iter is None:
+                chunks = _track_offsets(
+                    iter_chunks(config.input_path, chunk_bytes, resume_off),
+                    resume_off, offsets, resume_k)
 
     # --- map + reduce: the host half (C++ scan / Python map) runs in a
     # bounded prefetch thread, so chunk i+1's read+tokenize overlaps chunk
     # i's feed; order is preserved, so the spill and the output are
     # byte-identical to depth 1
-    if native_file_iter is not None:
-        it = pipelined(native_file_iter, config.pipeline_depth, name="map")
-        for i, (out, next_off) in enumerate(it):
-            _ingest(out)
-            if ckpt is not None:
-                ckpt.save(resume_k + i, out, next_off)
-    else:
-        for idx, out in run_map_phase(
-                chunks, mapper, config.num_map_workers, config.max_retries,
-                pipeline_depth=config.pipeline_depth):
-            gidx = resume_k + idx
-            _ingest(out)
-            if ckpt is not None:
-                ckpt.save(gidx, out, offsets.get(gidx, -1))
-    t_map = time.perf_counter() - t0
+    with obs.phase("map+reduce"):
+        if native_file_iter is not None:
+            it = pipelined(native_file_iter, config.pipeline_depth, obs,
+                           name="map")
+            for i, (out, next_off) in enumerate(it):
+                _ingest(out, next_off)
+                if ckpt is not None:
+                    ckpt.save(resume_k + i, out, next_off)
+        else:
+            for idx, out in run_map_phase(
+                    chunks, mapper, config.num_map_workers,
+                    config.max_retries,
+                    pipeline_depth=config.pipeline_depth, obs=obs):
+                gidx = resume_k + idx
+                _ingest(out, offsets.get(gidx))
+                if ckpt is not None:
+                    ckpt.save(gidx, out, offsets.get(gidx, -1))
 
-    t0 = time.perf_counter()
-    counts = _readback(engine, dictionary)
-    top = counts.top_k(config.top_k)
-    t_finalize = time.perf_counter() - t0
+    # --- finalize on the device; the fetch is device/compute_ms
+    with obs.phase("finalize"):
+        counts = _readback(engine, dictionary)
+        top = counts.top_k(config.top_k)
 
-    # every token mapped lands in exactly one count (count-shaped sum
-    # workloads only)
-    if reducer.combine == "sum" and getattr(mapper, "conserves_counts", True):
+    # conservation audit: every token mapped lands in exactly one count,
+    # per hash partition, with matching order-independent checksums (count-
+    # shaped sum workloads only; conserves=False skips it)
+    if dp is not None:
+        dp.set_records_in(records_in)
+        dp.record_fold_out(counts._k64, counts._vals)
+        dp.resolve_hot_keys(dictionary.lookup)
+        dp.check_fold()
+        dp.check_total(counts.total())
+    elif (reducer.combine == "sum"
+          and getattr(mapper, "conserves_counts", True)):
         total = counts.total()
         if records_in and total != records_in:
             raise RuntimeError(
                 f"count conservation violated: mapped {records_in} records "
                 f"but reduced counts sum to {total}")
 
-    t0 = time.perf_counter()
-    if config.output_path:
-        write_final_result(config.output_path, counts.items())
-    t_write = time.perf_counter() - t0
+    with obs.phase("write"):
+        if config.output_path:
+            write_final_result(config.output_path, counts.items())
 
     # keep_intermediates preserves the resumable spill
     if ckpt is not None:
         ckpt.finish(config.keep_intermediates)
 
-    acc_keys = engine.export_state()["acc_keys"]
-    metrics = {
-        "workload": workload,
-        "accumulator_device": str(acc_keys.device),
-        "capacity_rows": int(acc_keys.shape[0]),
-        "records_in": records_in,
-        "distinct_keys": len(counts),
-        "chunks": n_chunks,
-        "checkpoint/chunks_replayed": resume_k,
-        "device_rows_fed": engine.rows_fed,
-        "time/map+reduce_s": t_map,
-        "time/finalize_s": t_finalize,
-        "time/write_s": t_write,
-        "time/job_s": time.perf_counter() - t_job,
-    }
+    metrics.set("records_in", records_in)
+    metrics.set("distinct_keys", len(counts))
+    metrics.set("chunks", n_chunks)
+    metrics.set("device_rows_fed", engine.rows_fed)
+    # the port's own: where the fold ran (nothing falls back)
+    metrics.set("accumulator_device", str(engine.device))
+    summary, trace = obs.finish(config, workload)
+    result = JobResult(counts=counts, top=top, metrics=summary, trace=trace)
     if config.metrics:
-        _log.info("metrics: %s", metrics)
-    return JobResult(counts=counts, top=top, metrics=metrics)
+        _log.info("metrics: %s", result.metrics)
+    return result
 
 
 @dataclass
 class KMeansResult:
     centroids: np.ndarray
     metrics: dict = field(default_factory=dict)
+    trace: list | None = None
 
     def top_report(self, k: int) -> str:  # CLI-facing summary
         return (f"k-means: {self.centroids.shape[0]} centroids, "
@@ -381,8 +422,8 @@ def _adopt_checkpoint_kmeans_mode(config: JobConfig,
     return stored if probe == want else None
 
 
-def run_kmeans_job(config: JobConfig,
-                   centroids: np.ndarray | None = None) -> KMeansResult:
+def run_kmeans_job(config: JobConfig, centroids: np.ndarray | None = None,
+                   on_obs=None) -> KMeansResult:
     """k-means over a ``.npy`` float32 ``(n, d)`` points file, in one of
     three modes (``kmeans_mode`` in the metrics and the checkpoint):
 
@@ -405,14 +446,28 @@ def run_kmeans_job(config: JobConfig,
     ``kmeans_iters`` is not identity: a snapshot at iteration i resumes any
     same-job run asking for >= i iterations, and one covering every
     requested iteration is the result.  A successful run deletes its
-    snapshot unless ``keep_intermediates``."""
+    snapshot unless ``keep_intermediates``.
+
+    The body runs in the job's ``Obs`` envelope with the phases
+    ``iterate`` and ``write``; ``device/compute_ms`` times the blocking
+    centroid fetches (per-iteration snapshot and the final force)."""
+    config.validate()
+    obs = Obs.from_config(config)
+    if on_obs is not None:
+        on_obs(obs)
+    with obs.recording(config, "kmeans"):
+        return _run_kmeans_body(config, obs, centroids)
+
+
+def _run_kmeans_body(config: JobConfig, obs: Obs,
+                     centroids: np.ndarray | None) -> KMeansResult:
     from map_oxidize_tpu_torch.api import SumReducer
     from map_oxidize_tpu_torch.workloads import kmeans as km
 
-    config.validate()
     if config.num_shards > 1:
         raise NotImplementedError(
             "sharded k-means is not ported yet (ROADMAP: sharded engines)")
+    metrics = obs.registry
     pts = np.load(config.input_path, mmap_mode="r")
     if pts.ndim != 2:
         raise ValueError(f"k-means input must be (n, d); got {pts.shape}")
@@ -455,6 +510,8 @@ def run_kmeans_job(config: JobConfig,
                 mode = stored
     else:
         mode = "stream"
+    metrics.set("kmeans_mode", mode)
+    metrics.set("kmeans_shards", 1)
 
     # --- checkpoint/resume: the iteration boundary is k-means's natural
     # materialization barrier (centroids fully summarize progress)
@@ -471,69 +528,76 @@ def run_kmeans_job(config: JobConfig,
             centroids = np.asarray(state["centroids"], np.float32)
             _log.info("k-means resumed at iteration %d", start_iter)
 
-    def _iter_done(i: int, c: np.ndarray) -> None:
-        store.save_snapshot({"centroids": np.asarray(c, np.float32)},
-                            HashDictionary(), start_iter + i, start_iter + i)
+    def _iter_done(i: int, c: np.ndarray | None = None) -> None:
+        """Per-iteration hook of every mode: heartbeat tick (iteration
+        fraction) and the snapshot.  Passed only when one of them exists:
+        it costs a centroid fetch per iteration."""
+        if obs.heartbeat is not None:
+            obs.heartbeat.update(
+                rows=int(n),
+                fraction=min((start_iter + i) / config.kmeans_iters, 1.0))
+        if store is not None and c is not None:
+            store.save_snapshot({"centroids": np.asarray(c, np.float32)},
+                                HashDictionary(), start_iter + i,
+                                start_iter + i)
 
-    on_iter = _iter_done if store is not None else None
-    metrics: dict = {}
+    on_iter = (_iter_done if store is not None or obs.heartbeat is not None
+               else None)
     remaining = config.kmeans_iters - start_iter
-    if remaining < 0:
-        # the snapshot already covers every requested iteration; its state
-        # IS the result (use a fresh checkpoint_dir to recompute)
-        _log.warning("checkpoint has %d iterations, more than the %d "
-                     "requested; returning the snapshotted state",
-                     start_iter, config.kmeans_iters)
-    elif remaining > 0 and mode == "device":
-        timings: dict = {}
-        centroids = km.kmeans_fit_device(
-            pts, centroids, iters=remaining, device=device, on_iter=on_iter,
-            timings=timings, precision=config.kmeans_precision)
-        metrics.update({f"time/{k}": v for k, v in timings.items()})
-    elif remaining > 0 and mode == "stream_device":
-        # the divisor budgets the per-chunk working set as the fit
-        # heuristic does; chunking does not depend on dispatch_batch
-        chunk_rows = max(1, config.chunk_bytes
-                         // (4 * (int(d) + 2 * config.kmeans_k)))
-        timings = {}
-        centroids = km.kmeans_fit_streamed_device(
-            config.input_path, centroids, iters=remaining,
-            chunk_rows=chunk_rows, device=device,
-            precision=config.kmeans_precision, timings=timings,
-            on_iter=on_iter, pipeline_depth=config.pipeline_depth,
-            dispatch_batch=config.dispatch_batch)
-        metrics["time/feed_s"] = timings["feed_s"]
-        metrics["dispatch/batch"] = timings["dispatch_batch"]
-        if "overlap_ratio" in timings:
-            metrics["pipeline/feed_wait_ms"] = timings["feed_wait_s"] * 1e3
-            metrics["pipeline/overlap_ratio"] = timings["overlap_ratio"]
-    elif remaining > 0:
-        # the host assign (map_chunk) runs in the prefetch thread, so
-        # assigning chunk i+1 overlaps chunk i's engine feed
-        rows = max(1, config.chunk_bytes // (4 * d))
-        pipe: dict = {}
-        t0 = time.perf_counter()
-        for it in range(start_iter, config.kmeans_iters):
-            engine = make_engine(config, SumReducer(), value_shape=(d + 1,),
-                                 value_dtype=np.float32)
-            mapper = km.KMeansMapper(centroids)
-            mapped = pipelined(
-                (mapper.map_chunk(c) for c in
-                 km.iter_point_chunks(config.input_path, rows)),
-                config.pipeline_depth, name="kmeans/map", timings=pipe)
-            centroids = km.kmeans_iteration(engine, centroids, (),
-                                            mapper=mapper, mapped=mapped)
-            if on_iter is not None:
-                on_iter(it + 1 - start_iter, centroids)
-        metrics["time/iter_s"] = time.perf_counter() - t0
-        if pipe.get("produce_s"):
-            metrics["pipeline/depth"] = config.pipeline_depth
-            metrics["pipeline/produce_ms"] = pipe["produce_s"] * 1e3
-            metrics["pipeline/feed_wait_ms"] = pipe["wait_s"] * 1e3
-            metrics["pipeline/overlap_ratio"] = round(
-                overlap_ratio(pipe["produce_s"], pipe["wait_s"]), 4)
-    if config.output_path:
-        km.write_centroids(config.output_path, centroids)
+    with obs.phase("iterate"):
+        if remaining < 0:
+            # the snapshot already covers every requested iteration; its
+            # state IS the result (use a fresh checkpoint_dir to recompute)
+            _log.warning("checkpoint has %d iterations, more than the %d "
+                         "requested; returning the snapshotted state",
+                         start_iter, config.kmeans_iters)
+        elif remaining > 0 and mode == "device":
+            timings: dict = {}
+            centroids = km.kmeans_fit_device(
+                pts, centroids, iters=remaining,
+                device=pick_device(config.backend), on_iter=on_iter,
+                timings=timings, precision=config.kmeans_precision)
+            for tk, tv in timings.items():
+                metrics.set(f"time/{tk}", round(tv, 4))
+        elif remaining > 0 and mode == "stream_device":
+            # the divisor budgets the per-chunk working set as the fit
+            # heuristic does; chunking does not depend on dispatch_batch
+            chunk_rows = max(1, config.chunk_bytes
+                             // (4 * (int(d) + 2 * config.kmeans_k)))
+            timings = {}
+            centroids = km.kmeans_fit_streamed_device(
+                config.input_path, centroids, iters=remaining,
+                chunk_rows=chunk_rows, device=pick_device(config.backend),
+                precision=config.kmeans_precision, timings=timings,
+                on_iter=on_iter, pipeline_depth=config.pipeline_depth,
+                dispatch_batch=config.dispatch_batch)
+            metrics.set("time/feed_s", round(timings["feed_s"], 4))
+            metrics.set("dispatch/batch", timings["dispatch_batch"])
+            if "overlap_ratio" in timings:
+                # the stager live-fed pipeline/feed_wait_ms per block
+                metrics.set("pipeline/overlap_ratio",
+                            timings["overlap_ratio"])
+        elif remaining > 0:
+            # the host assign (map_chunk) runs in the prefetch thread, so
+            # assigning chunk i+1 overlaps chunk i's engine feed
+            rows = max(1, config.chunk_bytes // (4 * d))
+            for it in range(start_iter, config.kmeans_iters):
+                engine = make_engine(config, SumReducer(),
+                                     value_shape=(d + 1,),
+                                     value_dtype=np.float32)
+                mapper = km.KMeansMapper(centroids)
+                mapped = pipelined(
+                    (mapper.map_chunk(c) for c in
+                     km.iter_point_chunks(config.input_path, rows)),
+                    config.pipeline_depth, obs, name="kmeans/map")
+                centroids = km.kmeans_iteration(engine, centroids, (),
+                                                mapper=mapper, mapped=mapped)
+                if on_iter is not None:
+                    on_iter(it + 1 - start_iter,
+                            centroids if store is not None else None)
+    with obs.phase("write"):
+        if config.output_path:
+            km.write_centroids(config.output_path, centroids)
     ran_iters = max(remaining, 0)
     if store is not None:
         # a zero-work run (the snapshot already covered every requested
@@ -542,19 +606,16 @@ def run_kmeans_job(config: JobConfig,
         store.finish(config.keep_intermediates or ran_iters == 0)
     # records_in counts the work THIS run did: a resume ran only the
     # remaining iterations; ``iters`` is what the centroids represent
-    metrics = {
-        "workload": "kmeans",
-        "kmeans_mode": mode,
-        "kmeans_shards": 1,
-        "device": str(device),
-        "records_in": int(n) * ran_iters,
-        "points": int(n),
-        "dim": int(d),
-        "iters": start_iter + ran_iters,
-        **metrics,
-    }
+    metrics.set("records_in", int(n) * ran_iters)
+    metrics.set("points", int(n))
+    metrics.set("dim", int(d))
+    metrics.set("iters", start_iter + ran_iters)
     if start_iter:
-        metrics["resumed_iters"] = start_iter
+        metrics.set("resumed_iters", start_iter)
+    # the port's own: where the fit ran (nothing falls back)
+    metrics.set("device", str(device))
+    summary, trace = obs.finish(config, "kmeans")
+    result = KMeansResult(centroids=centroids, metrics=summary, trace=trace)
     if config.metrics:
-        _log.info("metrics: %s", metrics)
-    return KMeansResult(centroids=centroids, metrics=metrics)
+        _log.info("metrics: %s", result.metrics)
+    return result

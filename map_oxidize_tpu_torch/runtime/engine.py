@@ -17,17 +17,31 @@ settle, and at finalize.
 Engine contract for ``finalize()``: returns ``(hi, lo, vals, n_unique)``
 numpy arrays where rows whose key is SENTINEL are padding; consumers mask on
 the sentinel.
+
+Observability seams (the JAX package's ``runtime/engine.py:74-97``,
+``:222-236``, ``:275-309``): with ``engine.obs`` set, every flush is an
+``engine/flush`` span and lands in ``engine/flush_ms``, ``engine/flushes``
+and ``engine/device_put_bytes``; growth counts ``engine/grows`` and sets
+``engine/capacity_rows``; the host syncs on the feed path are timed into
+``engine/growth_sync_ms`` and ``engine/health_sync_ms``.  The finalize
+fetch, which blocks on the whole accumulated device chain, is timed into
+the current job's ``device/compute_ms``, and a device resolve inside a
+phase into its ``attrib/init_ms``.
 """
 
 from __future__ import annotations
 
 import abc
+import contextlib
+import time
 
 import numpy as np
 import torch
 
 from map_oxidize_tpu_torch.api import MapOutput, Reducer
 from map_oxidize_tpu_torch.config import JobConfig
+from map_oxidize_tpu_torch.obs import observe_device_wait
+from map_oxidize_tpu_torch.obs.context import current_obs
 from map_oxidize_tpu_torch.ops.hashing import SENTINEL
 from map_oxidize_tpu_torch.ops.segment_reduce import (
     SENTINEL_KEY,
@@ -53,16 +67,31 @@ class CapacityError(RuntimeError):
 
 def pick_device(backend: str = "cuda") -> torch.device:
     """Resolve the compute device: 'cuda' demands a CUDA device and raises
-    when there is none; 'cpu' is the CPU, and only when asked for."""
-    if backend == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "backend 'cuda' requested but no CUDA device is available "
-                "(pass backend='cpu' to run on the CPU)")
-        return torch.device("cuda", torch.cuda.current_device())
-    if backend == "cpu":
-        return torch.device("cpu")
-    raise ValueError(f"backend must be cuda|cpu, got {backend!r}")
+    when there is none; 'cpu' is the CPU, and only when asked for.
+
+    The first CUDA resolve of a process initialises the CUDA context; when
+    a job phase is open, the resolve is timed into the recording job's
+    ``attrib/init_ms`` (the attribution's ``setup`` bucket), as the JAX
+    package times its first ``jax.devices()``.  A resolve before the first
+    phase is already inside ``attrib/pre_phase_ms``.  The CPU resolve
+    touches no CUDA."""
+    t0 = time.perf_counter()
+    try:
+        if backend == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "backend 'cuda' requested but no CUDA device is "
+                    "available (pass backend='cpu' to run on the CPU)")
+            return torch.device("cuda", torch.cuda.current_device())
+        if backend == "cpu":
+            return torch.device("cpu")
+        raise ValueError(f"backend must be cuda|cpu, got {backend!r}")
+    finally:
+        obs = current_obs()
+        if obs is not None and obs.current_phase:
+            obs.registry.count("attrib/init_ms",
+                               (time.perf_counter() - t0) * 1e3)
+
 
 
 def next_pow2(n: int) -> int:
@@ -108,6 +137,8 @@ class StreamingEngineBase(abc.ABC):
         self._n_unique = None    # device live-key count (0-d tensor)
         self._n_live_ub = 0      # host upper bound on live keys
         self._total_hint = None  # exact cap on distinct keys, if known
+        #: the job's ``Obs`` bundle, set by the driver (None: no records)
+        self.obs = None
 
     def _round_batch(self, n: int) -> int:
         return min(next_pow2(max(n, 512)), self.feed_batch)
@@ -149,12 +180,26 @@ class StreamingEngineBase(abc.ABC):
             vals = np.concatenate([s[2] for s in self._stage])
         self._stage = []
         self._staged = 0
-        for start in range(0, hi.shape[0], self.feed_batch):
-            stop = min(start + self.feed_batch, hi.shape[0])
-            self._merge_batch(self._pad(hi, lo, vals, start, stop))
-            self._merges += 1
-            if self._merges % self._check_every == 0:
-                self._check_health()
+        obs = self.obs
+        t0 = time.perf_counter() if obs is not None else 0.0
+        try:
+            # a capacity abort from the merge still records the span, with
+            # its error attribute
+            with (obs.tracer.span("engine/flush", rows=int(hi.shape[0]))
+                  if obs is not None else contextlib.nullcontext()):
+                for start in range(0, hi.shape[0], self.feed_batch):
+                    stop = min(start + self.feed_batch, hi.shape[0])
+                    self._merge_batch(self._pad(hi, lo, vals, start, stop))
+                    self._merges += 1
+                    if self._merges % self._check_every == 0:
+                        self._health_sync()
+        finally:
+            if obs is not None:
+                obs.registry.observe("engine/flush_ms",
+                                     (time.perf_counter() - t0) * 1e3)
+                obs.registry.count("engine/device_put_bytes",
+                                   hi.nbytes + lo.nbytes + vals.nbytes)
+                obs.registry.count("engine/flushes")
 
     def hint_total_keys(self, n: int) -> None:
         """The job-wide distinct-key count can never exceed ``n`` (e.g. the
@@ -171,8 +216,13 @@ class StreamingEngineBase(abc.ABC):
             return
         if self._n_unique is not None:
             # growth looks necessary: refresh the bound from the device
-            # first (the only sync on the feed path)
+            # first (the only sync on the feed path), timed as a stall
+            t0 = time.perf_counter()
             self._n_live_ub = self._read_live()
+            if self.obs is not None:
+                self.obs.registry.observe(
+                    "engine/growth_sync_ms",
+                    (time.perf_counter() - t0) * 1e3)
             needed = self._n_live_ub + incoming
             if self._total_hint is not None:
                 needed = min(needed, self._total_hint)
@@ -182,7 +232,21 @@ class StreamingEngineBase(abc.ABC):
                       max(next_pow2(needed), next_pow2(self.capacity + 1)))
         self._apply_grow(new_cap)
         _log.info("accumulator grown %d -> %d rows", self.capacity, new_cap)
+        if self.obs is not None:
+            self.obs.registry.count("engine/grows")
+            self.obs.registry.gauge("engine/capacity_rows", new_cap)
+            self.obs.tracer.instant("engine/grow", old=self.capacity,
+                                    new=new_cap)
         self.capacity = new_cap
+
+    def _health_sync(self) -> None:
+        """Periodic overflow check on the feed path, timed: the host blocks
+        here for the device (``engine/health_sync_ms``)."""
+        t0 = time.perf_counter()
+        self._check_health()
+        if self.obs is not None:
+            self.obs.registry.observe("engine/health_sync_ms",
+                                      (time.perf_counter() - t0) * 1e3)
 
     @abc.abstractmethod
     def _read_live(self) -> int:
@@ -344,15 +408,22 @@ class DeviceReduceEngine(StreamingEngineBase):
         if self.value_shape == () and self.value_dtype.itemsize == 4:
             # ONE fetch for keys, values, n_unique and the overflow count
             packed = pack_accumulator_state(
-                self._keys, self._vals, self._n_unique,
-                self._ovf).cpu().numpy().astype(np.uint32)
+                self._keys, self._vals, self._n_unique, self._ovf)
+            t0 = time.perf_counter()
+            packed = packed.cpu().numpy().astype(np.uint32)
+            observe_device_wait(t0)
             if packed[1, -1]:
                 self._raise_dropped(int(packed[1, -1]))
             return (packed[0, :-1], packed[1, :-1],
                     packed[2, :-1].view(self.value_dtype), int(packed[0, -1]))
-        self._check_health()
+        t0 = time.perf_counter()
+        dropped = int(self._ovf)
         hi, lo = planes_from_keys(self._keys)
-        return hi, lo, self._vals.cpu().numpy(), int(self._n_unique)
+        vals = self._vals.cpu().numpy()
+        observe_device_wait(t0)
+        if dropped:
+            self._raise_dropped(dropped)
+        return hi, lo, vals, int(self._n_unique)
 
     def _top_k_device(self, k: int):
         return top_k_pairs(self._keys, self._vals, min(k, self.capacity))

@@ -20,6 +20,7 @@ from concurrent.futures import FIRST_COMPLETED, Future, ThreadPoolExecutor, wait
 from typing import Iterable, Iterator
 
 from map_oxidize_tpu_torch.api import Mapper, MapOutput
+from map_oxidize_tpu_torch.obs.context import bind_current
 from map_oxidize_tpu_torch.runtime.pipeline import pipelined
 from map_oxidize_tpu_torch.utils.logging import get_logger
 
@@ -52,6 +53,7 @@ def run_map_phase(
     num_workers: int,
     max_retries: int = 2,
     pipeline_depth: int = 1,
+    obs=None,
 ) -> Iterator[tuple[int, MapOutput]]:
     """Map chunks concurrently; yield ``(chunk_index, MapOutput)`` in
     completion order.  At most ``2 * num_workers`` chunks are in flight, which
@@ -63,14 +65,17 @@ def run_map_phase(
     ``pipeline_depth > 1``, so chunk i+1's read+tokenize overlaps chunk
     i's engine feed in the caller.  With the pool active, the pool already
     overlaps mapping; the pipeline instead read-aheads the *chunk input*
-    by ``pipeline_depth`` so the submit loop never stalls on I/O."""
+    by ``pipeline_depth`` so the submit loop never stalls on I/O.  ``obs``
+    records the pipeline's counters, and the pool's tasks run under the
+    submitting job's context binding."""
     if num_workers <= 1 or (os.cpu_count() or 1) <= 1:
         def _inline():
             for idx, chunk in enumerate(chunks):
                 yield idx, _attempt(mapper, chunk, idx, max_retries)
-        yield from pipelined(_inline(), pipeline_depth, name="map")
+        yield from pipelined(_inline(), pipeline_depth, obs, name="map")
         return
-    chunks = pipelined(chunks, pipeline_depth, name="read")
+    chunks = pipelined(chunks, pipeline_depth, obs, name="read")
+    attempt = bind_current(_attempt)
     max_inflight = max(2, 2 * num_workers)
     with ThreadPoolExecutor(max_workers=num_workers,
                             thread_name_prefix="map") as pool:
@@ -84,7 +89,7 @@ def run_map_phase(
                 except StopIteration:
                     exhausted = True
                     break
-                inflight[pool.submit(_attempt, mapper, chunk, idx,
+                inflight[pool.submit(attempt, mapper, chunk, idx,
                                      max_retries)] = idx
             if not inflight:
                 return

@@ -22,7 +22,8 @@ consumer after the items produced before them, exactly like serial
 iteration.
 
 ``pipelined()`` is the driver-facing wrapper: depth <= 1 returns the
-iterator untouched (the serial schedule, no thread).
+iterator untouched (the serial schedule, no thread), and with an ``Obs``
+bundle it records the live ``pipeline/*`` counters and gauges.
 
 :class:`BlockStager` is the prefetcher as a device stager: its producer
 runs the caller's ``stage_fn`` over pre-grouped blocks (:func:`chunk_groups`),
@@ -64,31 +65,62 @@ class ChunkPrefetcher:
     abandon path sets a stop flag and drains the queue so a producer
     blocked on ``put`` wakes and exits instead of pinning ``depth``
     chunks of host memory until process end.
+
+    With an ``obs`` bundle (the JAX package's ``runtime/pipeline.py:182-187``
+    and ``:294-318``), every consumed item flushes the produce/wait deltas
+    into the live counters ``pipeline/produce_ms``, ``pipeline/feed_wait_ms``
+    and ``pipeline/chunks``, and a traced run records the handoff spans
+    ``<name>/produce`` (producer thread) and ``<name>/feed_wait``
+    (consumer), paired by ``seq``.  The producer thread runs under the
+    spawning job's context binding (``obs.context.bind_current``).
     """
 
-    def __init__(self, it: Iterable[T], depth: int, name: str = "pipeline"):
+    def __init__(self, it: Iterable[T], depth: int, name: str = "pipeline",
+                 obs=None):
         if depth < 1:
             raise ValueError(f"prefetch depth must be >= 1, got {depth}")
+        from map_oxidize_tpu_torch.obs.context import bind_current
+
         self._it = iter(it)
         self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._name = name
         self._stop = False
         self._err: BaseException | None = None
-        self._thread = threading.Thread(target=self._produce, daemon=True,
-                                        name=f"{name}-prefetch")
+        self._obs = obs
+        self._reported_produce = 0.0
+        self._reported_wait = 0.0
+        self._thread = threading.Thread(
+            target=bind_current(self._produce), daemon=True,
+            name=f"{name}-prefetch")
         #: host time spent producing items
         self.produce_s = 0.0
         #: consumer time spent stalled waiting for the next item
         self.wait_s = 0.0
+        #: items handed to the consumer
+        self.items = 0
 
     # --- producer ---------------------------------------------------------
 
     def _produce(self) -> None:
+        tracer = self._obs.tracer if self._obs is not None else None
+        seq = 0
         try:
             while not self._stop:
                 t0 = time.perf_counter()
-                item = next(self._it, _DONE)
+                # the producer half of the handoff, paired by seq with the
+                # consumer's feed_wait span; exhaustion takes the sentinel
+                # default so no StopIteration crosses the span
+                if tracer is not None and tracer.enabled:
+                    with tracer.span(f"{self._name}/produce",
+                                     seq=seq) as sp:
+                        item = next(self._it, _DONE)
+                        if item is _DONE:
+                            sp.set(exhausted=True)
+                else:
+                    item = next(self._it, _DONE)
                 if item is _DONE:
                     return
+                seq += 1
                 self.produce_s += time.perf_counter() - t0
                 # timed put loop instead of a blocking put: an abandoned
                 # consumer only drains once, so a producer stuck in a
@@ -117,17 +149,46 @@ class ChunkPrefetcher:
     def overlap_ratio(self) -> float:
         return overlap_ratio(self.produce_s, self.wait_s)
 
+    def _flush_counters(self, chunks: int = 0) -> None:
+        """Report the produce/wait accumulated since the last flush into
+        the job registry.  ``produce_s`` is written by the producer thread;
+        a torn read only shifts a delta to the next flush."""
+        if self._obs is None:
+            return
+        reg = self._obs.registry
+        dp = self.produce_s - self._reported_produce
+        dw = self.wait_s - self._reported_wait
+        if dp > 0:
+            self._reported_produce += dp
+            reg.count("pipeline/produce_ms", dp * 1e3)
+        if dw > 0:
+            self._reported_wait += dw
+            reg.count("pipeline/feed_wait_ms", dw * 1e3)
+        if chunks:
+            reg.count("pipeline/chunks", chunks)
+
     def __iter__(self) -> Iterator[T]:
         self._thread.start()
+        tracer = self._obs.tracer if self._obs is not None else None
+        seq = 0
         try:
             while True:
                 t0 = time.perf_counter()
-                item = self._q.get()
+                if tracer is not None and tracer.enabled:
+                    # the consumer half of the handoff: the span's wall is
+                    # the stall waiting for item seq
+                    with tracer.span(f"{self._name}/feed_wait", seq=seq):
+                        item = self._q.get()
+                else:
+                    item = self._q.get()
+                seq += 1
                 self.wait_s += time.perf_counter() - t0
                 if item is _DONE:
                     if self._err is not None:
                         raise self._err
                     return
+                self.items += 1
+                self._flush_counters(chunks=1)
                 yield item
         finally:
             # abandon/exhaustion: release the producer if it is still
@@ -138,27 +199,40 @@ class ChunkPrefetcher:
                     self._q.get_nowait()
             except queue.Empty:
                 pass
+            self._flush_counters()
 
 
-def pipelined(it: Iterable[T], depth: int, name: str = "pipeline",
-              timings: dict | None = None) -> Iterable[T]:
+def pipelined(it: Iterable[T], depth: int, obs=None,
+              name: str = "pipeline") -> Iterable[T]:
     """Prefetch ``it`` with ``depth - 1`` items queued ahead of the one the
-    consumer holds.  ``depth <= 1`` returns ``it`` unchanged — the serial
-    schedule, no thread — so ``--pipeline-depth 1`` is a true control
-    arm, not a degenerate pipeline.  ``timings`` (a dict) accumulates the
-    prefetcher's ``produce_s`` and ``wait_s`` when the stream ends."""
+    consumer holds, recording into ``obs`` when given: the prefetcher's
+    live counters, the ``pipeline/overlap_ratio`` gauge after every item
+    and, when the stream ends, the ``pipeline/depth`` gauge and a
+    ``<name>/pipeline_done`` trace instant.  ``depth <= 1`` returns ``it``
+    unchanged — the serial schedule, no thread, no counters — so
+    ``--pipeline-depth 1`` is a true control arm, not a degenerate
+    pipeline."""
     if depth <= 1:
         return it
-    pf = ChunkPrefetcher(it, depth - 1, name=name)
-    if timings is None:
+    pf = ChunkPrefetcher(it, depth - 1, name=name, obs=obs)
+    if obs is None:
         return iter(pf)
 
     def _run():
+        reg = obs.registry
         try:
-            yield from pf
+            for item in pf:
+                reg.set("pipeline/overlap_ratio", round(pf.overlap_ratio, 4))
+                yield item
         finally:
-            timings["produce_s"] = timings.get("produce_s", 0.0) + pf.produce_s
-            timings["wait_s"] = timings.get("wait_s", 0.0) + pf.wait_s
+            if pf.items or pf.produce_s:
+                reg.set("pipeline/depth", depth)
+                reg.set("pipeline/overlap_ratio", round(pf.overlap_ratio, 4))
+                obs.tracer.instant(
+                    f"{name}/pipeline_done", items=pf.items,
+                    produce_ms=round(pf.produce_s * 1e3, 3),
+                    wait_ms=round(pf.wait_s * 1e3, 3),
+                    overlap_ratio=round(pf.overlap_ratio, 4))
 
     return _run()
 
@@ -193,11 +267,13 @@ class BlockStager(ChunkPrefetcher):
     reads (the CUDA form of the JAX package's ownership handoff at the
     put): :class:`StagingRing` guards its slots with events.
     ``produce_s`` measures staging per block, ``wait_s`` the consumer's
-    stalls."""
+    stalls; with ``obs`` both feed the live ``pipeline/*`` counters per
+    block."""
 
     def __init__(self, groups: Iterable, stage_fn, depth: int = 1,
-                 name: str = "stager"):
-        super().__init__(staged_blocks(groups, stage_fn), depth, name=name)
+                 name: str = "stager", obs=None):
+        super().__init__(staged_blocks(groups, stage_fn), depth, name=name,
+                         obs=obs)
 
 
 class StagingRing:

@@ -34,6 +34,8 @@ import numpy as np
 import torch
 
 from map_oxidize_tpu_torch.api import Mapper, MapOutput, SumReducer
+from map_oxidize_tpu_torch.obs import observe_device_wait
+from map_oxidize_tpu_torch.obs.context import current_obs
 from map_oxidize_tpu_torch.ops.kmeans_kernel import (
     fused_assign_sum,
     fused_assign_sum_plain as assign_and_sum,
@@ -171,18 +173,18 @@ def kmeans_fit_device(points, centroids, iters: int = 1, device=None,
 
     ``on_iter(i, centroids_np)`` sees the state after each iteration (one
     ``(k, d)`` fetch per iteration).  ``timings`` (when a dict is passed)
-    receives ``transfer_s`` (host->device copy of the points) and
-    ``iter_s`` (the whole iteration chain, synchronised, ``on_iter``'s
-    calls included)."""
+    receives ``transfer_s`` (the points from the caller's array to the
+    device: the host read of a memory map, the bf16 rounding and the copy,
+    as the JAX package's ``device_put`` of the map reads it) and ``iter_s``
+    (the whole iteration chain, synchronised, ``on_iter``'s calls
+    included).  Inside a job, each blocking centroid fetch (the
+    per-iteration one for ``on_iter`` and the final one, which waits for
+    the whole iteration chain) is timed into its ``device/compute_ms``."""
     if device is None:
         from map_oxidize_tpu_torch.runtime.engine import pick_device
 
         device = pick_device("cuda")
     device = torch.device(device)
-    # a copy: the caller's array may be a read-only memory map
-    points = torch.from_numpy(np.array(points, np.float32))
-    if precision == "bf16":
-        points = points.to(torch.bfloat16)  # round to nearest even
     c = torch.from_numpy(np.array(centroids, np.float32)).to(device)
     k = c.shape[0]
 
@@ -191,7 +193,12 @@ def kmeans_fit_device(points, centroids, iters: int = 1, device=None,
             torch.cuda.synchronize(device)
 
     t0 = time.perf_counter()
+    # a copy: the caller's array may be a read-only memory map
+    points = torch.from_numpy(np.array(points, np.float32))
+    if precision == "bf16":
+        points = points.to(torch.bfloat16)  # round to nearest even
     p = points.to(device)
+    del points
     _sync()
     if timings is not None:
         timings["transfer_s"] = time.perf_counter() - t0
@@ -199,10 +206,20 @@ def kmeans_fit_device(points, centroids, iters: int = 1, device=None,
     for i in range(iters):
         c = _kmeans_step_impl(c, p, k, precision)
         if on_iter is not None:
-            on_iter(i + 1, c.cpu().numpy())
-    out = c.cpu().numpy()
+            on_iter(i + 1, _fetch(c))
+    out = _fetch(c)
     if timings is not None:
         timings["iter_s"] = time.perf_counter() - t0
+    return out
+
+
+def _fetch(c: torch.Tensor) -> np.ndarray:
+    """The centroids to the host: the fetch blocks on the device chain that
+    produced them, a wait the job's ``device/compute_ms`` records (the JAX
+    package's ``parallel/kmeans.py:395-422``)."""
+    t0 = time.perf_counter()
+    out = c.cpu().numpy()
+    observe_device_wait(t0)
     return out
 
 
@@ -238,7 +255,10 @@ def kmeans_fit_streamed_device(path: str, centroids, iters: int = 1,
     ``(k, d+1)`` accumulator (sums, counts) as NumPy (one more fetch).
     ``timings`` receives ``feed_s`` (the whole block loop, synchronised),
     ``dispatch_batch`` and, when a stager thread ran, ``feed_wait_s`` and
-    ``overlap_ratio``."""
+    ``overlap_ratio``.  Inside a job (``obs.context``): the set-up (staging
+    ring, centroid copy) counts into its ``attrib/init_ms``, the stager
+    feeds its live ``pipeline/*`` counters, and the blocking centroid
+    fetches land in its ``device/compute_ms``."""
     from map_oxidize_tpu_torch.runtime.pipeline import (
         BlockStager,
         StagingRing,
@@ -251,6 +271,11 @@ def kmeans_fit_streamed_device(path: str, centroids, iters: int = 1,
 
         device = pick_device("cuda")
     device = torch.device(device)
+    obs = current_obs()
+    # the set-up window (the staging ring's pinned buffers and device
+    # blocks, the centroid copy) runs inside the driver's iterate phase:
+    # measured so it lands in the attribution's setup bucket
+    t_init = time.perf_counter()
     pts = np.load(path, mmap_mode="r")
     n, d = pts.shape
     c = torch.from_numpy(np.array(centroids, np.float32)).to(device)
@@ -268,6 +293,9 @@ def kmeans_fit_streamed_device(path: str, centroids, iters: int = 1,
         lo, hi = group[0], min(group[-1] + chunk_rows, n)
         return seq, ring.stage(seq, pts[lo:hi]), group
 
+    if obs is not None:
+        obs.registry.count("attrib/init_ms",
+                           (time.perf_counter() - t_init) * 1e3)
     t0 = time.perf_counter()
     # ONE stager spans every iteration: the blocks do not depend on the
     # centroids, so iteration i+1's first block stages while iteration i's
@@ -276,7 +304,7 @@ def kmeans_fit_streamed_device(path: str, centroids, iters: int = 1,
     pf = None
     if pipeline_depth > 1 and len(all_groups) > 1:
         pf = BlockStager(all_groups, _stage, depth=pipeline_depth - 1,
-                         name="kmeans/stage")
+                         name="kmeans/stage", obs=obs)
         blocks = iter(pf)
     else:
         blocks = staged_blocks(all_groups, _stage)
@@ -299,8 +327,8 @@ def kmeans_fit_streamed_device(path: str, centroids, iters: int = 1,
             if partials is not None:
                 partials.append(acc.cpu().numpy())
             if on_iter is not None:
-                on_iter(seq // n_blocks + 1, c.cpu().numpy())
-    out = c.cpu().numpy()
+                on_iter(seq // n_blocks + 1, _fetch(c))
+    out = _fetch(c)
     if timings is not None:
         timings["feed_s"] = time.perf_counter() - t0
         timings["dispatch_batch"] = B

@@ -154,7 +154,8 @@ def test_checkpoint_invalidated_on_different_job(tmp_path):
     # same dir, different input: the stale spill is discarded, not replayed
     res = run_job(_cfg(other, tmp_path / "o2.txt", ckdir), "wordcount")
     run_job(_cfg(other, tmp_path / "o3.txt", None), "wordcount")
-    assert res.metrics["checkpoint/chunks_replayed"] == 0
+    # a counter, as in the JAX package: no chunk replayed, no key
+    assert "checkpoint/chunks_replayed" not in res.metrics
     assert (tmp_path / "o2.txt").read_bytes() == (
         tmp_path / "o3.txt").read_bytes()
     m1 = CheckpointStore.job_meta(_cfg(corpus, "", ckdir), "wordcount")

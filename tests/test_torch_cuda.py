@@ -1,6 +1,7 @@
 """Tests of the port that need a CUDA card: the hand-written kernel against
-its plain version, the fold on the card against the fold on the CPU, and
-the streamed k-means through the pinned staging ring.
+its plain version, the fold on the card against the fold on the CPU, the
+streamed k-means through the pinned staging ring, and the observability
+seams on the card (device memory, the profiler trace, determinism).
 They skip without a card.  On a card (no JAX needed):
 
     python -m pytest tests/test_torch_cuda.py -m cuda
@@ -345,3 +346,71 @@ def test_host_assign_stream_on_the_card_is_deterministic(cuda, tmp_path):
         cents.append(r.centroids)
     assert cents[0].tobytes() == cents[1].tobytes()
     np.testing.assert_allclose(cents[0], cents[2], atol=1e-4)
+
+
+# --- the observability seams on the card ------------------------------------
+
+
+def _blob_file(tmp_path, n=20_000, d=8, k=16, seed=47):
+    rng = np.random.default_rng(seed)
+    centres = rng.normal(0, 10, size=(k, d)).astype(np.float32)
+    pts = (centres[rng.integers(0, k, size=n)]
+           + rng.normal(0, 0.5, size=(n, d))).astype(np.float32)
+    pts[:k] = centres
+    path = tmp_path / "p.npy"
+    np.save(path, pts)
+    return str(path)
+
+
+def test_device_memory_watermarks_on_the_card(cuda, tmp_path):
+    """A job on the card reports ``mem/device0_hbm_bytes`` and its peak (the
+    JAX package's names), and the k-means fetches in
+    ``device/compute_ms``."""
+    r = run_job(JobConfig(input_path=_blob_file(tmp_path), output_path="",
+                          backend="cuda", kmeans_k=16, kmeans_iters=2,
+                          mapper="device", metrics=False), "kmeans")
+    m = r.metrics
+    assert m["mem/device0_hbm_peak_bytes"] >= m["mem/device0_hbm_bytes"] > 0
+    assert m["device/compute_ms/count"] == 1
+    assert m["attrib/device_compute_ms"] > 0
+
+
+def test_trace_dir_names_the_hand_written_kernel(cuda, tmp_path):
+    """``trace_dir`` on the card: the ``torch.profiler`` trace records the
+    kernel under its own name."""
+    import json
+
+    r = run_job(JobConfig(input_path=_blob_file(tmp_path), output_path="",
+                          backend="cuda", kmeans_k=16, kmeans_iters=2,
+                          mapper="device", metrics=False,
+                          trace_dir=str(tmp_path / "prof")), "kmeans")
+    assert r.metrics["profile/captures"] == 1
+    (f,) = (tmp_path / "prof").iterdir()
+    names = {e.get("name", "") for e in json.loads(f.read_text())[
+        "traceEvents"]}
+    assert any("kmeans_assign_sum" in n for n in names)
+
+
+def test_streamed_fit_with_metrics_out_is_bit_equal_run_to_run(cuda,
+                                                               tmp_path):
+    """Two streamed fits with ``metrics_out`` and ``trace_out`` on: the
+    centroids are bit-equal (the seams add no nondeterminism), and both
+    documents report the same launches' chunk counts."""
+    import json
+
+    path = _blob_file(tmp_path)
+    cents, docs = [], []
+    for i in range(2):
+        m = tmp_path / f"m{i}.json"
+        r = run_job(JobConfig(input_path=path, output_path="",
+                              backend="cuda", kmeans_k=16, kmeans_iters=3,
+                              chunk_bytes=4096, kmeans_device_fit_bytes=64,
+                              metrics=False, metrics_out=str(m),
+                              trace_out=str(tmp_path / f"t{i}.json")),
+                    "kmeans")
+        assert r.metrics["kmeans_mode"] == "stream_device"
+        cents.append(r.centroids)
+        docs.append(json.loads(m.read_text()))
+    assert cents[0].tobytes() == cents[1].tobytes()
+    assert (docs[0]["counters"]["pipeline/chunks"]
+            == docs[1]["counters"]["pipeline/chunks"] > 0)

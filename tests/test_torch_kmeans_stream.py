@@ -7,6 +7,7 @@ version; the JAX package runs as its own tests run it on the CPU."""
 
 import dataclasses
 import hashlib
+import json
 import os
 
 import numpy as np
@@ -21,6 +22,7 @@ from map_oxidize_tpu.workloads import kmeans as jkm
 from map_oxidize_tpu_torch.api import SumReducer
 from map_oxidize_tpu_torch.cli import main as cli_main
 from map_oxidize_tpu_torch.config import JobConfig
+from map_oxidize_tpu_torch.obs import Obs
 from map_oxidize_tpu_torch.runtime import run_job
 from map_oxidize_tpu_torch.runtime.checkpoint import CheckpointStore
 from map_oxidize_tpu_torch.runtime.driver import (
@@ -215,12 +217,14 @@ def test_staging_ring_on_the_cpu_refuses_an_overrun():
 
 
 def test_pipelined_reports_produce_and_wait_time():
-    timings = {}
-    assert list(pipelined(iter(range(9)), 3, timings=timings)) == list(
-        range(9))
-    assert timings["produce_s"] >= 0.0 and timings["wait_s"] >= 0.0
+    obs = Obs.from_config(JobConfig(backend="cpu"))
+    assert list(pipelined(iter(range(9)), 3, obs)) == list(range(9))
+    m = obs.registry.summary()
+    assert m["pipeline/chunks"] == 9 and m["pipeline/depth"] == 3
+    assert m["pipeline/produce_ms"] >= 0.0 and m["pipeline/feed_wait_ms"] >= 0.0
+    assert 0.0 <= m["pipeline/overlap_ratio"] <= 1.0
     serial = iter(range(3))
-    assert pipelined(serial, 1, timings=timings) is serial
+    assert pipelined(serial, 1, obs) is serial
 
 
 # --- the host-assign stream --------------------------------------------------
@@ -355,7 +359,8 @@ def test_run_job_modes_match_jax(tmp_path, mapper, fit_bytes, mode):
         assert {"time/feed_s", "dispatch/batch",
                 "pipeline/overlap_ratio"} <= set(res.metrics)
     if mode == "stream":
-        assert {"time/iter_s", "pipeline/overlap_ratio"} <= set(res.metrics)
+        assert {"time/iterate_s", "pipeline/overlap_ratio"} <= set(
+            res.metrics)
 
 
 def test_stream_device_chunking_follows_the_jax_formula(tmp_path,
@@ -379,15 +384,25 @@ def test_stream_device_chunking_follows_the_jax_formula(tmp_path,
 
 
 def test_cli_reaches_every_mode(tmp_path, capsys):
+    """Every mapper through the CLI, and ``auto`` past a
+    ``--kmeans-fit-bytes`` budget: the mode each reached
+    (``--metrics-out``) and centroids that match the oracle."""
     pts = _blobs(12, n=2000, d=4, k=3)
     path = _save(tmp_path, pts)
+    runs = {"auto": ([], "device"), "device": ([], "device"),
+            "native": ([], "stream"), "python": ([], "stream"),
+            "auto_fit": (["--kmeans-fit-bytes", "64", "--chunk-mb", "1"],
+                         "stream_device")}
     outs = {}
-    for mapper in ("auto", "device", "native", "python"):
-        out = str(tmp_path / f"{mapper}.npy")
+    for name, (flags, mode) in runs.items():
+        out = str(tmp_path / f"{name}.npy")
+        doc = tmp_path / f"{name}.json"
         assert cli_main(["kmeans", path, "--backend", "cpu", "--mapper",
-                         mapper, "--kmeans-k", "3", "--kmeans-iters", "2",
-                         "--output", out, "-q"]) == 0
-        outs[mapper] = np.load(out)
+                         name.split("_")[0], "--kmeans-k", "3",
+                         "--kmeans-iters", "2", "--output", out,
+                         "--metrics-out", str(doc), "-q"] + flags) == 0
+        assert json.loads(doc.read_text())["gauges"]["kmeans_mode"] == mode
+        outs[name] = np.load(out)
     assert "3 centroids" in capsys.readouterr().out
     for got in outs.values():
         np.testing.assert_allclose(got, _oracle(pts, pts[:3], 2), rtol=RTOL,

@@ -80,7 +80,8 @@ def test_final_result_byte_identical_to_jax(tmp_path, case):
     oracle = collections.Counter(tok)
     assert len(r.counts) == len(oracle)
     if case == "capacity_growth":
-        assert r.metrics["capacity_rows"] >= len(oracle) > 16
+        assert r.metrics["engine/capacity_rows"] >= len(oracle) > 16
+        assert r.metrics["engine/grows"] >= 1
 
 
 def test_capacity_error_when_key_capacity_too_small(tmp_path):
