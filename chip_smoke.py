@@ -77,7 +77,24 @@ Phases (any failure exits non-zero, before the result line):
              and ``trace_out``: the crash bundle and the partial metrics
              and trace must be on disk, the phase span closed with the
              error; then the ``trace_dir`` fit once more, its trace's
-             contents logged.
+             contents logged;
+9. collect   the collect route on phase 5's corpus: bigram on its first
+             32 MB through ``mapper='auto'`` (the host collect, hash-only,
+             strings by the native rescan) and ``reduce_mode='fold'`` on
+             the card (``key_capacity`` above the distinct count), the two
+             ``final_result.txt`` byte-identical; the inverted index on the
+             whole corpus with the host sort (``auto``), the card sort (the
+             pairs on the card, one sort timed alone with CUDA events,
+             then three warm sorts of the same block) and a forced
+             demotion to disk buckets, the three postings files
+             byte-identical, and on a 16 MB prefix equal to
+             ``inverted_index_model``; distinct on the whole corpus beside
+             phase 5's exact distinct count, and the native and Python
+             maps' registers equal on a 4 MB prefix; the inverted index
+             killed after 3 chunks and resumed to the same bytes.  Words/s,
+             ``attrib/*``, phases, ``demote/*`` and the phase's wall are
+             printed; no hand kernel is on this route (its launch count
+             stays 0).
 
 Then one JSON line with every kernel, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Inputs are made from fixed
@@ -116,6 +133,11 @@ OBS_N = 1 << 16         # the small fit of phase 8
 SCHEDULE_ITERS = 2      # iterations per run of the stager schedules
 HOST_N, HOST_K = 1 << 20, 64               # the host-assign stream
 RESUME_N, RESUME_ITERS, RESUME_KILL_AFTER = 1 << 22, 5, 2
+BIGRAM_BYTES = 32 << 20   # the prefix both bigram runs of phase 9 take
+BIGRAM_CHUNK = 8 << 20
+II_MODEL_BYTES = 16 << 20  # the prefix held to inverted_index_model
+DISTINCT_PY_BYTES = 4 << 20  # the prefix the Python HLL map takes
+II_KILL_AFTER = 3
 
 
 def log(msg: str) -> None:
@@ -129,13 +151,15 @@ def attrib_line(m: dict) -> str:
 
     buckets = ", ".join(f"{b} {m[f'attrib/{b}_ms']:.1f}"
                         for b in BUCKETS if m[f"attrib/{b}_ms"])
+    fetches = (f"{m['device/compute_ms/count']} fetches, p50 "
+               f"{m['device/compute_ms/p50']:.3f}, max "
+               f"{m['device/compute_ms/max']:.3f}, total "
+               f"{m['attrib/device_compute_ms']:.3f}"
+               if "device/compute_ms/count" in m else "no fetch")
     return (f"wall {m['attrib/wall_ms']:.1f} ms: {buckets}, unattributed "
             f"{m['attrib/unattributed_ms']:.1f} "
             f"({m['attrib/unattributed_pct']}%); device/compute_ms "
-            f"{m['device/compute_ms/count']} fetches, p50 "
-            f"{m['device/compute_ms/p50']:.3f}, max "
-            f"{m['device/compute_ms/max']:.3f}, total "
-            f"{m['attrib/device_compute_ms']:.3f}")
+            f"{fetches}")
 
 
 def check_iterate(name: str, m: dict, iters: int, own_s: float,
@@ -1343,6 +1367,258 @@ def phase_flight(tmp: str, backend: str) -> None:
     trace_dir_kernels(tmp, backend, "profile_late")
 
 
+# --- phase 9 ----------------------------------------------------------------
+
+def prefix_file(src: str, dst: str, nbytes: int) -> str:
+    """The first ``nbytes`` of ``src``, cut after its last newline."""
+    with open(src, "rb") as f:
+        head = f.read(nbytes)
+    with open(dst, "wb") as f:
+        f.write(head[:head.rfind(b"\n") + 1])
+    return dst
+
+
+def read(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def collect_line(name: str, m: dict) -> str:
+    """One collect-route job's counts, phases and rates."""
+    phases = ", ".join(f"{k[5:-2]} {v:.2f} s" for k, v in m.items()
+                       if k.startswith("time/") and k.endswith("_s"))
+    demote = {k: v for k, v in m.items()
+              if k.startswith(("demote/", "spill/"))}
+    return (f"{name}: {m['records_in']} tokens, job {job_s(m):.2f} s, "
+            f"{m['records_in'] / job_s(m):.0f} words/s over the job; "
+            f"{phases}; shuffle/transport {m.get('shuffle/transport')}; "
+            f"{demote or 'no demotion'}; {attrib_line(m)}")
+
+
+def phase_collect(tmp: str, backend: str, wc: dict, wrappers) -> dict:
+    """The collect route on phase 5's corpus (module docstring, phase 9):
+    bigram through the hash-only collect and through the fold on the card
+    (a prefix), the inverted index with the host sort, the card sort and a
+    forced demotion, distinct, and the inverted index killed and
+    resumed."""
+    import torch
+
+    import map_oxidize_tpu_torch.runtime.collect as collect_mod
+    import map_oxidize_tpu_torch.runtime.driver as driver_mod
+    from map_oxidize_tpu_torch.config import JobConfig
+    from map_oxidize_tpu_torch.io.writer import write_postings
+    from map_oxidize_tpu_torch.runtime import run_job
+    from map_oxidize_tpu_torch.workloads.distinct import distinct_model
+    from map_oxidize_tpu_torch.workloads.inverted_index import (
+        inverted_index_model,
+    )
+
+    t_phase = time.perf_counter()
+    path = wc["path"]
+    for w in wrappers:
+        w.launches = 0
+    out: dict = {"bigram": {}, "invertedindex": {}}
+
+    # bigram: the auto route (collect, hash-only, the native rescan) and
+    # the fold on the card, on a prefix of the corpus
+    bpath = prefix_file(path, os.path.join(tmp, "bigram_corpus.txt"),
+                        BIGRAM_BYTES)
+    key_capacity = 0
+    for name, kw in (("auto", {}), ("fold", {"reduce_mode": "fold"})):
+        o = os.path.join(tmp, f"bigram_{name}.txt")
+        if name == "fold":
+            kw["key_capacity"] = key_capacity
+        r = run_job(JobConfig(input_path=bpath, output_path=o,
+                              backend=backend, chunk_bytes=BIGRAM_CHUNK,
+                              metrics=False, **kw), "bigram")
+        m = r.metrics
+        log(collect_line(f"bigram {name}", m) + f"; {m['distinct_keys']} "
+            f"distinct bigrams, reduce on {m['accumulator_device']}")
+        if name == "auto":
+            if (type(r.counts._dict).__name__ != "RescanDictionary"
+                    or m["accumulator_device"] != "host"):
+                raise AssertionError("bigram auto did not take the "
+                                     "hash-only collect")
+            # the fold's accumulator must hold every distinct bigram
+            key_capacity = 1 << (2 * m["distinct_keys"]).bit_length()
+            log(f"bigram fold: key_capacity {key_capacity} for "
+                f"{m['distinct_keys']} distinct bigrams")
+        elif not m["accumulator_device"].startswith(backend):
+            raise AssertionError(f"fold on {m['accumulator_device']}")
+        if m["data/conservation_violations"] or m[
+                "data/conservation_checks"] != 3:
+            raise AssertionError(f"bigram {name}: data audit")
+        out["bigram"][name] = {"metrics": m, "out": o}
+        del r
+    if read(out["bigram"]["auto"]["out"]) != read(out["bigram"]["fold"]["out"]):
+        raise AssertionError("bigram collect and fold final_result.txt "
+                             "differ")
+    log("bigram collect and fold final_result.txt byte-identical")
+
+    # the inverted index: the host sort (auto), the card sort (a CUDA-event
+    # time for the sort alone) and a forced demotion to disk buckets
+    real_sort = collect_mod.sort_pairs
+    timing: dict = {}
+
+    def timed_sort(stacked):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        res = real_sort(stacked)
+        ev[1].record()
+        timing.update(events=ev, block=stacked)
+        return res
+
+    runs = [("host", {}), ("device", {"collect_sort": "device"}),
+            ("demoted", {"shuffle_transport": "hybrid"})]
+    for name, kw in runs:
+        o = os.path.join(tmp, f"postings_{name}.txt")
+        if name == "demoted":
+            kw["collect_max_rows"] = out["invertedindex"]["host"][
+                "metrics"]["pairs"] // 3
+        collect_mod.sort_pairs = timed_sort
+        try:
+            r = run_job(JobConfig(input_path=path, output_path=o,
+                                  backend=backend, chunk_bytes=CHUNK_BYTES,
+                                  metrics=False, **kw), "invertedindex")
+        finally:
+            collect_mod.sort_pairs = real_sort
+        m = r.metrics
+        log(collect_line(f"invertedindex {name}", m) + f"; {m['pairs']} "
+            f"pairs, {m['distinct_terms']} terms, grouped_finalize "
+            f"{m['grouped_finalize']}")
+        if m["data/conservation_violations"]:
+            raise AssertionError(f"invertedindex {name}: data audit")
+        if (name == "demoted") != ("demote/events" in m):
+            raise AssertionError(f"invertedindex {name}: demotion "
+                                 f"{m.get('demote/events')}")
+        out["invertedindex"][name] = {"metrics": m, "out": o}
+        del r
+    if "events" not in timing:
+        raise AssertionError("the card sort never ran")
+    block = timing.pop("block")
+    sort_ms = timing["events"][0].elapsed_time(timing["events"][1])
+    warm = []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        real_sort(block)
+        ev[1].record()
+        torch.cuda.synchronize()
+        warm.append(ev[0].elapsed_time(ev[1]))
+    card = {"rows": int(block.shape[1]), "bytes": int(block.nbytes),
+            "sort_ms": round(sort_ms, 3),
+            "warm_sort_ms": [round(x, 3) for x in warm]}
+    del block
+    host_m = out["invertedindex"]["host"]["metrics"]
+    dev_m = out["invertedindex"]["device"]["metrics"]
+    log(f"invertedindex card sort: {card['rows']} padded pairs, "
+        f"{card['bytes']} bytes on the card; sort {card['sort_ms']} ms in "
+        f"the job (CUDA events), warm {card['warm_sort_ms']} ms; "
+        f"sort+postings {dev_m['time/sort+postings_s']:.3f} s (the fetch "
+        f"{dev_m['device/compute_ms/max']:.1f} ms) against the host's "
+        f"{host_m['time/sort+postings_s']:.3f} s; map+collect "
+        f"{dev_m['time/map+collect_s']:.3f} s against "
+        f"{host_m['time/map+collect_s']:.3f} s")
+    base = read(out["invertedindex"]["host"]["out"])
+    for name in ("device", "demoted"):
+        if read(out["invertedindex"][name]["out"]) != base:
+            raise AssertionError(f"invertedindex {name} postings differ "
+                                 "from the host sort's")
+    log(f"invertedindex host, card and demoted postings byte-identical "
+        f"({len(base)} bytes)")
+    ipath = prefix_file(path, os.path.join(tmp, "ii_prefix.txt"),
+                        II_MODEL_BYTES)
+    o = os.path.join(tmp, "postings_prefix.txt")
+    run_job(JobConfig(input_path=ipath, output_path=o, backend=backend,
+                      chunk_bytes=CHUNK_BYTES // 8, metrics=False),
+            "invertedindex")
+    mo = os.path.join(tmp, "postings_model.txt")
+    write_postings(mo, inverted_index_model(ipath))
+    if read(o) != read(mo):
+        raise AssertionError("invertedindex differs from "
+                             "inverted_index_model on the prefix")
+    log(f"invertedindex on a {II_MODEL_BYTES >> 20} MB prefix matches "
+        "inverted_index_model")
+
+    # distinct: the native map on the whole corpus against the exact count
+    # of phase 5; the native and the Python map on a prefix
+    exact = wc["runs"]["native"]["metrics"]["distinct_keys"]
+    r = run_job(JobConfig(input_path=path, output_path="", backend=backend,
+                          chunk_bytes=CHUNK_BYTES, metrics=False),
+                "distinct")
+    log(f"distinct: estimate {r.estimate:.1f} against phase 5's exact "
+        f"{exact} ({r.estimate / exact - 1:+.3%}; rse "
+        f"{1.04 / np.sqrt(r.registers.shape[0]):.3%}), "
+        f"{r.metrics['registers_filled']} registers filled, job "
+        f"{job_s(r.metrics):.2f} s")
+    if abs(r.estimate / exact - 1) > 5 * 1.04 / np.sqrt(
+            r.registers.shape[0]):
+        raise AssertionError("distinct estimate outside 5 rse")
+    out["distinct"] = {"estimate": r.estimate, "exact": exact,
+                       "metrics": r.metrics}
+    dpath = prefix_file(path, os.path.join(tmp, "distinct_prefix.txt"),
+                        DISTINCT_PY_BYTES)
+    regs = {}
+    for mapper in ("native", "python"):
+        regs[mapper] = run_job(JobConfig(
+            input_path=dpath, output_path="", backend=backend,
+            chunk_bytes=CHUNK_BYTES // 32, mapper=mapper, metrics=False),
+            "distinct").registers
+    if not np.array_equal(regs["native"], regs["python"]):
+        raise AssertionError("distinct: native and python registers differ")
+    log(f"distinct native and python registers equal on a "
+        f"{DISTINCT_PY_BYTES >> 20} MB prefix (exact there "
+        f"{distinct_model([read(dpath)])})")
+
+    # resume: the host-sort inverted index killed after II_KILL_AFTER
+    # chunks, resumed to the host run's bytes
+    ck = os.path.join(tmp, "ii_checkpoint")
+    o = os.path.join(tmp, "postings_resumed.txt")
+    cfg = JobConfig(input_path=path, output_path=o, backend=backend,
+                    chunk_bytes=CHUNK_BYTES, checkpoint_dir=ck,
+                    metrics=False)
+    real_pipelined = driver_mod.pipelined
+
+    def dying(it, *a, **k):
+        def gen():
+            for i, item in enumerate(it):
+                if i == II_KILL_AFTER:
+                    raise KeyboardInterrupt("simulated kill")
+                yield item
+        return real_pipelined(gen(), *a, **k)
+
+    driver_mod.pipelined = dying
+    try:
+        run_job(cfg, "invertedindex")
+        raise AssertionError("the killed inverted index ran to its end")
+    except KeyboardInterrupt:
+        pass
+    finally:
+        driver_mod.pipelined = real_pipelined
+    saved = sorted(n for n in os.listdir(ck) if n.startswith("chunk_"))
+    if len(saved) != II_KILL_AFTER:
+        raise AssertionError(f"killed inverted index spilled {saved}")
+    r = run_job(cfg, "invertedindex")
+    m = r.metrics
+    if m.get("checkpoint/chunks_replayed") != II_KILL_AFTER:
+        raise AssertionError("the resumed inverted index replayed "
+                             f"{m.get('checkpoint/chunks_replayed')}")
+    if read(o) != base or os.path.exists(ck):
+        raise AssertionError("the resumed inverted index differs from the "
+                             "uninterrupted run")
+    log(collect_line("invertedindex resumed", m) + "; byte-identical to the "
+        f"host run, {II_KILL_AFTER} chunks replayed")
+    launches = {w.__name__: w.launches for w in wrappers}
+    if any(launches.values()):
+        raise AssertionError(f"phase 9 launched {launches}: no hand kernel "
+                             "is on the collect route")
+    out["card_sort"] = card
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 9 (collect) wall {out['wall_s']:.1f} s; launches {launches}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1373,6 +1649,7 @@ def main() -> int:
         stream = phase_stream(tmp, "cuda", wrappers, torch.Generator(
             device="cuda").manual_seed(SEED + 5))
         phase_flight(tmp, "cuda")
+        collect = phase_collect(tmp, "cuda", wc, wrappers)
     if km["launches"]["fused_assign_sum"] != 2 * KMEANS_ITERS:
         raise AssertionError(f"kmeans path launched the kernel "
                              f"{km['launches']} times, expected "
@@ -1409,6 +1686,14 @@ def main() -> int:
         f"; wordcount words/s {wc_rate}, resumed "
         f"{wc_resume['mapped'] / job_s(wc_resume['metrics']):.0f} "
         f"(tokens mapped in that run over its job time); "
+        f"bigram words/s "
+        f"{ {n: round(b['metrics']['records_in'] / job_s(b['metrics'])) for n, b in collect['bigram'].items()} }, "
+        f"invertedindex words/s "
+        f"{ {n: round(b['metrics']['records_in'] / job_s(b['metrics'])) for n, b in collect['invertedindex'].items()} }, "
+        f"card sort {collect['card_sort']}, distinct estimate "
+        f"{collect['distinct']['estimate']:.1f} of "
+        f"{collect['distinct']['exact']}, phase 9 "
+        f"{collect['wall_s']:.1f} s; "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,6 +1,10 @@
 """Command-line driver of the port:
 
     python -m map_oxidize_tpu_torch wordcount corpus.txt --top-k 10
+    python -m map_oxidize_tpu_torch bigram corpus.txt --reduce-mode fold
+    python -m map_oxidize_tpu_torch invertedindex corpus.txt \\
+        --collect-sort device --output postings.txt
+    python -m map_oxidize_tpu_torch distinct corpus.txt --hll-precision 14
     python -m map_oxidize_tpu_torch kmeans points.npy --kmeans-k 256 \\
         --kmeans-iters 10 --kmeans-precision bf16
     python -m map_oxidize_tpu_torch wordcount corpus.txt --backend cpu
@@ -20,6 +24,7 @@ import os
 import sys
 
 from map_oxidize_tpu_torch.config import WORKLOADS, JobConfig
+from map_oxidize_tpu_torch.shuffle.base import TRANSPORTS
 from map_oxidize_tpu_torch.utils.logging import configure, get_logger
 
 _log = get_logger(__name__)
@@ -81,11 +86,51 @@ def build_parser() -> argparse.ArgumentParser:
                    default="ascii")
     p.add_argument("--mapper", choices=["auto", "device", "native", "python"],
                    default="auto",
-                   help="map-phase placement.  wordcount: C++ host loop "
-                        "or pure Python (auto: native); device is not "
-                        "ported yet.  kmeans: device-resident (device), "
+                   help="map-phase placement.  wordcount, bigram: C++ "
+                        "host loop or pure Python (auto: native); device "
+                        "is not ported yet (other workloads take native "
+                        "for it).  kmeans: device-resident (device), "
                         "resident or streamed through the device by fit "
                         "(auto), host assign (native, python)")
+    p.add_argument("--reduce-mode", choices=["auto", "fold", "collect"],
+                   default="auto",
+                   help="reduce engine: streaming device fold vs host "
+                        "collect+one-sort (auto: by the workload's key-space "
+                        "width — collect for bigram, fold otherwise)")
+    p.add_argument("--collect-sort", choices=["auto", "host", "device"],
+                   default="auto",
+                   help="inverted-index pair sort placement: the host "
+                        "radix, or the pairs on the device and one sort "
+                        "there (auto: host)")
+    p.add_argument("--collect-max-rows", type=int, default=0,
+                   help="resident-row cap for the collect engines before "
+                        "the disk-bucket spill (counts, values, and "
+                        "(key,doc) pairs all spill); 0 = engine defaults")
+    p.add_argument("--shuffle-transport",
+                   choices=list(TRANSPORTS), default="auto",
+                   help="where collect-engine shuffle rows stage: hbm = "
+                        "strictly resident (the row cap is a hard error), "
+                        "disk = top-bits disk buckets from the first row, "
+                        "hybrid = resident until the cap then demote to "
+                        "disk mid-job, pipelined = hybrid's placement plus "
+                        "the push cadence (see --push-combine), remote = "
+                        "staged from the first row like disk.  auto routes "
+                        "on corpus size vs --collect-max-rows (estimated "
+                        "rows past the cap pick disk, else hybrid)")
+    p.add_argument("--push-combine", choices=["auto", "on", "off"],
+                   default="auto",
+                   help="map-side combiner: combine each push window's "
+                        "rows (sum/min/max reducers) before the feed. "
+                        "auto = on when the transport resolves to "
+                        "pipelined; outputs are byte-identical either way")
+    p.add_argument("--rescan-full", action="store_true",
+                   help="hash-only mode: rescan the whole corpus when "
+                        "resolving winner strings (extends the collision "
+                        "byte-check to every occurrence) instead of "
+                        "stopping once all queried keys are found")
+    p.add_argument("--hll-precision", type=int, default=14,
+                   help="distinct: HyperLogLog precision p (2^p registers; "
+                        "rse ~1.04/sqrt(2^p))")
     p.add_argument("--kmeans-k", type=int, default=16,
                    help="k-means cluster count (init: first k points)")
     p.add_argument("--kmeans-iters", type=int, default=1,
@@ -153,6 +198,13 @@ def config_from_args(args: argparse.Namespace) -> JobConfig:
         backend=args.backend,
         tokenizer=args.tokenizer,
         mapper=args.mapper,
+        reduce_mode=args.reduce_mode,
+        collect_sort=args.collect_sort,
+        collect_max_rows=args.collect_max_rows,
+        shuffle_transport=args.shuffle_transport,
+        push_combine=args.push_combine,
+        rescan_full=args.rescan_full,
+        hll_precision=args.hll_precision,
         kmeans_k=args.kmeans_k,
         kmeans_iters=args.kmeans_iters,
         kmeans_precision=args.kmeans_precision,

@@ -1,9 +1,10 @@
 """Job configuration of the port.
 
-The fields the ported paths read (word count on one device with the native
-or Python host map, k-means in its three single-device modes,
-checkpoint/resume for both, and the observability outputs), with the JAX
-package's defaults and validation.  ``backend``
+The fields the ported paths read (word count and bigram through the fold
+or the collect reduce, the inverted index, distinct, k-means in its three
+single-device modes, checkpoint/resume for all of them, the shuffle
+transports and the observability outputs), with the JAX package's defaults
+and validation (JAX ``config.py:94-365``).  ``backend``
 names a torch device family: ``cuda`` (the default) or ``cpu``; nothing
 falls back from one to the other.
 """
@@ -12,8 +13,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-#: workloads this slice of the port runs
-WORKLOADS = ("wordcount", "kmeans")
+#: workloads the port runs
+WORKLOADS = ("wordcount", "bigram", "invertedindex", "kmeans", "distinct")
 
 
 @dataclass
@@ -53,14 +54,22 @@ class JobConfig:
     num_shards: int = 0
     #: tokenizer mode: 'ascii' (byte path) or 'unicode'
     tokenizer: str = "ascii"
-    #: map-phase placement.  wordcount: 'native' (the C++ host loop),
-    #: 'python', or 'auto' (= 'native'); 'device' is not ported yet.
+    #: map-phase placement.  wordcount, bigram: 'native' (the C++ host
+    #: loop), 'python', or 'auto' (= 'native'); 'device' is not ported yet
+    #: (other workloads resolve it to 'native', as the JAX package does).
     #: kmeans: 'device' (points resident on the device), 'auto' (resident
     #: when 4n(d+2k) fits kmeans_device_fit_bytes, else streamed through
     #: the device), 'native' / 'python' (host assign)
     mapper: str = "auto"
-    #: reduce engine: 'fold' (the streaming device accumulator) or 'auto'
+    #: reduce engine: 'fold' = the streaming device accumulator (narrow key
+    #: spaces), 'collect' = host collect + one vectorized sort/reduce (wide
+    #: key spaces, runtime/host_reduce.py); 'auto' picks by the mapper's
+    #: wide_keys declaration
     reduce_mode: str = "auto"
+    #: inverted-index pair sort: 'host' = the host radix / np.lexsort,
+    #: 'device' = the pairs on the device and one sort there
+    #: (runtime/collect.py); 'auto' = host
+    collect_sort: str = "auto"
     #: output file
     output_path: str = "final_result.txt"
     #: directory for spill/checkpoint artifacts; None disables checkpointing
@@ -72,6 +81,32 @@ class JobConfig:
     #: use the C++ native tokenizer when available (the JAX package's field;
     #: ``mapper`` alone chooses the map path)
     use_native: bool = True
+    #: hash-only rescan: scan the whole corpus when resolving winner
+    #: strings instead of stopping once every queried hash is found (the
+    #: full scan extends the collision byte-check to every occurrence)
+    rescan_full: bool = False
+    #: distinct (HyperLogLog): register-count precision p (2^p registers;
+    #: relative standard error ~1.04/sqrt(2^p))
+    hll_precision: int = 14
+    #: collect engines: resident-row cap before the disk-bucket spill
+    #: (counts, (key, value) rows and (key, doc) pairs all spill); 0 =
+    #: engine defaults (host collect 2^28, pair collect 2^27).  What
+    #: happens AT the cap is the shuffle transport's call
+    collect_max_rows: int = 0
+    #: shuffle transport of the collect engines (map_oxidize_tpu_torch.
+    #: shuffle): 'hbm' = strictly resident (the cap is a hard error),
+    #: 'disk' = top-bits disk buckets from the first row, 'hybrid' =
+    #: resident until the cap, then a one-way demotion to disk, 'pipelined'
+    #: = hybrid's placement plus the push cadence (the map runs ahead at
+    #: depth >= 2; see push_combine), 'remote' = staged from the first row
+    #: like disk.  'auto' routes on corpus size vs the cap: estimated rows
+    #: (corpus_bytes // 16) past collect_max_rows pick disk, else hybrid
+    shuffle_transport: str = "auto"
+    #: map-side combiner: 'auto' combines each push window's rows when the
+    #: transport resolves to pipelined and the reducer's combine is
+    #: sum/min/max, 'on' forces it for any eligible reducer, 'off'
+    #: disables it; outputs are byte-identical either way
+    push_combine: str = "auto"
     #: k-means device-fit budget in bytes for mapper='auto'; 0 = half the
     #: device's memory
     kmeans_device_fit_bytes: int = 0
@@ -125,6 +160,30 @@ class JobConfig:
         if self.reduce_mode not in ("auto", "fold", "collect"):
             raise ValueError(
                 f"reduce_mode must be auto|fold|collect, got {self.reduce_mode!r}")
+        if self.collect_sort not in ("auto", "host", "device"):
+            raise ValueError(
+                f"collect_sort must be auto|host|device, got {self.collect_sort!r}")
+        if self.collect_max_rows < 0:
+            raise ValueError("collect_max_rows must be >= 0 (0 = default)")
+        from map_oxidize_tpu_torch.shuffle.base import TRANSPORTS
+
+        if self.shuffle_transport not in TRANSPORTS:
+            raise ValueError(
+                f"shuffle_transport must be one of {'|'.join(TRANSPORTS)}, "
+                f"got {self.shuffle_transport!r}")
+        if self.push_combine not in ("auto", "on", "off"):
+            raise ValueError(
+                f"push_combine must be auto|on|off, "
+                f"got {self.push_combine!r}")
+        from map_oxidize_tpu_torch.workloads.distinct import (
+            HLL_P_MAX,
+            HLL_P_MIN,
+        )
+
+        if not HLL_P_MIN <= self.hll_precision <= HLL_P_MAX:
+            raise ValueError(
+                f"hll_precision must be in [{HLL_P_MIN}, {HLL_P_MAX}], "
+                f"got {self.hll_precision}")
         if self.num_shards < 0:
             raise ValueError("num_shards must be >= 0")
         if self.num_chunks <= 0 and self.chunk_bytes <= 0:

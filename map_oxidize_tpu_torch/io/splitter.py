@@ -112,6 +112,52 @@ def iter_chunks_capped(path: str, chunk_bytes: int, start_offset: int = 0):
                 carry = block[cut + 1:]
 
 
+def iter_doc_chunks(path: str, chunk_bytes: int,
+                    start_offset: int = 0) -> Iterator[bytes]:
+    """Newline-ONLY chunking for document-keyed workloads (inverted index;
+    JAX ``io/splitter.py:124``):
+    every chunk starts at a line start, so in-chunk byte offsets are valid
+    doc ids.  A window with no newline EXTENDS to the next one instead of
+    cutting at whitespace — mirroring the native ``moxt_map_range_docs``
+    policy exactly.  Residency is O(longest document).
+
+    ``start_offset`` resumes at a previous run's chunk boundary (always a
+    line start); the cut policy is deterministic, so the resumed stream is
+    identical to a fresh run's tail — the checkpoint/resume contract."""
+    with open(path, "rb") as f:
+        if start_offset:
+            f.seek(start_offset)
+        data_pos = start_offset
+        size = os.fstat(f.fileno()).st_size
+        carry = b""
+        while data_pos < size or carry:
+            block = f.read(max(chunk_bytes - len(carry), 1))
+            data_pos = f.tell()
+            buf = carry + block
+            if data_pos >= size:          # EOF: remainder is the last chunk
+                if buf:
+                    yield buf
+                return
+            cut = buf.rfind(b"\n")
+            while cut == -1:              # extend to the next newline
+                more = f.read(chunk_bytes)
+                data_pos = f.tell()
+                if not more:
+                    yield buf
+                    return
+                ext = more.find(b"\n")
+                if ext == -1:
+                    buf += more
+                    continue
+                buf += more[:ext + 1]
+                carry = more[ext + 1:]
+                yield buf
+                break
+            else:
+                yield buf[: cut + 1]
+                carry = buf[cut + 1:]
+
+
 def plan_chunks(path: str, chunk_bytes: int, num_chunks: int = 0) -> tuple[int, int]:
     """Return (num_chunks_estimate, chunk_bytes).  If ``num_chunks`` is given,
     derive chunk_bytes from the file size instead (reference semantics:

@@ -1,5 +1,7 @@
-"""Deterministic final-result writer (a copy of the JAX package's, so the
-two packages write byte-identical files).
+"""Deterministic result writers (a copy of the JAX package's
+``io/writer.py``: ``write_final_result``, ``write_postings`` :31,
+``write_postings_stream`` :46, ``format_top_words``), so the two packages
+write byte-identical files.
 
 The file is atomically replaced (write temp + rename) and rows are sorted by
 word ascending, so identical inputs yield byte-identical outputs.
@@ -23,6 +25,47 @@ def write_final_result(path: str, counts: Iterable[tuple[bytes, int]]) -> int:
             n += 1
     os.replace(tmp, path)
     return n
+
+
+def write_postings(path: str, postings: dict[bytes, list[int]]) -> int:
+    """Inverted-index output: one ``term\\td1 d2 d3...\\n`` line per term,
+    terms byte-ascending, doc ids ascending — deterministic and atomic like
+    write_final_result.  Returns term count."""
+    tmp = f"{path}.tmp.{os.getpid()}"
+    n = 0
+    with open(tmp, "wb") as f:
+        for term in sorted(postings):
+            docs = b" ".join(str(d).encode() for d in postings[term])
+            f.write(term + b"\t" + docs + b"\n")
+            n += 1
+    os.replace(tmp, path)
+    return n
+
+
+def write_postings_stream(path: str,
+                          items: "Iterable[tuple[bytes, 'object']]"
+                          ) -> tuple[int, int]:
+    """Streaming variant of :func:`write_postings` for CSR-backed sources:
+    ``items`` yields ``(term_bytes, doc_id_array)`` pairs **already in the
+    intended term order** with doc ids ascending, and each line streams to
+    disk as it is produced — residency is one term's postings, never the
+    whole partition (the dict-of-int-lists form boxes every doc id of
+    every term at once, which at multi-process scale is exactly the
+    blowup the CSR design exists to avoid).  Same line format and atomic
+    replace as :func:`write_postings`.  Returns ``(terms, bytes)``
+    written."""
+    tmp = f"{path}.tmp.{os.getpid()}"
+    n = 0
+    total = 0
+    with open(tmp, "wb") as f:
+        for term, docs in items:
+            line = (term + b"\t"
+                    + b" ".join(b"%d" % d for d in docs.tolist()) + b"\n")
+            f.write(line)
+            n += 1
+            total += len(line)
+    os.replace(tmp, path)
+    return n, total
 
 
 def format_top_words(top: list[tuple[bytes, int]], k: int) -> str:

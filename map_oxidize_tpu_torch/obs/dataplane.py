@@ -1,30 +1,37 @@
 """Data-plane observatory: row-conservation audits, key-skew telemetry and
-reduction-ratio gauges for the fold.  The port of the fold half of the JAX
-package's ``obs/dataplane.py`` (``mix64`` :80, ``map_output_rows`` :110,
-``weighted_checksum`` :133, ``DataPlaneAudit`` :197, ``ledger_section``
-:616, ``render`` :645), with its own copy of ``workloads/distinct.py``
-``hll_estimate`` (:68).
+reduction-ratio gauges.  The port of the JAX package's ``obs/dataplane.py``
+(``mix64`` :80, ``map_output_rows`` :110, ``weighted_checksum`` :133,
+``pair_digest`` :144, ``DataPlaneAudit`` :197 with ``record_pairs_in`` /
+``record_pairs_out`` :302-:312 and ``check_pairs`` :444,
+``ledger_section`` :616, ``render`` :645).
 
-* **conservation audits** — rows and values counted where the map output
-  enters the fold and where the reduced readback leaves it, per hash
-  partition, with the **weighted checksum** ``sum(mix64(key) * value) mod
-  2^64``: order-independent and invariant under sum-combining, so the
-  per-chunk pre-combined map rows and the final reduced counts produce the
-  SAME digest.  A run *proves* row conservation per partition instead of
-  asserting one global sum; a violation raises :class:`ConservationError`.
+* **conservation audits** — rows counted where the map output enters the
+  reduce and where the readback leaves it, per hash partition, with
+  order-independent checksums.  Two families, chosen per engine:
+
+  - fold engines (``combine == "sum"``): the **weighted checksum**
+    ``sum(mix64(key) * value) mod 2^64``, invariant under sum-combining,
+    so pre-combined map rows and the final reduced counts produce the
+    SAME digest;
+  - pair engines (the collect reduce): the **pair digest** — XOR and
+    wrapping sum of ``mix64(key ^ mix64(doc))`` — an exact multiset
+    identity over (key, doc) rows.
+
+  A violation raises :class:`ConservationError`.
 * **key-skew telemetry** — per-partition row histograms, HLL distinct-key
   estimates, a bounded hot-key top-k, and the imbalance factor (max/mean
   partition rows).
 * **reduction-ratio gauges** — rows in vs distinct keys out.
 
 On one device the audit partitions by hash into ``VIRTUAL_PARTITIONS``.
-Everything is host-side numpy.  The pair-digest family (the collect
-reduce) and the cross-process reduction (multi-process drivers) come with
-the modules that feed them.
+Everything is host-side numpy.  The cross-process reduction (multi-process
+drivers) comes with the modules that feed it.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from map_oxidize_tpu_torch.workloads.distinct import hll_estimate
 
 #: metrics-document section schema (``doc["data"]``)
 DATA_SCHEMA = "moxt-data-v1"
@@ -88,16 +95,22 @@ def partition_of(keys: np.ndarray, n_partitions: int) -> np.ndarray:
     return ((hi ^ lo) % np.uint32(n_partitions)).astype(np.int64)
 
 
-def map_output_rows(out) -> "tuple | None":
-    """Host ``(keys_u64, values)`` view of a fold ``MapOutput`` in either
-    the plane or the compact 64-bit form (compact outputs carry implicit
-    all-ones counts — the hash-only contract).  ``None`` for vector-valued
-    rows, which have no scalar conservation identity (k-means centroids).
-    The JAX version's pair form comes with the collect reduce."""
+def map_output_rows(out, pairs: bool = False) -> "tuple | None":
+    """Host ``(keys_u64, values | docs_i64)`` view of a ``MapOutput`` in
+    either the plane or the compact 64-bit form (compact fold outputs
+    carry implicit all-ones counts — the hash-only contract).  ``None``
+    for vector-valued fold rows, which have no scalar conservation
+    identity (k-means centroids).  ``pairs`` reads a pair output's doc
+    ids instead of values."""
     if getattr(out, "keys64", None) is not None:
         k64 = np.asarray(out.keys64, _U64)
     else:
         k64 = join_planes(out.hi, out.lo)
+    if pairs:
+        if getattr(out, "docs64", None) is not None:
+            return k64, np.asarray(out.docs64, np.int64)
+        va = np.asarray(out.values)
+        return k64, join_planes(va[:, 0], va[:, 1]).view(np.int64)
     if out.values is None:
         return k64, np.ones(k64.shape[0], np.int64)
     va = np.asarray(out.values)
@@ -117,6 +130,16 @@ def weighted_checksum(keys: np.ndarray, values: np.ndarray) -> int:
     return int((mix64(keys) * v).sum(dtype=_U64))
 
 
+def pair_digest(keys: np.ndarray, docs: np.ndarray) -> "tuple[int, int]":
+    """(XOR, wrapping-sum) of ``mix64(key ^ mix64(doc))`` — an exact
+    order-independent multiset identity over (key, doc) rows."""
+    if np.asarray(keys).shape[0] == 0:
+        return 0, 0
+    h = mix64(np.asarray(keys, _U64)
+              ^ mix64(np.ascontiguousarray(docs, np.int64).view(_U64)))
+    return (int(np.bitwise_xor.reduce(h)), int(h.sum(dtype=_U64)))
+
+
 def _hll_ranks(hashes: np.ndarray, p: int) -> "tuple[np.ndarray, np.ndarray]":
     """(bucket, rank) per hash — the register-update pair of the
     standard HLL sketch (same frexp trick as
@@ -130,10 +153,9 @@ def _hll_ranks(hashes: np.ndarray, p: int) -> "tuple[np.ndarray, np.ndarray]":
 
 class _Stage:
     """One phase boundary's per-partition ledger: row/byte counts plus
-    the order-independent digests.  ``xor`` and ``sum`` hold the pair
-    digest of the collect reduce, which is not ported yet: they stay zero
-    and export as such, as in the JAX package's fold jobs.  ``scope``
-    (``local`` map-side, ``replicated`` readback) is kept for the
+    the order-independent digests (both families; the checks read the
+    one that applies).  ``scope`` (``local`` map-side, ``disjoint``
+    per-bucket drains, ``replicated`` readback) is kept for the
     cross-process reduction."""
 
     __slots__ = ("rows", "bytes", "vsum", "wsum", "xor", "sum",
@@ -215,6 +237,28 @@ class DataPlaneAudit:
         if skew:
             self._skew(keys, part, values)
 
+    def _pairs(self, name: str, scope: str, keys: np.ndarray,
+               docs: np.ndarray, skew: bool, uniq: bool) -> None:
+        keys = np.asarray(keys, _U64)
+        n = int(keys.shape[0])
+        if n == 0:
+            return
+        part = partition_of(keys, self.S)
+        st = self._stage(name, scope)
+        rows = np.bincount(part, minlength=self.S).astype(_U64)
+        st.rows += rows
+        st.bytes += rows * _U64(16)  # the one on-disk pair record width
+        h = mix64(keys ^ mix64(np.ascontiguousarray(docs, np.int64)
+                               .view(_U64)))
+        np.bitwise_xor.at(st.xor, part, h)
+        np.add.at(st.sum, part, h)
+        if uniq:
+            uk = np.unique(keys)
+            st.uniq += np.bincount(partition_of(uk, self.S),
+                                   minlength=self.S).astype(_U64)
+        if skew:
+            self._skew(keys, part, None)
+
     def record_fold_in(self, keys, values) -> None:
         """Map output entering the fold shuffle (pre-exchange, possibly
         chunk-pre-combined — the weighted checksum absorbs that)."""
@@ -226,6 +270,18 @@ class DataPlaneAudit:
         self._stage("reduce_out", "replicated").uniq += np.bincount(
             partition_of(np.asarray(keys, _U64), self.S),
             minlength=self.S).astype(_U64)
+
+    def record_pairs_in(self, keys, docs) -> None:
+        """(key, doc) pairs entering the collect reduce."""
+        self._pairs("map_out", "local", keys, docs, skew=True, uniq=False)
+
+    def record_pairs_out(self, keys, docs) -> None:
+        """(key, doc) pairs leaving finalize toward the writer.  Called
+        once on the resident path, per disjoint bucket on the spilled
+        path (bucket key ranges are disjoint, so per-call distinct
+        counts sum exactly)."""
+        self._pairs("reduce_out", "disjoint", keys, docs, skew=False,
+                    uniq=True)
 
     def set_records_in(self, records: int) -> None:
         self.records_in = int(records)
@@ -270,6 +326,33 @@ class DataPlaneAudit:
                     f"count conservation violated: mapped "
                     f"{self.records_in} records but map output values "
                     f"sum to {total}")
+
+    def check_pairs(self) -> None:
+        """Per-partition pair-multiset conservation: rows, XOR, and
+        wrapping-sum digests at ``map_out`` must equal ``reduce_out``
+        exactly — pairs cross the collect (and any spill round-trip)
+        unchanged."""
+        a = self.stages.get("map_out")
+        b = self.stages.get("reduce_out")
+        if a is None or b is None:
+            return
+        self.checks += 1
+        for p_ in range(self.S):
+            if int(a.rows[p_]) != int(b.rows[p_]):
+                self._violate(
+                    f"pair conservation violated at map->reduce: "
+                    f"partition {p_}: {int(a.rows[p_])} rows in, "
+                    f"{int(b.rows[p_])} out")
+            if (int(a.xor[p_]) != int(b.xor[p_])
+                    or int(a.sum[p_]) != int(b.sum[p_])):
+                self._violate(
+                    f"pair conservation violated at map->reduce: "
+                    f"partition {p_}: digest in "
+                    f"(xor {int(a.xor[p_]):#018x}, sum "
+                    f"{int(a.sum[p_]):#018x}) != out "
+                    f"(xor {int(b.xor[p_]):#018x}, sum "
+                    f"{int(b.sum[p_]):#018x}) with matching row counts "
+                    f"— pair contents changed in flight")
 
     def check_total(self, total) -> None:
         """The consumer-facing readback container must tell the same
@@ -410,21 +493,6 @@ class DataPlaneAudit:
             top = max(self._hot.values())
             registry.set("data/hot_key_share",
                          round(top / float(rows.sum()), 4))
-
-
-def hll_estimate(registers: np.ndarray) -> float:
-    """Harmonic-mean cardinality estimate with the linear-counting
-    small-range correction (the JAX package's
-    ``workloads/distinct.py:68``)."""
-    regs = np.asarray(registers, np.float64)
-    m = regs.shape[0]
-    alpha = 0.7213 / (1 + 1.079 / m)
-    est = alpha * m * m / np.sum(np.exp2(-regs))
-    if est <= 2.5 * m:
-        zeros = int(np.count_nonzero(regs == 0))
-        if zeros:
-            est = m * np.log(m / zeros)
-    return float(est)
 
 
 def hll_union_estimate(regs_flat: np.ndarray, S: int, m: int) -> float:

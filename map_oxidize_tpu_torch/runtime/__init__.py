@@ -7,25 +7,40 @@ runs and dispatches to the matching driver.
 from __future__ import annotations
 
 from map_oxidize_tpu_torch.config import JobConfig
+from map_oxidize_tpu_torch.utils.logging import get_logger
+
+_log = get_logger(__name__)
 
 
 def resolve_mapper(config: JobConfig, workload: str) -> str:
-    """'auto' -> 'native', the C++ host loop, as in the JAX package.  The
-    device tokenizer is not ported yet: asking for it raises rather than
-    silently running another path, and a failed native build raises too
-    (pass 'python' for the Python map)."""
+    """'auto' -> 'native', the C++ host loop, as in the JAX package
+    (``runtime/__init__.py:16-34``).  Where the JAX package would run its
+    device mapper — wordcount and bigram with the ascii tokenizer — the
+    port raises: that mapper is not ported yet, and nothing silently runs
+    another path.  Every other ``mapper='device'`` resolves to 'native'
+    with the JAX package's log line, as there.  A failed native build
+    raises (pass 'python' for the Python map)."""
     mode = config.mapper
     if mode == "auto":
-        return "native"
+        mode = "native"
+    if mode == "device" and workload not in ("wordcount", "bigram"):
+        _log.info("device mapper does not implement %r yet; using native",
+                  workload)
+        mode = "native"
+    if mode == "device" and config.tokenizer != "ascii":
+        _log.info("device mapper is ascii-only; using native for %r",
+                  config.tokenizer)
+        mode = "native"
     if mode == "device":
         raise NotImplementedError(
-            "the device mapper is not ported yet (ROADMAP: device mapper); "
-            "use mapper='auto', 'native' or 'python'")
+            "the device mapper is not ported yet (ROADMAP A6: device "
+            "mapper); use mapper='auto', 'native' or 'python'")
     return mode
 
 
 def run_job(config: JobConfig, workload: str = "wordcount", on_obs=None):
-    """Run a built-in workload end to end: 'wordcount' or 'kmeans'.
+    """Run a built-in workload end to end: 'wordcount', 'bigram',
+    'invertedindex', 'distinct' or 'kmeans'.
 
     With ``config.trace_dir`` set, the whole job runs under a
     ``torch.profiler`` trace written there (JAX ``runtime/__init__.py:38``,
@@ -49,13 +64,29 @@ def _run_job(config: JobConfig, workload: str, on_obs=None):
         from map_oxidize_tpu_torch.runtime.driver import run_kmeans_job
 
         return run_kmeans_job(config, on_obs=on_obs)
-    if workload != "wordcount":
+    if workload == "invertedindex":
+        from map_oxidize_tpu_torch.runtime.driver import (
+            run_inverted_index_job,
+        )
+
+        return run_inverted_index_job(config, on_obs=on_obs)
+    if workload == "distinct":
+        from map_oxidize_tpu_torch.runtime.driver import run_distinct_job
+
+        return run_distinct_job(config, on_obs=on_obs)
+    if workload not in ("wordcount", "bigram"):
         raise NotImplementedError(
             f"workload {workload!r} is not ported yet (ROADMAP queue A)")
     from map_oxidize_tpu_torch.runtime.driver import run_wordcount_job
-    from map_oxidize_tpu_torch.workloads.wordcount import make_wordcount
 
     use_native = resolve_mapper(config, workload) == "native"
-    mapper, reducer = make_wordcount(config.tokenizer, use_native)
+    if workload == "wordcount":
+        from map_oxidize_tpu_torch.workloads.wordcount import make_wordcount
+
+        mapper, reducer = make_wordcount(config.tokenizer, use_native)
+    else:
+        from map_oxidize_tpu_torch.workloads.bigram import make_bigram
+
+        mapper, reducer = make_bigram(config.tokenizer, use_native)
     return run_wordcount_job(config, mapper, reducer, workload=workload,
                              on_obs=on_obs)

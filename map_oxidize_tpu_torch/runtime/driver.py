@@ -1,20 +1,26 @@
-"""Job drivers of the port: word count on one device, and k-means in its
-three single-device modes (device-resident, streamed through the device,
-host-assign stream).
+"""Job drivers of the port, on one device: word count and bigram (through
+the fold or the collect reduce), the inverted index, distinct, and k-means
+in its three single-device modes (device-resident, streamed through the
+device, host-assign stream).
 
-Cut down from the JAX package's driver to the single-device fold.  The map
-runs in a bounded prefetch thread (:mod:`~map_oxidize_tpu_torch.runtime.
-pipeline`): the native C++ mmap scan, or the Python map through the worker
-pool of :mod:`~map_oxidize_tpu_torch.runtime.executor`; the calling thread
-feeds one :class:`~map_oxidize_tpu_torch.runtime.engine.DeviceReduceEngine`,
-and PyTorch's asynchronous launches let the device fold one batch while the
-host maps the next chunks.  With ``checkpoint_dir`` set, word count spills
-every mapped chunk and k-means snapshots every iteration
-(:mod:`~map_oxidize_tpu_torch.runtime.checkpoint`); a re-run resumes.  Every
-job records into one ``Obs`` bundle (:mod:`map_oxidize_tpu_torch.obs`):
-phases, counters, the wall attribution, the data-plane audit, and the
-flight recorder around the body.  The sharded engines and the collect
-reduce raise ``NotImplementedError``.
+Cut down from the JAX package's driver to the single-device engines.  The
+map runs in a bounded prefetch thread (:mod:`~map_oxidize_tpu_torch.
+runtime.pipeline`): the native C++ mmap scan, or the Python map through the
+worker pool of :mod:`~map_oxidize_tpu_torch.runtime.executor`.  The
+calling thread feeds the engine :func:`make_engine` picks — the device fold
+(:class:`~map_oxidize_tpu_torch.runtime.engine.DeviceReduceEngine`), or
+for wide key spaces the host collect-reduce
+(:class:`~map_oxidize_tpu_torch.runtime.host_reduce.HostCollectReduceEngine`)
+behind a shuffle transport (:mod:`map_oxidize_tpu_torch.shuffle`); the
+inverted index feeds the pair collect
+(:class:`~map_oxidize_tpu_torch.runtime.collect.CollectEngine`), whose one
+sort runs on the host or on the device.  With ``checkpoint_dir`` set, the
+chunk-mapped jobs spill every mapped chunk and k-means snapshots every
+iteration (:mod:`~map_oxidize_tpu_torch.runtime.checkpoint`); a re-run
+resumes.  Every job records into one ``Obs`` bundle
+(:mod:`map_oxidize_tpu_torch.obs`): phases, counters, the wall
+attribution, the data-plane audit, and the flight recorder around the
+body.  The sharded engines raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,11 +37,16 @@ from map_oxidize_tpu_torch.api import Mapper, Reducer
 from map_oxidize_tpu_torch.config import JobConfig
 from map_oxidize_tpu_torch.io.splitter import (
     iter_chunks,
+    iter_doc_chunks,
     plan_chunks,
     split_round_robin,
 )
-from map_oxidize_tpu_torch.io.writer import format_top_words, write_final_result
-from map_oxidize_tpu_torch.obs import Obs
+from map_oxidize_tpu_torch.io.writer import (
+    format_top_words,
+    write_final_result,
+    write_postings,
+)
+from map_oxidize_tpu_torch.obs import Obs, observe_device_wait
 from map_oxidize_tpu_torch.obs.dataplane import map_output_rows
 from map_oxidize_tpu_torch.ops.hashing import SENTINEL, HashDictionary, join_u64
 from map_oxidize_tpu_torch.ops.topk import top_k_candidate_indices
@@ -47,6 +58,7 @@ from map_oxidize_tpu_torch.runtime.engine import (
 )
 from map_oxidize_tpu_torch.runtime.executor import run_map_phase
 from map_oxidize_tpu_torch.runtime.pipeline import pipelined
+from map_oxidize_tpu_torch.shuffle.base import resolve_transport
 from map_oxidize_tpu_torch.utils.logging import get_logger
 
 _log = get_logger(__name__)
@@ -67,21 +79,57 @@ class JobResult:
         return format_top_words(self.top, k)
 
 
-def make_engine(config: JobConfig, reducer, value_shape=(),
-                value_dtype=np.int32, wide_keys: bool = False):
-    """The single-device streaming fold engine.  ``num_shards`` > 1 and the
-    collect reduce (``reduce_mode='collect'``, or 'auto' for a wide-key
-    mapper) are not ported yet and raise."""
+def _require_single_device(config: JobConfig) -> None:
     if config.num_shards > 1:
         raise NotImplementedError(
             "sharded engines over torch.distributed are not ported yet "
-            "(ROADMAP: sharded engines); use num_shards=1")
+            "(ROADMAP A7: sharded engines); use num_shards=1")
+
+
+def collect_engine_kw(config: JobConfig) -> dict:
+    """Constructor kwargs shared by every collect-engine site (JAX
+    ``runtime/driver.py:66``): 0 means 'engine default', so the key is
+    passed only when set."""
+    return ({"max_rows": config.collect_max_rows}
+            if config.collect_max_rows else {})
+
+
+def solved_transport(config: JobConfig) -> str:
+    """``config.shuffle_transport`` resolved to a concrete transport name
+    through the same router the engines use (JAX ``runtime/driver.py:73``),
+    so the driver's cadence decisions (push pipelining, map-side
+    combining) and the engine's placement agree."""
+    cap = int(config.collect_max_rows or 0) or (1 << 27)
+    return resolve_transport(config, cap)
+
+
+def make_engine(config: JobConfig, reducer, value_shape=(),
+                value_dtype=np.int32, wide_keys: bool = False,
+                transport: str | None = None):
+    """Pick the single-device engine (JAX ``runtime/driver.py:95-133``):
+    ``reduce_mode`` (or the mapper's ``wide_keys`` declaration under
+    'auto') selects the streaming device fold or the host collect-reduce
+    for wide key spaces; vector values always fold.  ``num_shards`` > 1
+    raises."""
+    _require_single_device(config)
     mode = config.reduce_mode
-    if mode == "collect" or (mode == "auto" and wide_keys
-                             and tuple(value_shape) == ()):
-        raise NotImplementedError(
-            "the collect reduce is not ported yet (ROADMAP: bigram and the "
-            "collect route); use reduce_mode='fold'")
+    if mode == "auto":
+        mode = ("collect" if wide_keys and tuple(value_shape) == ()
+                else "fold")
+    elif mode == "collect" and tuple(value_shape) != ():
+        _log.info("reduce_mode='collect' takes scalar values only; the "
+                  "vector-valued reduce uses the fold engine")
+        mode = "fold"
+    if mode == "collect":
+        from map_oxidize_tpu_torch.runtime.host_reduce import (
+            HostCollectReduceEngine,
+        )
+
+        return HostCollectReduceEngine(config, reducer,
+                                       value_shape=value_shape,
+                                       value_dtype=value_dtype,
+                                       transport=transport,
+                                       **collect_engine_kw(config))
     return DeviceReduceEngine(config, reducer, value_shape=value_shape,
                               value_dtype=value_dtype)
 
@@ -116,6 +164,9 @@ class LazyCounts(Mapping):
             return []
         vals = self._vals
         cand = top_k_candidate_indices(vals, k)
+        prefetch = getattr(self._dict, "prefetch", None)
+        if prefetch is not None:  # hash-only mode: batch-resolve winners
+            prefetch(self._k64[cand])
         lookup = self._dict.lookup
         if cand.size > max(1024, 32 * k):
             # boundary-tie flood (Zipf tail: the k-th count is a heavily
@@ -146,6 +197,9 @@ class LazyCounts(Mapping):
 
     def _materialize(self) -> dict[bytes, int]:
         if self._mat is None:
+            prefetch = getattr(self._dict, "prefetch", None)
+            if prefetch is not None:  # hash-only mode: one resolve-all scan
+                prefetch(self._k64)
             lookup = self._dict.materialized().__getitem__
             self._mat = {lookup(h): v for h, v in
                          zip(self._k64.tolist(), self._vals.tolist())}
@@ -178,6 +232,11 @@ def _readback(engine: StreamingEngineBase, dictionary: HashDictionary
     """Device accumulator -> :class:`LazyCounts`.  Padding rows carry the
     SENTINEL key, so mask."""
     hi, lo, vals, n = engine.finalize()
+    if getattr(engine, "device", None) is None:
+        # the host collect's result is already host arrays; its (empty)
+        # fetch is timed all the same, as the JAX package's readback does,
+        # while a device engine times its one fetch inside finalize
+        observe_device_wait(time.perf_counter())
     live = ~((hi == np.uint32(SENTINEL)) & (lo == np.uint32(SENTINEL)))
     k64 = join_u64(hi[live], lo[live])
     if k64.shape[0] != n:
@@ -226,17 +285,61 @@ def run_wordcount_job(config: JobConfig, mapper: Mapper, reducer: Reducer,
 
 def _run_wordcount_body(config: JobConfig, obs: Obs, mapper: Mapper,
                         reducer: Reducer, workload: str) -> JobResult:
+    from map_oxidize_tpu_torch.runtime.host_reduce import (
+        HostCollectReduceEngine,
+    )
+    from map_oxidize_tpu_torch.shuffle.pipelined import (
+        COMBINABLE,
+        combine_map_output,
+        record_push_combine,
+    )
+
     metrics = obs.registry
+    # the shuffle transport (JAX runtime/driver.py:322-341): 'pipelined'
+    # turns on the push cadence — the map runs ahead under the push/* span
+    # names with the overlap gauge, and the map-side combiner collapses
+    # each push window before the feed
+    transport = solved_transport(config)
+    push_mode = transport == "pipelined"
     engine = make_engine(config, reducer, value_shape=mapper.value_shape,
                          value_dtype=mapper.value_dtype,
-                         wide_keys=getattr(mapper, "wide_keys", False))
+                         wide_keys=getattr(mapper, "wide_keys", False),
+                         transport=transport)
     engine.obs = obs
+    collect = isinstance(engine, HostCollectReduceEngine)
+    if collect:
+        # the host collect touches no device, but the job still runs on
+        # the backend it asked for: a missing card raises here too
+        pick_device(config.backend)
+        metrics.set("shuffle/transport", engine.transport)
+    elif push_mode:
+        metrics.set("shuffle/transport", "pipelined")
+    do_combine = (config.push_combine != "off"
+                  and (config.push_combine == "on" or push_mode)
+                  and reducer.combine in COMBINABLE)
     # the data-plane audit over virtual hash partitions (one device):
     # conservation, skew, reduction
     dp = obs.ensure_dataplane(
         1, conserves=(reducer.combine == "sum"
                       and getattr(mapper, "conserves_counts", True)))
-    dictionary = HashDictionary()
+
+    # hash-only map (JAX runtime/driver.py:351-372): with the host collect
+    # the map needs neither per-chunk combining nor key strings (the one
+    # final sort dedups; strings resolve later by a same-cuts rescan,
+    # RescanDictionary).  Only the byte-range mmap path qualifies —
+    # round-robin chunking has no byte cuts for the rescan to replay.
+    hash_only = (getattr(mapper, "supports_hash_only", False)
+                 and config.num_chunks == 0 and collect)
+    if hasattr(mapper, "hash_only"):
+        # assign both ways: a mapper reused across jobs must not keep a
+        # stale True from an earlier collect run
+        mapper.hash_only = hash_only
+    if hash_only:
+        _, rb_chunk = plan_chunks(config.input_path, config.chunk_bytes)
+        dictionary = mapper.rescan_dictionary(
+            config.input_path, rb_chunk, early_stop=not config.rescan_full)
+    else:
+        dictionary = HashDictionary()
     records_in = 0
     n_chunks = 0
 
@@ -249,6 +352,12 @@ def _run_wordcount_body(config: JobConfig, obs: Obs, mapper: Mapper,
             rows = map_output_rows(out)
             if rows is not None:
                 dp.record_fold_in(*rows)
+        if do_combine and len(out):
+            # map-side combine AFTER the audit digested the raw rows: the
+            # weighted checksum is sum-combine-invariant, so the verdict
+            # is unchanged while the feed shrinks
+            out, c_in, c_out = combine_map_output(out, reducer.combine)
+            record_push_combine(obs, c_in, c_out)
         if mapper.keys_have_dictionary:
             # the dictionary covers every key fed so far, so its size bounds
             # distinct keys: growth needs no device sync
@@ -265,9 +374,10 @@ def _run_wordcount_body(config: JobConfig, obs: Obs, mapper: Mapper,
     resume_k = 0      # chunks already mapped in a previous run
     resume_off = 0    # input byte offset where mapping resumes
     if config.checkpoint_dir:
-        ckpt = CheckpointStore(config.checkpoint_dir,
-                               CheckpointStore.job_meta(config, workload),
-                               registry=metrics)
+        ckpt = CheckpointStore(
+            config.checkpoint_dir,
+            CheckpointStore.job_meta(config, workload, hash_only=hash_only),
+            registry=metrics)
         with obs.phase("replay"):
             for idx, out, next_off in ckpt.replay():
                 _ingest(out)
@@ -306,9 +416,16 @@ def _run_wordcount_body(config: JobConfig, obs: Obs, mapper: Mapper,
     # i's feed; order is preserved, so the spill and the output are
     # byte-identical to depth 1
     with obs.phase("map+reduce"):
+        depth = config.pipeline_depth
+        if push_mode:
+            # the push cadence needs a producer running ahead: depth >= 2,
+            # push/* span names and the shuffle overlap gauge
+            depth = max(2, depth)
         if native_file_iter is not None:
-            it = pipelined(native_file_iter, config.pipeline_depth, obs,
-                           name="map")
+            it = pipelined(native_file_iter, depth, obs,
+                           name="push" if push_mode else "map",
+                           ratio_gauge=("pipeline/shuffle_overlap_ratio"
+                                        if push_mode else None))
             for i, (out, next_off) in enumerate(it):
                 _ingest(out, next_off)
                 if ckpt is not None:
@@ -316,8 +433,7 @@ def _run_wordcount_body(config: JobConfig, obs: Obs, mapper: Mapper,
         else:
             for idx, out in run_map_phase(
                     chunks, mapper, config.num_map_workers,
-                    config.max_retries,
-                    pipeline_depth=config.pipeline_depth, obs=obs):
+                    config.max_retries, pipeline_depth=depth, obs=obs):
                 gidx = resume_k + idx
                 _ingest(out, offsets.get(gidx))
                 if ckpt is not None:
@@ -357,10 +473,199 @@ def _run_wordcount_body(config: JobConfig, obs: Obs, mapper: Mapper,
     metrics.set("distinct_keys", len(counts))
     metrics.set("chunks", n_chunks)
     metrics.set("device_rows_fed", engine.rows_fed)
-    # the port's own: where the fold ran (nothing falls back)
-    metrics.set("accumulator_device", str(engine.device))
+    # the port's own: where the reduce ran (nothing falls back)
+    metrics.set("accumulator_device",
+                "host" if collect else str(engine.device))
     summary, trace = obs.finish(config, workload)
     result = JobResult(counts=counts, top=top, metrics=summary, trace=trace)
+    if config.metrics:
+        _log.info("metrics: %s", result.metrics)
+    return result
+
+
+@dataclass
+class InvertedIndexResult:
+    """Postings plus metrics (JAX ``runtime/driver.py:537``).
+    ``postings`` is a read-only Mapping (:class:`Postings`): CSR-backed,
+    materializing per-term doc lists only on access."""
+
+    postings: "Mapping[bytes, list[int]]"
+    metrics: dict = field(default_factory=dict)
+    trace: list | None = None
+
+    def top_report(self, k: int) -> str:
+        top = self.postings.top_by_df(k)
+        lines = [f"Top {k} terms by document frequency:"]
+        lines += [f"{t.decode('utf-8', 'replace')}: {df} docs"
+                  for t, df in top]
+        return "\n".join(lines)
+
+
+def run_inverted_index_job(config: JobConfig, on_obs=None
+                           ) -> InvertedIndexResult:
+    """Inverted-index build (JAX ``runtime/driver.py:558``): the map emits
+    one (term, doc) pair per distinct term per document; the
+    :class:`~map_oxidize_tpu_torch.runtime.collect.CollectEngine` sorts all
+    pairs once (on the host, or on the device under
+    ``collect_sort='device'``); postings fall out as contiguous segments.
+
+    Output file: one line per term, ``term\\td1 d2 d3...``, terms in byte
+    order."""
+    config.validate()
+    obs = Obs.from_config(config)
+    if on_obs is not None:
+        on_obs(obs)
+    with obs.recording(config, "invertedindex"):
+        return _run_inverted_index_body(config, obs)
+
+
+def _run_inverted_index_body(config: JobConfig, obs: Obs
+                             ) -> InvertedIndexResult:
+    from map_oxidize_tpu_torch.runtime.collect import CollectEngine
+    from map_oxidize_tpu_torch.workloads.inverted_index import (
+        Postings,
+        make_inverted_index,
+        postings_from_sorted,
+    )
+
+    metrics = obs.registry
+    _require_single_device(config)
+    mapper = make_inverted_index(config.tokenizer, config.use_native)
+    transport = solved_transport(config)
+    push_mode = transport == "pipelined"
+    engine = CollectEngine(config, transport=transport,
+                           **collect_engine_kw(config))
+    if engine.device is None:
+        # a host sort touches no device, but the job still runs on the
+        # backend it asked for: a missing card raises here too
+        pick_device(config.backend)
+    engine.obs = obs
+    metrics.set("shuffle/transport", engine.transport)
+    # data-plane audit: (term, doc) pairs must cross the collect (and any
+    # spill round-trip) as an unchanged multiset
+    dp = obs.ensure_dataplane(1)
+    dictionary = HashDictionary()
+    records_in = 0
+    n_chunks = 0
+
+    def _ingest(out, next_off: int | None = None) -> None:
+        nonlocal records_in, n_chunks
+        dictionary.update(out.dictionary)
+        records_in += out.records_in
+        n_chunks += 1
+        if dp is not None and len(out):
+            dp.record_pairs_in(*map_output_rows(out, pairs=True))
+        t0 = time.perf_counter()
+        with obs.feed_span(rows=len(out)):
+            engine.feed(out)
+        metrics.observe("feed_block_ms", (time.perf_counter() - t0) * 1e3)
+        if obs.heartbeat is not None:
+            obs.heartbeat.update(rows=out.records_in, bytes_done=next_off)
+
+    # --- replay checkpointed chunks (resume): the collect feed is
+    # append-only, so per-chunk spill + replay maps like word count's
+    ckpt = None
+    resume_k = 0
+    resume_off = 0
+    if config.checkpoint_dir:
+        ckpt = CheckpointStore(
+            config.checkpoint_dir,
+            CheckpointStore.job_meta(config, "invertedindex"),
+            registry=metrics)
+        with obs.phase("replay"):
+            for idx, out, next_off in ckpt.replay():
+                _ingest(out)
+                resume_k, resume_off = idx + 1, next_off
+        if resume_k:
+            _log.info("resumed %d checkpointed chunks (input offset %d)",
+                      resume_k, resume_off)
+
+    with obs.phase("map+collect"):
+        _, chunk_bytes = plan_chunks(config.input_path, config.chunk_bytes)
+        it = mapper.iter_file_docs(config.input_path, chunk_bytes, resume_off)
+        if it is None:
+            def _host_iter():
+                off = resume_off
+                for chunk in iter_doc_chunks(config.input_path, chunk_bytes,
+                                             resume_off):
+                    off += len(chunk)
+                    yield mapper.map_docs(chunk, off - len(chunk)), off
+            it = _host_iter()
+        # prefetch: doc-chunk read+tokenize overlaps the collect feed
+        depth = config.pipeline_depth
+        if push_mode:
+            depth = max(2, depth)
+        it = pipelined(it, depth, obs,
+                       name="push" if push_mode else "map",
+                       ratio_gauge=("pipeline/shuffle_overlap_ratio"
+                                    if push_mode else None))
+        for i, (out, next_off) in enumerate(it):
+            _ingest(out, next_off)
+            if ckpt is not None:
+                ckpt.save(resume_k + i, out, next_off)
+
+    with obs.phase("sort+postings"):
+        if engine.spilled:
+            # beyond-RAM run: bucket-by-bucket CSR with an on-disk doc
+            # column (memmap); Postings answers everything lazily
+            terms, offsets, docs, holder = engine.finalize_spilled_csr()
+            postings = Postings(terms, offsets, docs, dictionary)
+            postings._spill_holder = holder  # keeps the doc file alive
+            metrics.set("spilled_pairs", int(engine.spilled_rows))
+            metrics.set("grouped_finalize", False)
+        else:
+            # the map-phase dictionary enumerates every distinct term, so
+            # the host finalize can GROUP instead of SORT
+            # (engine.finalize_csr); the device sort keeps the
+            # sorted-pairs path
+            csr = None
+            if (engine.sort_mode == "host" and config.use_native
+                    and len(dictionary) <= max(engine.rows_fed // 8, 1)):
+                d = dictionary.materialized()
+                uniq = np.sort(np.fromiter(d.keys(), np.uint64,
+                                           count=len(d)))
+                csr = engine.finalize_csr(uniq)
+            if csr is not None:
+                postings = Postings(*csr, dictionary)
+                if dp is not None:
+                    # expand the CSR back to per-pair keys: grouping must
+                    # not have dropped or invented a single (term, doc)
+                    dp.record_pairs_out(
+                        np.repeat(csr[0], np.diff(csr[1])), csr[2])
+            else:
+                keys, docs = engine.finalize()
+                postings = postings_from_sorted(keys, docs, dictionary)
+                if dp is not None:
+                    dp.record_pairs_out(keys, docs)
+            metrics.set("grouped_finalize", csr is not None)
+    if dp is not None:
+        dp.set_records_in(records_in)
+        dp.resolve_hot_keys(dictionary.lookup)
+        dp.check_pairs()
+
+    return _finish_inverted_index(config, obs, postings, ckpt,
+                                  records_in, n_chunks)
+
+
+def _finish_inverted_index(config, obs, postings, ckpt, records_in,
+                           n_chunks) -> InvertedIndexResult:
+    """The inverted index's tail (JAX ``runtime/driver.py:726``): write,
+    checkpoint cleanup, metrics, result."""
+    metrics = obs.registry
+    with obs.phase("write"):
+        if config.output_path:
+            write_postings(config.output_path, postings)
+
+    if ckpt is not None:
+        ckpt.finish(config.keep_intermediates)
+
+    metrics.set("records_in", records_in)
+    metrics.set("pairs", int(postings.n_pairs))
+    metrics.set("distinct_terms", len(postings))
+    metrics.set("chunks", n_chunks)
+    summary, trace = obs.finish(config, "invertedindex")
+    result = InvertedIndexResult(postings=postings, metrics=summary,
+                                 trace=trace)
     if config.metrics:
         _log.info("metrics: %s", result.metrics)
     return result
@@ -466,7 +771,7 @@ def _run_kmeans_body(config: JobConfig, obs: Obs,
 
     if config.num_shards > 1:
         raise NotImplementedError(
-            "sharded k-means is not ported yet (ROADMAP: sharded engines)")
+            "sharded k-means is not ported yet (ROADMAP A7: sharded engines)")
     metrics = obs.registry
     pts = np.load(config.input_path, mmap_mode="r")
     if pts.ndim != 2:
@@ -616,6 +921,141 @@ def _run_kmeans_body(config: JobConfig, obs: Obs,
     metrics.set("device", str(device))
     summary, trace = obs.finish(config, "kmeans")
     result = KMeansResult(centroids=centroids, metrics=summary, trace=trace)
+    if config.metrics:
+        _log.info("metrics: %s", result.metrics)
+    return result
+
+
+@dataclass
+class DistinctResult:
+    """HyperLogLog estimate plus the register state and metrics (JAX
+    ``runtime/driver.py:1128``).  ``registers`` is the dense ``(2^p,)``
+    int32 array (mergeable: max with another run's registers estimates
+    the union's cardinality)."""
+
+    estimate: float
+    registers: np.ndarray
+    metrics: dict = field(default_factory=dict)
+    trace: list | None = None
+
+    def top_report(self, k: int) -> str:  # CLI-facing summary
+        filled = int(np.count_nonzero(self.registers))
+        return (f"distinct tokens ~ {self.estimate:,.0f}  "
+                f"(HLL p={int(np.log2(self.registers.shape[0]))}, "
+                f"{filled}/{self.registers.shape[0]} registers filled, "
+                f"rse ~{104 / np.sqrt(self.registers.shape[0]):.2f}%)")
+
+
+def run_distinct_job(config: JobConfig, on_obs=None) -> DistinctResult:
+    """Approximate distinct-token count (HyperLogLog; JAX
+    ``runtime/driver.py:1146-1291``): a max-monoid fold over ``2^p``
+    integer-keyed registers.  On one device the (bucket, max-rank) rows
+    fold straight into a dense host register array, as in the JAX
+    package: 2^p int32 is ~64KB at p=14, each chunk's fold is
+    microseconds, and a device accumulator would cost a copy per chunk
+    plus a finalize fetch."""
+    config.validate()
+    obs = Obs.from_config(config)
+    if on_obs is not None:
+        on_obs(obs)
+    with obs.recording(config, "distinct"):
+        return _run_distinct_body(config, obs)
+
+
+def _run_distinct_body(config: JobConfig, obs: Obs) -> DistinctResult:
+    from map_oxidize_tpu_torch import runtime as _rt
+    from map_oxidize_tpu_torch.workloads.distinct import (
+        DistinctMapper,
+        hll_estimate,
+        write_distinct_output,
+    )
+
+    metrics = obs.registry
+    _require_single_device(config)
+    # the fold is host-side, but the job runs on the backend it asked
+    # for: a missing card raises here too
+    pick_device(config.backend)
+    p = config.hll_precision
+    m = 1 << p
+    use_native = _rt.resolve_mapper(config, "distinct") == "native"
+    mapper = DistinctMapper(config.tokenizer, use_native, p)
+    host_regs = np.zeros(m, np.int32)
+    records_in = 0
+    n_chunks = 0
+
+    def _ingest(out, next_off: int | None = None) -> None:
+        nonlocal records_in, n_chunks
+        records_in += out.records_in
+        n_chunks += 1
+        t0 = time.perf_counter()
+        # lo is flatnonzero output — unique per chunk, so fancy-index max
+        # is exact
+        idx = out.lo.astype(np.int64)
+        host_regs[idx] = np.maximum(host_regs[idx], out.values)
+        metrics.observe("feed_block_ms", (time.perf_counter() - t0) * 1e3)
+        if obs.heartbeat is not None:
+            obs.heartbeat.update(rows=out.records_in, bytes_done=next_off)
+
+    # --- replay checkpointed chunks (resume): registers are ordinary
+    # (key, value) rows, so the standard per-chunk spill applies
+    ckpt = None
+    resume_k = 0
+    resume_off = 0
+    if config.checkpoint_dir:
+        ckpt = CheckpointStore(
+            config.checkpoint_dir,
+            CheckpointStore.job_meta(config, "distinct",
+                                     extra={"hll_precision": p}),
+            registry=metrics)
+        with obs.phase("replay"):
+            for idx, out, next_off in ckpt.replay():
+                _ingest(out)
+                resume_k, resume_off = idx + 1, next_off
+
+    with obs.phase("split"):
+        _, chunk_bytes = plan_chunks(config.input_path, config.chunk_bytes)
+        file_iter = mapper.map_file(config.input_path, chunk_bytes,
+                                    resume_off)
+        if file_iter is None:
+            offsets: dict[int, int] = {}
+            chunks = _track_offsets(
+                iter_chunks(config.input_path, chunk_bytes, resume_off),
+                resume_off, offsets, resume_k)
+
+    with obs.phase("map+reduce"):
+        if file_iter is not None:
+            it = pipelined(file_iter, config.pipeline_depth, obs, name="map")
+            for i, (out, next_off) in enumerate(it):
+                _ingest(out, next_off)
+                if ckpt is not None:
+                    ckpt.save(resume_k + i, out, next_off)
+        else:
+            for idx, out in run_map_phase(
+                    chunks, mapper, config.num_map_workers,
+                    config.max_retries,
+                    pipeline_depth=config.pipeline_depth, obs=obs):
+                gidx = resume_k + idx
+                _ingest(out, offsets.get(gidx))
+                if ckpt is not None:
+                    ckpt.save(gidx, out, offsets.get(gidx, -1))
+
+    with obs.phase("finalize"):
+        regs = host_regs
+        estimate = hll_estimate(regs)
+
+    with obs.phase("write"):
+        if config.output_path:
+            write_distinct_output(config.output_path, regs, estimate, p)
+
+    if ckpt is not None:
+        ckpt.finish(config.keep_intermediates)
+
+    metrics.set("records_in", records_in)
+    metrics.set("chunks", n_chunks)
+    metrics.set("registers_filled", int(np.count_nonzero(regs)))
+    summary, trace = obs.finish(config, "distinct")
+    result = DistinctResult(estimate=estimate, registers=regs,
+                            metrics=summary, trace=trace)
     if config.metrics:
         _log.info("metrics: %s", result.metrics)
     return result

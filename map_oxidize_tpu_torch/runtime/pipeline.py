@@ -203,7 +203,8 @@ class ChunkPrefetcher:
 
 
 def pipelined(it: Iterable[T], depth: int, obs=None,
-              name: str = "pipeline") -> Iterable[T]:
+              name: str = "pipeline",
+              ratio_gauge: str | None = None) -> Iterable[T]:
     """Prefetch ``it`` with ``depth - 1`` items queued ahead of the one the
     consumer holds, recording into ``obs`` when given: the prefetcher's
     live counters, the ``pipeline/overlap_ratio`` gauge after every item
@@ -211,23 +212,31 @@ def pipelined(it: Iterable[T], depth: int, obs=None,
     ``<name>/pipeline_done`` trace instant.  ``depth <= 1`` returns ``it``
     unchanged — the serial schedule, no thread, no counters — so
     ``--pipeline-depth 1`` is a true control arm, not a degenerate
-    pipeline."""
+    pipeline.  ``ratio_gauge`` names an extra gauge fed the same overlap
+    ratio (the push cadence passes ``pipeline/shuffle_overlap_ratio``;
+    JAX ``runtime/pipeline.py:278``)."""
     if depth <= 1:
         return it
     pf = ChunkPrefetcher(it, depth - 1, name=name, obs=obs)
     if obs is None:
         return iter(pf)
 
+    def _set_ratio(reg) -> None:
+        ratio = round(pf.overlap_ratio, 4)
+        reg.set("pipeline/overlap_ratio", ratio)
+        if ratio_gauge:
+            reg.set(ratio_gauge, ratio)
+
     def _run():
         reg = obs.registry
         try:
             for item in pf:
-                reg.set("pipeline/overlap_ratio", round(pf.overlap_ratio, 4))
+                _set_ratio(reg)
                 yield item
         finally:
             if pf.items or pf.produce_s:
                 reg.set("pipeline/depth", depth)
-                reg.set("pipeline/overlap_ratio", round(pf.overlap_ratio, 4))
+                _set_ratio(reg)
                 obs.tracer.instant(
                     f"{name}/pipeline_done", items=pf.items,
                     produce_ms=round(pf.produce_s * 1e3, 3),

@@ -414,3 +414,58 @@ def test_streamed_fit_with_metrics_out_is_bit_equal_run_to_run(cuda,
     assert cents[0].tobytes() == cents[1].tobytes()
     assert (docs[0]["counters"]["pipeline/chunks"]
             == docs[1]["counters"]["pipeline/chunks"] > 0)
+
+
+def _pair_block(seed, n=1 << 16, pad=1000):
+    rng = np.random.default_rng(seed)
+    b = rng.integers(0, 2**32, size=(4, n), dtype=np.uint64).astype(np.uint32)
+    b[0, :n // 4] |= np.uint32(0x80000000)
+    b[2, n // 8:n // 2] |= np.uint32(0x80000000)
+    b[:2, n // 2:n // 2 + 3000] = b[:2, :3000]
+    b[:, n - pad:] = np.uint32(0xFFFFFFFF)
+    return b[:, rng.permutation(n)]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_sort_pairs_on_the_card_matches_the_cpu(cuda, seed):
+    """The collect sort's torch form (int64 order columns, two stable
+    sorts) gives the same bits on the card as on the CPU, where the tests
+    hold it to the JAX ``_sort_pairs``."""
+    from map_oxidize_tpu_torch.runtime.collect import sort_pairs
+
+    b = torch.from_numpy(_pair_block(seed).view(np.int32))
+    torch.testing.assert_close(sort_pairs(b.to(cuda)).cpu(), sort_pairs(b),
+                               rtol=0, atol=0)
+
+
+def _text_corpus(path, seed=5, lines=20000):
+    rng = np.random.default_rng(seed)
+    z = rng.zipf(1.2, size=(lines, 10)) % 5000
+    path.write_bytes(b"\n".join(b" ".join(b"c%dX" % j for j in row)
+                                for row in z) + b"\n")
+    return path
+
+
+def test_collect_route_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """bigram through the fold on the card and the collect, the inverted
+    index with its pairs sorted on the card and on the host, and distinct:
+    the same bytes on the card as on the CPU."""
+    inp = _text_corpus(tmp_path / "c.txt")
+    runs = [("bigram", {"reduce_mode": "fold", "key_capacity": 1 << 20}),
+            ("bigram", {}), ("invertedindex", {"collect_sort": "device"}),
+            ("invertedindex", {}), ("distinct", {})]
+    for i, (wl, kw) in enumerate(runs):
+        out = {}
+        for backend in ("cuda", "cpu"):
+            path = tmp_path / f"{i}_{backend}.txt"
+            r = run_job(JobConfig(input_path=str(inp), output_path=str(path),
+                                  backend=backend, chunk_bytes=64 << 10,
+                                  metrics=False, **kw), wl)
+            out[backend] = path.read_bytes()
+        assert out["cuda"] == out["cpu"], (wl, kw)
+        if kw.get("reduce_mode") == "fold":
+            assert r.metrics["accumulator_device"] == "cpu"
+    assert (tmp_path / "0_cuda.txt").read_bytes() == (
+        tmp_path / "1_cuda.txt").read_bytes()
+    assert (tmp_path / "2_cuda.txt").read_bytes() == (
+        tmp_path / "3_cuda.txt").read_bytes()

@@ -44,7 +44,13 @@ def test_importing_the_port_loads_no_jax():
             "map_oxidize_tpu_torch.workloads.kmeans, "
             "map_oxidize_tpu_torch.convert, "
             "map_oxidize_tpu_torch.native.build, "
-            "map_oxidize_tpu_torch.runtime.checkpoint\n"
+            "map_oxidize_tpu_torch.runtime.checkpoint, "
+            "map_oxidize_tpu_torch.runtime.collect, "
+            "map_oxidize_tpu_torch.runtime.host_reduce, "
+            "map_oxidize_tpu_torch.shuffle, "
+            "map_oxidize_tpu_torch.workloads.bigram, "
+            "map_oxidize_tpu_torch.workloads.inverted_index, "
+            "map_oxidize_tpu_torch.workloads.distinct\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
@@ -66,13 +72,46 @@ def test_cuda_is_required_unless_cpu_is_asked_for(monkeypatch, tmp_path):
         JobConfig(backend="tpu").validate()
 
 
+@pytest.mark.parametrize("workload,kw", [
+    ("bigram", {}), ("bigram", {"reduce_mode": "fold"}),
+    ("invertedindex", {}), ("invertedindex", {"collect_sort": "device"}),
+    ("distinct", {})])
+def test_the_collect_route_demands_the_card_too(monkeypatch, tmp_path,
+                                                workload, kw):
+    """The host collect, the host pair sort and the host register fold
+    touch no device, but a job that asked for the card still fails when
+    there is none."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    inp = tmp_path / "c.txt"
+    inp.write_bytes(b"a b a\nb c\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_job(JobConfig(input_path=str(inp), output_path="", **kw),
+                workload)
+    r = run_job(JobConfig(input_path=str(inp), output_path="",
+                          backend="cpu", **kw), workload)
+    assert r.metrics["records_in"] > 0
+
+
+@pytest.mark.parametrize("workload", ["wordcount", "bigram"])
+@pytest.mark.parametrize("num_shards", [2, 8])
+def test_sharded_runs_raise_naming_the_roadmap_item(tmp_path, workload,
+                                                    num_shards):
+    inp = tmp_path / "c.txt"
+    inp.write_bytes(b"a b a\n")
+    for wl in (workload, "invertedindex", "distinct"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+            run_job(JobConfig(input_path=str(inp), output_path="",
+                              backend="cpu", num_shards=num_shards), wl)
+
+
 @pytest.mark.parametrize("mapper", ["device"])
 def test_unported_mapper_raises_instead_of_swapping(tmp_path, mapper):
     inp = tmp_path / "c.txt"
     inp.write_bytes(b"a b a\n")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        run_job(JobConfig(input_path=str(inp), output_path="",
-                          backend="cpu", mapper=mapper))
+    for workload in ("wordcount", "bigram"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            run_job(JobConfig(input_path=str(inp), output_path="",
+                              backend="cpu", mapper=mapper), workload)
 
 
 @pytest.mark.parametrize("mapper", ["auto", "native"])

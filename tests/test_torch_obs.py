@@ -1,7 +1,8 @@
 """The port's observability bundle against the JAX package's: the same
 seeded jobs through both packages (word count with the native and the
-Python map, word count resumed from a checkpoint, and k-means in its
-``device``, ``stream_device`` and ``stream`` modes) report the same metric
+Python map, word count resumed from a checkpoint, k-means in its
+``device``, ``stream_device`` and ``stream`` modes, bigram through the
+collect reduce, the inverted index and distinct) report the same metric
 keys, the same exact counts and data-plane audit, the same phases in the
 trace and the same metrics-document sections, apart from the surfaces the
 port has not ported yet (``ALLOWLIST``) and the port's own keys
@@ -67,7 +68,8 @@ NOT_ALLOWLISTED = {"dispatch/batch"}
 ALLOWLISTED_SECTIONS = {"critpath", "plan", "xprof"}
 #: keys only the port emits, with the reason
 PORT_OWN = {
-    "accumulator_device": "where the word-count fold ran (no fallback)",
+    "accumulator_device": "where the word-count or bigram reduce ran (no "
+                          "fallback)",
     "device": "where the k-means fit ran (no fallback)",
 }
 
@@ -111,14 +113,22 @@ JOBS = {
     "kmeans_stream_device": ("kmeans", dict(KM, kmeans_device_fit_bytes=64,
                                             dispatch_batch=2)),
     "kmeans_stream": ("kmeans", dict(KM, mapper="native")),
+    "bigram_collect": ("bigram", dict(WC, mapper="native")),
+    "invertedindex": ("invertedindex", dict(WC)),
+    "invertedindex_demoted": ("invertedindex",
+                              dict(WC, collect_max_rows=10_000,
+                                   shuffle_transport="hybrid")),
+    "distinct": ("distinct", dict(WC)),
 }
+#: the jobs that read a text corpus and write a text result
+TEXT = ("wordcount", "bigram", "invertedindex", "distinct")
 
 
 def _run_pair(tmp, job):
     """Run ``job`` through both packages; returns per package the result,
     the ``metrics_out`` document and the ``trace_out`` events."""
     workload, kw = JOBS[job]
-    if workload == "wordcount":
+    if workload in TEXT:
         inp = tmp / "corpus.txt"
         inp.write_bytes(_corpus())
     else:
@@ -148,7 +158,7 @@ def _run_pair(tmp, job):
         out[pkg] = (r, json.loads(m_path.read_text()),
                     json.loads(t_path.read_text()))
     assert ((tmp / "port.out").read_bytes() == (tmp / "jax.out").read_bytes()
-            if workload == "wordcount" else True)
+            if workload in TEXT else True)
     return out
 
 
@@ -169,6 +179,21 @@ def test_key_sets_match_the_jax_package(pair):
         assert {"time/iterate_s", "time/write_s", "device/compute_ms/count",
                 "attrib/init_ms", "mem/host_rss_bytes"} <= port
         assert "time/iter_s" in port if job == "kmeans_device" else True
+    elif job == "bigram_collect":
+        assert {"records_per_sec", "shuffle/transport", "feed_block_ms/count",
+                "data/conservation_checks", "device/compute_ms/count",
+                "pipeline/overlap_ratio"} <= port
+    elif job.startswith("invertedindex"):
+        assert {"shuffle/transport", "time/map+collect_s",
+                "time/sort+postings_s", "grouped_finalize", "pairs",
+                "data/conservation_checks", "feed_block_ms/count"} <= port
+        assert ({"demote/events", "demote/rows", "spill/rows", "spill/bytes",
+                 "spill/buckets", "spilled_pairs",
+                 "data/spill_bucket_imbalance"} <= port) == (
+                     job == "invertedindex_demoted")
+    elif job == "distinct":
+        assert {"registers_filled", "time/map+reduce_s",
+                "time/finalize_s", "feed_block_ms/count"} <= port
     else:
         assert {"records_per_sec", "time/split_s", "feed_block_ms/count",
                 "engine/flush_ms/p95", "engine/device_put_bytes",
@@ -184,12 +209,23 @@ def test_counts_and_data_audit_match_exactly(pair):
         "pipeline/chunks", "pipeline/depth", "engine/flushes",
         "engine/device_put_bytes", "records_in", "chunks", "distinct_keys",
         "device_rows_fed", "kmeans_mode", "points", "iters",
-        "checkpoint/chunks_replayed", "dispatch/batch")]
+        "checkpoint/chunks_replayed", "dispatch/batch", "shuffle/transport",
+        "pairs", "distinct_terms", "grouped_finalize", "registers_filled",
+        "demote/events", "demote/rows", "spill/rows", "spill/buckets",
+        "spilled_pairs")]
     assert exact
     assert {k: pm[k] for k in exact} == {k: jm[k] for k in exact}
-    if job.startswith("wordcount") and job != "wordcount_no_audit":
+    if job.startswith(("wordcount", "bigram")) and (
+            job != "wordcount_no_audit"):
         assert pm["data/conservation_violations"] == 0
         assert pm["data/conservation_checks"] == 3
+        assert runs["port"][1]["data"] == runs["jax"][1]["data"]
+    elif job.startswith("invertedindex"):
+        # the pair digest: one multiset check over every partition, and
+        # the spill's round trip when the job demoted
+        assert pm["data/conservation_violations"] == 0
+        assert pm["data/conservation_checks"] == (
+            2 if job == "invertedindex_demoted" else 1)
         assert runs["port"][1]["data"] == runs["jax"][1]["data"]
     else:
         assert not any(k.startswith("data/") for k in pm)
@@ -478,16 +514,31 @@ def _drive_tracer(tr, case):
             with tr.span("bad", y=object.__name__):
                 raise ValueError("no")
     elif case == "threads":
-        def work(k):
+        # the workers run their spans one after another, and each stays
+        # alive until all are done: a thread ident is reused once its
+        # thread exits, so workers that exit in turn would map to a
+        # varying number of tids from run to run
+        release = threading.Event()
+
+        def work(k, done):
             with tr.span("worker", k=k):
                 with tr.span("inner"):
                     pass
+            done.set()
+            assert release.wait(timeout=30)
+
+        threads = []
         with tr.span("driver"):
             for k in range(3):
-                t = threading.Thread(target=work, args=(k,))
+                done = threading.Event()
+                t = threading.Thread(target=work, args=(k, done))
                 t.start()
-                t.join(timeout=10)
-                assert not t.is_alive()
+                threads.append(t)
+                assert done.wait(timeout=30)
+        release.set()
+        for t in threads:
+            t.join(timeout=30)
+            assert not t.is_alive()
     elif case == "close_open":
         outer = tr.span("outer")
         outer.__enter__()
