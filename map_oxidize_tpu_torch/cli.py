@@ -5,6 +5,12 @@
     python -m map_oxidize_tpu_torch invertedindex corpus.txt \\
         --collect-sort device --output postings.txt
     python -m map_oxidize_tpu_torch distinct corpus.txt --hll-precision 14
+    python -m map_oxidize_tpu_torch wordcount corpus.txt --mapper device
+    python -m map_oxidize_tpu_torch sort records.npy --output sorted.bin
+    python -m map_oxidize_tpu_torch join left.npy --join-input right.npy \\
+        --output matches.bin
+    python -m map_oxidize_tpu_torch sessionize events.npy --session-gap 3600 \\
+        --output sessions.txt
     python -m map_oxidize_tpu_torch kmeans points.npy --kmeans-k 256 \\
         --kmeans-iters 10 --kmeans-precision bf16
     python -m map_oxidize_tpu_torch wordcount corpus.txt --backend cpu
@@ -55,8 +61,10 @@ def build_parser() -> argparse.ArgumentParser:
                    version=f"%(prog)s {__version__}")
     p.add_argument("workload", choices=list(WORKLOADS),
                    help="built-in workload to run")
-    p.add_argument("input", help="input path: a text corpus, or a .npy "
-                                 "points file for kmeans")
+    p.add_argument("input", help="input path: a text corpus, a .npy "
+                                 "points file for kmeans, or a .npy "
+                                 "record file for sort, join (left side) "
+                                 "and sessionize")
     p.add_argument("--output", default="final_result.txt",
                    help="final result path")
     p.add_argument("--top-k", type=int, default=10,
@@ -87,9 +95,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mapper", choices=["auto", "device", "native", "python"],
                    default="auto",
                    help="map-phase placement.  wordcount, bigram: C++ "
-                        "host loop or pure Python (auto: native); device "
-                        "is not ported yet (other workloads take native "
-                        "for it).  kmeans: device-resident (device), "
+                        "host loop, pure Python, or tokenize and count on "
+                        "the device (ascii only; auto: native; other "
+                        "workloads take native for device).  kmeans: "
+                        "device-resident (device), "
                         "resident or streamed through the device by fit "
                         "(auto), host assign (native, python)")
     p.add_argument("--reduce-mode", choices=["auto", "fold", "collect"],
@@ -123,6 +132,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "rows (sum/min/max reducers) before the feed. "
                         "auto = on when the transport resolves to "
                         "pipelined; outputs are byte-identical either way")
+    p.add_argument("--join-input", default="",
+                   help="join: the RIGHT/probe record corpus (.npy of "
+                        "(u64 key, u64 payload) rows, payloads < 2^63; "
+                        "the positional input is the left/build side)")
+    p.add_argument("--session-gap", type=int, default=3600,
+                   help="sessionize: consecutive same-key events more "
+                        "than this far apart (timestamp units) start a "
+                        "new session")
+    p.add_argument("--sort-sample", type=int, default=4096,
+                   help="sort: target key-sample size for the range "
+                        "splitters (deterministic strided sample; "
+                        "larger balances skew better)")
     p.add_argument("--rescan-full", action="store_true",
                    help="hash-only mode: rescan the whole corpus when "
                         "resolving winner strings (extends the collision "
@@ -205,6 +226,9 @@ def config_from_args(args: argparse.Namespace) -> JobConfig:
         push_combine=args.push_combine,
         rescan_full=args.rescan_full,
         hll_precision=args.hll_precision,
+        join_input_path=args.join_input,
+        session_gap=args.session_gap,
+        sort_sample=args.sort_sample,
         kmeans_k=args.kmeans_k,
         kmeans_iters=args.kmeans_iters,
         kmeans_precision=args.kmeans_precision,
@@ -233,6 +257,11 @@ def main(argv: list[str] | None = None) -> int:
     if not os.path.isfile(config.input_path):
         print(f"error: cannot open input {config.input_path!r}",
               file=sys.stderr)
+        return 2
+    if args.workload == "join" and not os.path.isfile(
+            config.join_input_path):
+        print(f"error: join needs --join-input; cannot open "
+              f"{config.join_input_path!r}", file=sys.stderr)
         return 2
     if config.keep_intermediates and not config.checkpoint_dir:
         _log.warning("--keep-intermediates has no effect without "

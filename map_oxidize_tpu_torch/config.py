@@ -1,9 +1,10 @@
 """Job configuration of the port.
 
-The fields the ported paths read (word count and bigram through the fold
-or the collect reduce, the inverted index, distinct, k-means in its three
-single-device modes, checkpoint/resume for all of them, the shuffle
-transports and the observability outputs), with the JAX package's defaults
+The fields the ported paths read (word count and bigram through the fold,
+the collect reduce or the device map, the inverted index, distinct,
+k-means in its three single-device modes, sort, join and sessionize,
+checkpoint/resume, the shuffle transports and the observability
+outputs), with the JAX package's defaults
 and validation (JAX ``config.py:94-365``).  ``backend``
 names a torch device family: ``cuda`` (the default) or ``cpu``; nothing
 falls back from one to the other.
@@ -14,7 +15,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 #: workloads the port runs
-WORKLOADS = ("wordcount", "bigram", "invertedindex", "kmeans", "distinct")
+WORKLOADS = ("wordcount", "bigram", "invertedindex", "kmeans", "distinct",
+             "sort", "join", "sessionize")
 
 
 @dataclass
@@ -55,12 +57,15 @@ class JobConfig:
     #: tokenizer mode: 'ascii' (byte path) or 'unicode'
     tokenizer: str = "ascii"
     #: map-phase placement.  wordcount, bigram: 'native' (the C++ host
-    #: loop), 'python', or 'auto' (= 'native'); 'device' is not ported yet
-    #: (other workloads resolve it to 'native', as the JAX package does).
+    #: loop), 'python', 'device' (tokenize, hash and combine on the device;
+    #: ascii only) or 'auto' (= 'native'); other workloads resolve 'device'
+    #: to 'native', as the JAX package does.
     #: kmeans: 'device' (points resident on the device), 'auto' (resident
     #: when 4n(d+2k) fits kmeans_device_fit_bytes, else streamed through
     #: the device), 'native' / 'python' (host assign)
     mapper: str = "auto"
+    #: per-chunk unique-key slots for the device mapper output
+    device_chunk_keys: int = 1 << 19
     #: reduce engine: 'fold' = the streaming device accumulator (narrow key
     #: spaces), 'collect' = host collect + one vectorized sort/reduce (wide
     #: key spaces, runtime/host_reduce.py); 'auto' picks by the mapper's
@@ -93,6 +98,18 @@ class JobConfig:
     #: engine defaults (host collect 2^28, pair collect 2^27).  What
     #: happens AT the cap is the shuffle transport's call
     collect_max_rows: int = 0
+    #: join (hash equi-join): the RIGHT/probe record corpus
+    #: (``input_path`` is the left/build side): a ``.npy`` of (u64 key,
+    #: u64 payload) rows, payloads < 2^63 (the top bit tags the side
+    #: inside the shared engine) — see workloads/join.py
+    join_input_path: str = ""
+    #: sessionize: the gap (in the timestamp column's own units) above
+    #: which consecutive same-key events split into separate sessions
+    session_gap: int = 3600
+    #: sort: target key-sample size for the range splitters (an
+    #: every-kth-row strided sample; the sharded sort's, unused on one
+    #: device)
+    sort_sample: int = 4096
     #: shuffle transport of the collect engines (map_oxidize_tpu_torch.
     #: shuffle): 'hbm' = strictly resident (the cap is a hard error),
     #: 'disk' = top-bits disk buckets from the first row, 'hybrid' =
@@ -163,8 +180,14 @@ class JobConfig:
         if self.collect_sort not in ("auto", "host", "device"):
             raise ValueError(
                 f"collect_sort must be auto|host|device, got {self.collect_sort!r}")
+        if self.device_chunk_keys <= 0:
+            raise ValueError("device_chunk_keys must be positive")
         if self.collect_max_rows < 0:
             raise ValueError("collect_max_rows must be >= 0 (0 = default)")
+        if self.session_gap < 1:
+            raise ValueError("session_gap must be >= 1 (timestamp units)")
+        if self.sort_sample < 1:
+            raise ValueError("sort_sample must be >= 1 sampled keys")
         from map_oxidize_tpu_torch.shuffle.base import TRANSPORTS
 
         if self.shuffle_transport not in TRANSPORTS:

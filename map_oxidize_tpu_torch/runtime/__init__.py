@@ -40,7 +40,8 @@ def resolve_mapper(config: JobConfig, workload: str) -> str:
 
 def run_job(config: JobConfig, workload: str = "wordcount", on_obs=None):
     """Run a built-in workload end to end: 'wordcount', 'bigram',
-    'invertedindex', 'distinct' or 'kmeans'.
+    'invertedindex', 'distinct', 'kmeans', 'sort', 'join' or
+    'sessionize'.
 
     With ``config.trace_dir`` set, the whole job runs under a
     ``torch.profiler`` trace written there (JAX ``runtime/__init__.py:38``,
@@ -74,6 +75,16 @@ def _run_job(config: JobConfig, workload: str, on_obs=None):
         from map_oxidize_tpu_torch.runtime.driver import run_distinct_job
 
         return run_distinct_job(config, on_obs=on_obs)
+    if workload in ("sort", "join", "sessionize"):
+        from map_oxidize_tpu_torch.runtime.dataflow import (
+            run_join_job,
+            run_sessionize_job,
+            run_sort_job,
+        )
+
+        runner = {"sort": run_sort_job, "join": run_join_job,
+                  "sessionize": run_sessionize_job}[workload]
+        return runner(config, on_obs=on_obs)
     if workload not in ("wordcount", "bigram"):
         raise NotImplementedError(
             f"workload {workload!r} is not ported yet (ROADMAP queue A)")

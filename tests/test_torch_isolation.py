@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -50,7 +51,11 @@ def test_importing_the_port_loads_no_jax():
             "map_oxidize_tpu_torch.shuffle, "
             "map_oxidize_tpu_torch.workloads.bigram, "
             "map_oxidize_tpu_torch.workloads.inverted_index, "
-            "map_oxidize_tpu_torch.workloads.distinct\n"
+            "map_oxidize_tpu_torch.workloads.distinct, "
+            "map_oxidize_tpu_torch.runtime.dataflow, "
+            "map_oxidize_tpu_torch.workloads.sort, "
+            "map_oxidize_tpu_torch.workloads.join, "
+            "map_oxidize_tpu_torch.workloads.sessionize\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
@@ -92,16 +97,38 @@ def test_the_collect_route_demands_the_card_too(monkeypatch, tmp_path,
     assert r.metrics["records_in"] > 0
 
 
+@pytest.mark.parametrize("workload", ["sort", "join", "sessionize"])
+@pytest.mark.parametrize("collect_sort", ["host", "device"])
+def test_the_dataflow_jobs_demand_the_card(monkeypatch, tmp_path, workload,
+                                           collect_sort):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    recs = tmp_path / "r.npy"
+    np.save(recs, np.array([[3, 1], [1, 2], [3, 9]], np.uint64))
+    kw = dict(input_path=str(recs), output_path="", join_input_path=str(recs),
+              collect_sort=collect_sort)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_job(JobConfig(**kw), workload)
+    r = run_job(JobConfig(backend="cpu", **kw), workload)
+    assert r.metrics["records_in"] > 0
+
+
 @pytest.mark.parametrize("workload", ["wordcount", "bigram"])
 @pytest.mark.parametrize("num_shards", [2, 8])
 def test_sharded_runs_raise_naming_the_roadmap_item(tmp_path, workload,
                                                     num_shards):
     inp = tmp_path / "c.txt"
     inp.write_bytes(b"a b a\n")
-    for wl in (workload, "invertedindex", "distinct"):
+    recs = tmp_path / "r.npy"
+    np.save(recs, np.array([[3, 1], [1, 2]], np.uint64))
+    runs = [(wl, inp, {}) for wl in (workload, "invertedindex", "distinct")]
+    runs += [("sort", recs, {}), ("join", recs, {"join_input_path":
+                                                 str(recs)}),
+             ("sessionize", recs, {})]
+    for wl, path, kw in runs:
         with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            run_job(JobConfig(input_path=str(inp), output_path="",
-                              backend="cpu", num_shards=num_shards), wl)
+            run_job(JobConfig(input_path=str(path), output_path="",
+                              backend="cpu", num_shards=num_shards, **kw),
+                    wl)
 
 
 @pytest.mark.parametrize("mapper", ["device"])

@@ -119,9 +119,22 @@ JOBS = {
                               dict(WC, collect_max_rows=10_000,
                                    shuffle_transport="hybrid")),
     "distinct": ("distinct", dict(WC)),
+    "sort": ("sort", dict(WC)),
+    "sort_demoted": ("sort", dict(WC, collect_max_rows=2000,
+                                  shuffle_transport="hybrid")),
+    "join": ("join", dict(WC)),
+    "sessionize": ("sessionize", dict(WC, session_gap=500)),
 }
 #: the jobs that read a text corpus and write a text result
 TEXT = ("wordcount", "bigram", "invertedindex", "distinct")
+#: the jobs that read (u64 key, u64 payload) records
+RECORDS = ("sort", "join", "sessionize")
+
+
+def _records(seed=2, n=6000, keys=700):
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.integers(0, keys, n, dtype=np.uint64),
+                     rng.integers(0, 1 << 40, n, dtype=np.uint64)], axis=1)
 
 
 def _run_pair(tmp, job):
@@ -131,6 +144,12 @@ def _run_pair(tmp, job):
     if workload in TEXT:
         inp = tmp / "corpus.txt"
         inp.write_bytes(_corpus())
+    elif workload in RECORDS:
+        inp = tmp / "recs.npy"
+        np.save(inp, _records())
+        right = tmp / "right.npy"
+        np.save(right, _records(seed=3, n=5000))
+        kw = dict(kw, join_input_path=str(right)) if job == "join" else kw
     else:
         inp = tmp / "pts.npy"
         np.save(inp, _points())
@@ -158,7 +177,7 @@ def _run_pair(tmp, job):
         out[pkg] = (r, json.loads(m_path.read_text()),
                     json.loads(t_path.read_text()))
     assert ((tmp / "port.out").read_bytes() == (tmp / "jax.out").read_bytes()
-            if workload in TEXT else True)
+            if workload in TEXT + RECORDS else True)
     return out
 
 
@@ -194,6 +213,13 @@ def test_key_sets_match_the_jax_package(pair):
     elif job == "distinct":
         assert {"registers_filled", "time/map+reduce_s",
                 "time/finalize_s", "feed_block_ms/count"} <= port
+    elif JOBS[job][0] in RECORDS:
+        assert {"shuffle/transport", "time/map+route_s", "time/merge_s",
+                "attrib/host_sort_ms", "feed_block_ms/count",
+                "pipeline/overlap_ratio", "records_in", "chunks"} <= port
+        assert ("time/sample_s" in port) == (job.startswith("sort"))
+        assert ({"demote/events", "spill/rows"} <= port) == (
+            job == "sort_demoted")
     else:
         assert {"records_per_sec", "time/split_s", "feed_block_ms/count",
                 "engine/flush_ms/p95", "engine/device_put_bytes",
@@ -212,7 +238,8 @@ def test_counts_and_data_audit_match_exactly(pair):
         "checkpoint/chunks_replayed", "dispatch/batch", "shuffle/transport",
         "pairs", "distinct_terms", "grouped_finalize", "registers_filled",
         "demote/events", "demote/rows", "spill/rows", "spill/buckets",
-        "spilled_pairs")]
+        "spilled_pairs", "rows_out", "join/matches", "join/left_rows",
+        "join/right_rows", "sessions/count")]
     assert exact
     assert {k: pm[k] for k in exact} == {k: jm[k] for k in exact}
     if job.startswith(("wordcount", "bigram")) and (
@@ -227,6 +254,10 @@ def test_counts_and_data_audit_match_exactly(pair):
         assert pm["data/conservation_checks"] == (
             2 if job == "invertedindex_demoted" else 1)
         assert runs["port"][1]["data"] == runs["jax"][1]["data"]
+    elif job == "sort_demoted":
+        # the spill's bucket balance is the only audit a sort reports
+        assert [k for k in pm if k.startswith("data/")] == [
+            "data/spill_bucket_imbalance"]
     else:
         assert not any(k.startswith("data/") for k in pm)
 
@@ -242,7 +273,9 @@ def test_trace_holds_the_phases_in_jax_order(pair):
         return [e["name"] for e in trace if e["name"].startswith("phase/")]
 
     assert phases(pt) == phases(jt)
-    assert phases(pt)[-1] == "phase/write"
+    # the sort writes its records inside the merge, as in the JAX package
+    assert phases(pt)[-1] == ("phase/merge" if job.startswith("sort")
+                              else "phase/write")
     assert pr.trace == pt  # the result carries the written events
     # the producer thread's spans land on a tid of their own
     prod = {e["tid"] for e in pt if e["name"].endswith("/produce")}
