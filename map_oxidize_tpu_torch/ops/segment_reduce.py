@@ -21,7 +21,8 @@ CUDA does not reach that far, so the port joins the planes into ONE int64
 Flipping the top bit makes signed int64 order equal unsigned 64-bit order,
 and the SENTINEL pair becomes ``int64`` max, so padding still sorts last.
 The host converts at the boundary (:func:`keys_from_planes`,
-:func:`planes_from_keys`); the device never sees a uint32 plane.
+:func:`planes_from_keys`); planes made on the device (the device mapper's
+rows, int32 bit patterns) join there (:func:`keys_from_plane_tensors`).
 """
 
 from __future__ import annotations
@@ -42,6 +43,14 @@ def keys_from_planes(hi, lo) -> np.ndarray:
     """(hi, lo) uint32 planes -> int64 order keys (host-side)."""
     k = (np.asarray(hi, np.uint64) << np.uint64(32)) | np.asarray(lo, np.uint64)
     return (k ^ _SIGN64).view(np.int64)
+
+
+def keys_from_plane_tensors(hi: torch.Tensor,
+                            lo: torch.Tensor) -> torch.Tensor:
+    """(hi, lo) planes as int32 (or int64) tensors holding u32 bit patterns
+    -> int64 order keys, on the planes' device."""
+    return (((hi.to(torch.int64) & 0xFFFFFFFF) << 32)
+            | (lo.to(torch.int64) & 0xFFFFFFFF)) ^ _SIGN_I64
 
 
 def planes_from_keys(keys) -> tuple[np.ndarray, np.ndarray]:

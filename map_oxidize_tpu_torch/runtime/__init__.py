@@ -14,12 +14,13 @@ _log = get_logger(__name__)
 
 def resolve_mapper(config: JobConfig, workload: str) -> str:
     """'auto' -> 'native', the C++ host loop, as in the JAX package
-    (``runtime/__init__.py:16-34``).  Where the JAX package would run its
-    device mapper — wordcount and bigram with the ascii tokenizer — the
-    port raises: that mapper is not ported yet, and nothing silently runs
-    another path.  Every other ``mapper='device'`` resolves to 'native'
-    with the JAX package's log line, as there.  A failed native build
-    raises (pass 'python' for the Python map)."""
+    (``runtime/__init__.py:16-34``).  ``mapper='device'`` runs the device
+    mapper for wordcount and bigram with the ascii tokenizer; every other
+    ``mapper='device'`` resolves to 'native' with the JAX package's log
+    line.  The device mapper stays opt-in: the JAX package's reason (a
+    measured TPU link) is not this card's, and the port measures its own
+    (``chip_smoke.py`` phase 11).  A failed native build raises (pass
+    'python' for the Python map)."""
     mode = config.mapper
     if mode == "auto":
         mode = "native"
@@ -31,10 +32,6 @@ def resolve_mapper(config: JobConfig, workload: str) -> str:
         _log.info("device mapper is ascii-only; using native for %r",
                   config.tokenizer)
         mode = "native"
-    if mode == "device":
-        raise NotImplementedError(
-            "the device mapper is not ported yet (ROADMAP A6: device "
-            "mapper); use mapper='auto', 'native' or 'python'")
     return mode
 
 
@@ -86,11 +83,18 @@ def _run_job(config: JobConfig, workload: str, on_obs=None):
                   "sessionize": run_sessionize_job}[workload]
         return runner(config, on_obs=on_obs)
     if workload not in ("wordcount", "bigram"):
-        raise NotImplementedError(
-            f"workload {workload!r} is not ported yet (ROADMAP queue A)")
+        raise ValueError(f"unknown workload {workload!r}")
+    mode = resolve_mapper(config, workload)
+    if mode == "device":
+        from map_oxidize_tpu_torch.runtime.device_map import (
+            run_device_wordcount_job,
+        )
+
+        return run_device_wordcount_job(
+            config, 2 if workload == "bigram" else 1, on_obs=on_obs)
     from map_oxidize_tpu_torch.runtime.driver import run_wordcount_job
 
-    use_native = resolve_mapper(config, workload) == "native"
+    use_native = mode == "native"
     if workload == "wordcount":
         from map_oxidize_tpu_torch.workloads.wordcount import make_wordcount
 

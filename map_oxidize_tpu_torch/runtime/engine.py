@@ -46,6 +46,7 @@ from map_oxidize_tpu_torch.ops.hashing import SENTINEL
 from map_oxidize_tpu_torch.ops.segment_reduce import (
     SENTINEL_KEY,
     _identity,
+    keys_from_plane_tensors,
     keys_from_planes,
     make_accumulator,
     merge_batch_into_accumulator,
@@ -206,6 +207,12 @@ class StreamingEngineBase(abc.ABC):
         host dictionary's size): rules out over-growth and growth syncs."""
         self._total_hint = n
 
+    def hint_live_upper_bound(self, ub: int) -> None:
+        """Tighten the host-side live-key bound from external exact
+        knowledge (e.g. the device mapper's dictionary size), avoiding
+        growth syncs (JAX ``runtime/engine.py:251``)."""
+        self._n_live_ub = min(self._n_live_ub, ub)
+
     def _ensure_capacity(self, incoming: int) -> None:
         if self.capacity >= self.max_capacity:
             return
@@ -341,6 +348,24 @@ class DeviceReduceEngine(StreamingEngineBase):
             merge_into_accumulator(self._keys, self._vals, self._ovf,
                                    self._to_device(keys),
                                    self._to_device(vals), self.combine))
+        self._n_live_ub += incoming
+
+    def feed_device(self, hi: torch.Tensor, lo: torch.Tensor,
+                    vals: torch.Tensor, count_rows: bool = True) -> None:
+        """Merge a batch already on the device (JAX ``runtime/engine.py:
+        512``): the device mapper's per-chunk unique rows, ``hi``/``lo`` as
+        int32 u32 bit patterns (SENTINEL pairs are padding), no host
+        staging, padding or copy."""
+        self._drain()  # merge order = feed order
+        incoming = hi.shape[0]
+        self._ensure_capacity(incoming)
+        if count_rows:
+            self.rows_fed += incoming
+        self._keys, self._vals, self._n_unique, self._ovf = (
+            merge_into_accumulator(
+                self._keys, self._vals, self._ovf,
+                keys_from_plane_tensors(hi, lo),
+                vals.to(self._vals.dtype), self.combine))
         self._n_live_ub += incoming
 
     def _drain(self) -> None:

@@ -55,7 +55,9 @@ def test_importing_the_port_loads_no_jax():
             "map_oxidize_tpu_torch.runtime.dataflow, "
             "map_oxidize_tpu_torch.workloads.sort, "
             "map_oxidize_tpu_torch.workloads.join, "
-            "map_oxidize_tpu_torch.workloads.sessionize\n"
+            "map_oxidize_tpu_torch.workloads.sessionize, "
+            "map_oxidize_tpu_torch.runtime.device_map, "
+            "map_oxidize_tpu_torch.ops.device_tokenize\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
@@ -121,6 +123,7 @@ def test_sharded_runs_raise_naming_the_roadmap_item(tmp_path, workload,
     recs = tmp_path / "r.npy"
     np.save(recs, np.array([[3, 1], [1, 2]], np.uint64))
     runs = [(wl, inp, {}) for wl in (workload, "invertedindex", "distinct")]
+    runs.append((workload, inp, {"mapper": "device"}))
     runs += [("sort", recs, {}), ("join", recs, {"join_input_path":
                                                  str(recs)}),
              ("sessionize", recs, {})]
@@ -131,14 +134,21 @@ def test_sharded_runs_raise_naming_the_roadmap_item(tmp_path, workload,
                     wl)
 
 
-@pytest.mark.parametrize("mapper", ["device"])
-def test_unported_mapper_raises_instead_of_swapping(tmp_path, mapper):
+@pytest.mark.parametrize("workload", ["wordcount", "bigram"])
+def test_device_mapper_runs_on_the_cpu_and_demands_the_card(
+        monkeypatch, tmp_path, workload):
+    """``mapper='device'`` runs the device mapper on ``backend='cpu'`` (the
+    plain tokenizer) and raises without a card on ``backend='cuda'``."""
     inp = tmp_path / "c.txt"
-    inp.write_bytes(b"a b a\n")
-    for workload in ("wordcount", "bigram"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            run_job(JobConfig(input_path=str(inp), output_path="",
-                              backend="cpu", mapper=mapper), workload)
+    inp.write_bytes(b"a b a\nb c a\n")
+    r = run_job(JobConfig(input_path=str(inp), output_path="",
+                          backend="cpu", mapper="device"), workload)
+    assert r.metrics["accumulator_device"] == "cpu"
+    assert "device_rows_fed" not in r.metrics  # the device driver ran
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_job(JobConfig(input_path=str(inp), output_path="",
+                          mapper="device"), workload)
 
 
 @pytest.mark.parametrize("mapper", ["auto", "native"])

@@ -1,9 +1,9 @@
 """The port's observability bundle against the JAX package's: the same
-seeded jobs through both packages (word count with the native and the
-Python map, word count resumed from a checkpoint, k-means in its
+seeded jobs through both packages (word count with the native, the Python
+and the device map, word count resumed from a checkpoint, k-means in its
 ``device``, ``stream_device`` and ``stream`` modes, bigram through the
-collect reduce, the inverted index and distinct) report the same metric
-keys, the same exact counts and data-plane audit, the same phases in the
+collect reduce, the inverted index, distinct, and sort, join and
+sessionize) report the same metric keys, the same exact counts and data-plane audit, the same phases in the
 trace and the same metrics-document sections, apart from the surfaces the
 port has not ported yet (``ALLOWLIST``) and the port's own keys
 (``PORT_OWN``).  Unit cases hold ``MetricsRegistry``, ``Tracer``,
@@ -109,6 +109,8 @@ JOBS = {
     "wordcount_resumed": ("wordcount", dict(WC, mapper="native")),
     "wordcount_no_audit": ("wordcount", dict(WC, mapper="native",
                                              data_audit=False)),
+    "wordcount_device": ("wordcount", dict(WC, mapper="device",
+                                           device_chunk_keys=4096)),
     "kmeans_device": ("kmeans", dict(KM, mapper="device")),
     "kmeans_stream_device": ("kmeans", dict(KM, kmeans_device_fit_bytes=64,
                                             dispatch_batch=2)),
@@ -213,6 +215,12 @@ def test_key_sets_match_the_jax_package(pair):
     elif job == "distinct":
         assert {"registers_filled", "time/map+reduce_s",
                 "time/finalize_s", "feed_block_ms/count"} <= port
+    elif job == "wordcount_device":
+        assert {"time/map+reduce_s", "time/finalize_s", "time/write_s",
+                "device/compute_ms/count", "records_in", "chunks",
+                "distinct_keys", "accumulator_device"} <= port
+        assert "records_per_sec" in port
+        assert not {"feed_block_ms/count", "device_rows_fed"} & port
     elif JOBS[job][0] in RECORDS:
         assert {"shuffle/transport", "time/map+route_s", "time/merge_s",
                 "attrib/host_sort_ms", "feed_block_ms/count",
@@ -242,8 +250,8 @@ def test_counts_and_data_audit_match_exactly(pair):
         "join/right_rows", "sessions/count")]
     assert exact
     assert {k: pm[k] for k in exact} == {k: jm[k] for k in exact}
-    if job.startswith(("wordcount", "bigram")) and (
-            job != "wordcount_no_audit"):
+    if job.startswith(("wordcount", "bigram")) and job not in (
+            "wordcount_no_audit", "wordcount_device"):
         assert pm["data/conservation_violations"] == 0
         assert pm["data/conservation_checks"] == 3
         assert runs["port"][1]["data"] == runs["jax"][1]["data"]
@@ -280,7 +288,7 @@ def test_trace_holds_the_phases_in_jax_order(pair):
     # the producer thread's spans land on a tid of their own
     prod = {e["tid"] for e in pt if e["name"].endswith("/produce")}
     driver = {e["tid"] for e in pt if e["name"].startswith("phase/")}
-    if job != "kmeans_device":
+    if job not in ("kmeans_device", "wordcount_device"):
         assert prod and len(driver) == 1 and not prod & driver
 
 
