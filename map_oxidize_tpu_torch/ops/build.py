@@ -22,7 +22,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: every kernel source of the port
-KERNELS = ("kmeans_assign_sum",)
+KERNELS = ("kmeans_assign_sum", "tokenize_compact")
 
 #: libraries loaded in this process, by kernel name
 _loaded: dict[str, ctypes.CDLL] = {}
