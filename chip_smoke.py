@@ -10,16 +10,23 @@ toolkit (``nvcc``):
 Phases (any failure exits non-zero, before the result line):
 
 1. card      the card's name and power limit (``nvidia-smi``);
-2. build     every kernel of the port from the checkout's sources, one
+2. build     every kernel of the port (``kmeans_assign_sum``,
+             ``tokenize_compact``) from the checkout's sources, one
              ``nvcc`` each, all started together, and beside them the
              native C++ host map library with ``g++``; each kernel's
              registers and spills (``-Xptxas -v``) and its HMMA
              (tensor-core) instruction count (``cuobjdump -sass``);
-3. kernels   each kernel against its plain version on the card at the
-             k-means path's shapes, with times (CUDA events), the plain
-             version's and one PyTorch library call's time, the bound, and
-             the launch plan (blocks per SM, shared bytes, resident
-             centroids, partial in shared memory);
+3. kernels   each kernel against its plain version on the card: the
+             k-means kernel at the k-means path's shapes, with times (CUDA
+             events), the plain version's and one PyTorch library call's
+             time, the bound, and the launch plan (blocks per SM, shared
+             bytes, resident centroids, partial in shared memory); the
+             tokenizer bit-equal on six 32 MiB chunks (a chunk of phase
+             5's corpus, all spaces, one token filling it, a token at
+             byte 0, tokens straddling every tile edge, a chunk ending
+             inside a token), with its time, the plain version's, a
+             ``torch.cumsum`` over one int64 plane of the chunk as the
+             yardstick, and the bound;
 4. kmeans    ``run_job("kmeans")`` on seeded blobs (n=2^22, d=64, k=256,
              10 iterations) in both precisions, launch counts reset just
              before and read just after; each fit's ``attrib/*`` buckets and
@@ -90,11 +97,33 @@ Phases (any failure exits non-zero, before the result line):
              byte-identical, and on a 16 MB prefix equal to
              ``inverted_index_model``; distinct on the whole corpus beside
              phase 5's exact distinct count, and the native and Python
-             maps' registers equal on a 4 MB prefix; the inverted index
-             killed after 3 chunks and resumed to the same bytes.  Words/s,
+             maps' registers equal on a 4 MB prefix; the inverted index of
+             the 16 MB prefix (4 chunks) killed after 3 and resumed to the
+             same bytes.  Words/s,
              ``attrib/*``, phases, ``demote/*`` and the phase's wall are
              printed; no hand kernel is on this route (its launch count
-             stays 0).
+             stays 0);
+10. dataflow sort of 2^25 seeded (key, payload) records (512 MiB) with
+             the host sort, the card sort and a forced demotion to disk
+             buckets (``collect_max_rows`` at a third of the rows,
+             ``hybrid``), the three outputs byte-identical and equal to
+             ``sort_model``; join of 2^23 x 2^23 rows over 2^23 keys with
+             both sorts, equal to ``join_model``; sessionize of 2^24 events
+             over 2^20 keys (gap 3600) with the card sort, equal to
+             ``sessionize_model``.  For each run rows/s over the job, its
+             phases, ``attrib/*`` (``host_sort`` among them) and the card
+             sort's own time (CUDA events);
+11. devmap   ``run_job("wordcount")`` with ``mapper='device'`` on phase 5's
+             corpus, launch counts reset just before and read just after
+             (one ``tokenize_compact`` launch per chunk), its
+             ``final_result.txt`` byte-identical to phase 5's native run,
+             words/s, ``attrib/*`` and a ``torch.profiler`` window over a
+             3-chunk prefix (device busy share, the host-to-device copies'
+             GB/s); bigram with ``mapper='device'`` on phase 9's 32 MB
+             prefix as one chunk (``device_chunk_keys`` reckoned from phase
+             9's distinct bigrams), byte-identical to the native bigram at
+             the same chunking; a device-map word count in 8 MiB chunks
+             killed past its first snapshot and resumed, byte-identical.
 
 Then one JSON line with every kernel, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Inputs are made from fixed
@@ -138,6 +167,14 @@ BIGRAM_CHUNK = 8 << 20
 II_MODEL_BYTES = 16 << 20  # the prefix held to inverted_index_model
 DISTINCT_PY_BYTES = 4 << 20  # the prefix the Python HLL map takes
 II_KILL_AFTER = 3
+TOKENIZE_TILE = 4096      # bytes per block of the tokenize kernel
+SORT_N = 1 << 25          # phase 10: records of the sort (512 MiB)
+JOIN_N, JOIN_KEYS = 1 << 23, 1 << 23
+SESS_N, SESS_KEYS, SESS_GAP = 1 << 24, 1 << 20, 3600
+SESS_SPAN = 86400         # timestamps over one day: ~16 events per key
+DEVMAP_SNAP_CHUNK = 8 << 20  # phase 11's killed run: 32 chunks, snapshots
+DEVMAP_KILL_AFTER = 17       # at 16 and 32; the kill is past the first
+DEVMAP_PROFILE_CHUNKS = 3
 
 
 def log(msg: str) -> None:
@@ -221,7 +258,10 @@ def variant(mangled: str) -> str:
                       ("prep_centroidsIf", "prep_centroids f32"),
                       ("prep_centroidsI13__nv_bfloat16",
                        "prep_centroids bf16"),
-                      ("sum_partials", "sum_partials")):
+                      ("sum_partials", "sum_partials"),
+                      ("tile_reduce", "tokenize_compact tile_reduce"),
+                      ("tile_scan", "tokenize_compact tile_scan"),
+                      ("tile_scatter", "tokenize_compact tile_scatter")):
         if tag in mangled:
             return name
     return mangled
@@ -413,6 +453,84 @@ def phase_kernels() -> list[dict]:
                     f"max|dsum| {r['max_abs_err']:.3g}; {r['plan']}")
                 torch.cuda.empty_cache()
     return configs
+
+
+def tokenize_chunks(path: str) -> list[tuple[str, np.ndarray]]:
+    """The six padded ``CHUNK_BYTES`` chunks phase 3 holds the tokenizer
+    to its plain version on."""
+    from map_oxidize_tpu_torch.io.splitter import iter_chunks_capped
+    from map_oxidize_tpu_torch.ops.device_tokenize import pad_chunk
+
+    n = CHUNK_BYTES
+    corpus = pad_chunk(bytes(next(iter_chunks_capped(path, n))), n).copy()
+    head = np.full(n, 32, np.uint8)
+    head[0] = ord("A")
+    edges = np.full(n, 32, np.uint8)
+    for e in range(TOKENIZE_TILE, n, TOKENIZE_TILE):
+        edges[e - 3:e + 2] = np.frombuffer(b"TiLeX", np.uint8)
+    for e in range(16, n, 16 * 37):  # thread edges, every 37th
+        edges[e - 1:e + 1] = np.frombuffer(b"zq", np.uint8)
+    ends_inside = corpus.copy()
+    ends_inside[-9:] = np.frombuffer(b"unfinishe", np.uint8)
+    return [("corpus", corpus), ("all spaces", np.full(n, 32, np.uint8)),
+            ("one token", np.full(n, ord("w"), np.uint8)),
+            ("token at byte 0", head), ("tile edges", edges),
+            ("ends inside a token", ends_inside)]
+
+
+def phase_tokenize_kernel(path: str) -> dict:
+    """``tokenize_compact`` against ``tokenize_compact_plain`` on the card,
+    bit-equal on every chunk of :func:`tokenize_chunks`; on the corpus
+    chunk the kernel's time, the plain version's, the ``torch.cumsum``
+    yardstick and the bound."""
+    import torch
+
+    from map_oxidize_tpu_torch.ops.device_tokenize import (
+        tokenize_compact,
+        tokenize_compact_plain,
+    )
+
+    n = CHUNK_BYTES
+    max_tokens = n // 2 + 1
+    out = {"n": n, "max_tokens": max_tokens, "checked": []}
+    for name, arr in tokenize_chunks(path):
+        chunk = torch.from_numpy(arr).cuda()
+        got = tokenize_compact(chunk, max_tokens)
+        want = tokenize_compact_plain(chunk, max_tokens)
+        torch.cuda.synchronize()
+        err = max(float((g.long() - w.long()).abs().max())
+                  for g, w in zip(got, want))
+        if err or not all(g.dtype == w.dtype and torch.equal(g, w)
+                          for g, w in zip(got, want)):
+            raise AssertionError(f"tokenize_compact != plain on {name!r}")
+        out["checked"].append((name, int(got[3])))
+        log(f"tokenize_compact {name}: {int(got[3])} tokens, bit-equal to "
+            "the plain version")
+        if name == "corpus":
+            out["max_abs_err"] = err
+            out["ms"] = time_ms(lambda: tokenize_compact(chunk, max_tokens),
+                                reps=20)
+            out["plain_ms"] = time_ms(
+                lambda: tokenize_compact_plain(chunk, max_tokens), reps=3,
+                warmup=1)
+            plane = chunk.to(torch.int64)
+            out["yardstick_ms"] = time_ms(lambda: torch.cumsum(plane, 0),
+                                          reps=5, warmup=1)
+            del plane
+        del chunk, got, want
+        torch.cuda.empty_cache()
+    # the chunk read once, the padded rows and the count written once
+    nbytes = n + 12 * max_tokens + 4
+    out["bound_ms"] = nbytes / PEAK_BYTES * 1e3
+    out["bound_by"] = "bytes"
+    out["yardstick"] = ("torch.cumsum over one int64 plane of the chunk "
+                        "(a yardstick: no PyTorch call tokenizes)")
+    log(f"tokenize_compact {n >> 20} MiB: kernel {out['ms']:.3f} ms, plain "
+        f"{out['plain_ms']:.3f} ms, torch.cumsum yardstick "
+        f"{out['yardstick_ms']:.3f} ms, bound {out['bound_ms']:.3f} ms "
+        f"({nbytes} bytes; {out['bound_ms'] / out['ms']:.1%} of it "
+        "reached)")
+    return out
 
 
 # --- phase 4 ----------------------------------------------------------------
@@ -637,14 +755,9 @@ def wordcount_obs_line(name: str, m: dict) -> str:
             f"{m.get('pipeline/overlap_ratio')}")
 
 
-def phase_wordcount(tmp: str, backend: str, nbytes: int, vocab: int,
-                    wrappers) -> dict:
-    """The corpus through ``mapper='auto'`` (which must resolve to the
-    native C++ mapper) and ``mapper='python'``: each against the Counter
-    oracle and its top-10, the two outputs byte-identical."""
-    from map_oxidize_tpu_torch.config import JobConfig
-    from map_oxidize_tpu_torch.runtime import resolve_mapper, run_job
-
+def write_corpus(tmp: str, nbytes: int, vocab: int) -> str:
+    """Phase 5's corpus in the temporary directory (phase 3's tokenizer
+    check takes its first chunk)."""
     t0 = time.perf_counter()
     data = make_corpus(nbytes, vocab, SEED + 2)
     path = os.path.join(tmp, "corpus.txt")
@@ -652,7 +765,18 @@ def phase_wordcount(tmp: str, backend: str, nbytes: int, vocab: int,
         f.write(data)
     log(f"corpus: {len(data)} bytes ({time.perf_counter() - t0:.1f} s to "
         "make)")
+    return path
+
+
+def phase_wordcount(tmp: str, backend: str, path: str, wrappers) -> dict:
+    """The corpus through ``mapper='auto'`` (which must resolve to the
+    native C++ mapper) and ``mapper='python'``: each against the Counter
+    oracle and its top-10, the two outputs byte-identical."""
+    from map_oxidize_tpu_torch.config import JobConfig
+    from map_oxidize_tpu_torch.runtime import resolve_mapper, run_job
+
     t0 = time.perf_counter()
+    data = read(path)
     oracle = collections.Counter(data.lower().split())
     want_top = sorted(oracle.items(), key=lambda kv: (-kv[1], kv[0]))[:10]
     del data
@@ -1528,13 +1652,13 @@ def phase_collect(tmp: str, backend: str, wc: dict, wrappers) -> dict:
         f"({len(base)} bytes)")
     ipath = prefix_file(path, os.path.join(tmp, "ii_prefix.txt"),
                         II_MODEL_BYTES)
-    o = os.path.join(tmp, "postings_prefix.txt")
-    run_job(JobConfig(input_path=ipath, output_path=o, backend=backend,
-                      chunk_bytes=CHUNK_BYTES // 8, metrics=False),
-            "invertedindex")
+    prefix_out = os.path.join(tmp, "postings_prefix.txt")
+    run_job(JobConfig(input_path=ipath, output_path=prefix_out,
+                      backend=backend, chunk_bytes=CHUNK_BYTES // 8,
+                      metrics=False), "invertedindex")
     mo = os.path.join(tmp, "postings_model.txt")
     write_postings(mo, inverted_index_model(ipath))
-    if read(o) != read(mo):
+    if read(prefix_out) != read(mo):
         raise AssertionError("invertedindex differs from "
                              "inverted_index_model on the prefix")
     log(f"invertedindex on a {II_MODEL_BYTES >> 20} MB prefix matches "
@@ -1570,12 +1694,12 @@ def phase_collect(tmp: str, backend: str, wc: dict, wrappers) -> dict:
         f"{DISTINCT_PY_BYTES >> 20} MB prefix (exact there "
         f"{distinct_model([read(dpath)])})")
 
-    # resume: the host-sort inverted index killed after II_KILL_AFTER
-    # chunks, resumed to the host run's bytes
+    # resume: the host-sort inverted index of the prefix (4 chunks) killed
+    # after II_KILL_AFTER chunks, resumed to the uninterrupted run's bytes
     ck = os.path.join(tmp, "ii_checkpoint")
     o = os.path.join(tmp, "postings_resumed.txt")
-    cfg = JobConfig(input_path=path, output_path=o, backend=backend,
-                    chunk_bytes=CHUNK_BYTES, checkpoint_dir=ck,
+    cfg = JobConfig(input_path=ipath, output_path=o, backend=backend,
+                    chunk_bytes=CHUNK_BYTES // 8, checkpoint_dir=ck,
                     metrics=False)
     real_pipelined = driver_mod.pipelined
 
@@ -1603,11 +1727,12 @@ def phase_collect(tmp: str, backend: str, wc: dict, wrappers) -> dict:
     if m.get("checkpoint/chunks_replayed") != II_KILL_AFTER:
         raise AssertionError("the resumed inverted index replayed "
                              f"{m.get('checkpoint/chunks_replayed')}")
-    if read(o) != base or os.path.exists(ck):
+    if read(o) != read(prefix_out) or os.path.exists(ck):
         raise AssertionError("the resumed inverted index differs from the "
                              "uninterrupted run")
     log(collect_line("invertedindex resumed", m) + "; byte-identical to the "
-        f"host run, {II_KILL_AFTER} chunks replayed")
+        f"uninterrupted run of the {II_MODEL_BYTES >> 20} MB prefix, "
+        f"{II_KILL_AFTER} chunks replayed")
     launches = {w.__name__: w.launches for w in wrappers}
     if any(launches.values()):
         raise AssertionError(f"phase 9 launched {launches}: no hand kernel "
@@ -1619,12 +1744,353 @@ def phase_collect(tmp: str, backend: str, wc: dict, wrappers) -> dict:
     return out
 
 
+# --- phase 10 ---------------------------------------------------------------
+
+def save_records(path: str, keys: np.ndarray, payloads: np.ndarray) -> str:
+    """(u64 key, u64 payload) records as an ``(n, 2)`` ``.npy``."""
+    out = np.lib.format.open_memmap(path, mode="w+", dtype=np.uint64,
+                                    shape=(keys.shape[0], 2))
+    out[:, 0] = keys
+    out[:, 1] = payloads
+    out.flush()
+    del out
+    return path
+
+
+def dataflow_oracle(workload: str, out: str, paths: list,
+                    gap: int = 0) -> str:
+    """Writes the NumPy oracle's output of ``workload`` on the record files
+    ``paths`` to ``out``, in the job's own format; runs in a worker
+    process beside the jobs, so the pure-Python oracles cost no wall."""
+    from map_oxidize_tpu_torch.workloads import join, sessionize, sort
+
+    cols = []
+    for path in paths:
+        rec = np.load(path)
+        cols += [rec[:, 0], rec[:, 1]]
+    if workload == "sort":
+        sort.write_sorted_records(out, [sort.sort_model(*cols)])
+    elif workload == "join":
+        join.write_join_records(out, *join.join_model(*cols))
+    else:
+        sessionize.write_sessions(out, *sessionize.sessionize_model(*cols,
+                                                                    gap))
+    return out
+
+
+def dataflow_line(name: str, m: dict, sort_ms) -> str:
+    """One dataflow job's rows, rate, phases, attribution and card sort."""
+    phases = ", ".join(f"{k[5:-2]} {v:.2f} s" for k, v in m.items()
+                       if k.startswith("time/") and k.endswith("_s"))
+    spill = {k: v for k, v in m.items() if k.startswith(("demote/",
+                                                         "spill/"))}
+    card = (f"card sort {sort_ms:.3f} ms (CUDA events)"
+            if sort_ms is not None else "host sort")
+    return (f"{name}: {m['records_in']} rows, job {job_s(m):.2f} s, "
+            f"{m['records_in'] / job_s(m):.0f} rows/s over the job; "
+            f"{phases}; {card}; {spill or 'no spill'}; {attrib_line(m)}")
+
+
+def phase_dataflow(tmp: str, backend: str, wrappers) -> dict:
+    """Sort, join and sessionize on seeded records (module docstring,
+    phase 10), each held to its NumPy oracle, the placements
+    byte-identical.  The oracles run in worker processes while the jobs
+    run."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    import map_oxidize_tpu_torch.runtime.collect as collect_mod
+    from map_oxidize_tpu_torch.config import JobConfig
+    from map_oxidize_tpu_torch.runtime import run_job
+    from map_oxidize_tpu_torch.workloads.sort import RESERVED_KEY
+
+    t_phase = time.perf_counter()
+    for w in wrappers:
+        w.launches = 0
+    rng = np.random.default_rng(SEED + 10)
+    real_sort = collect_mod.sort_pairs
+    sorts: list = []
+
+    def timed_sort(stacked):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        res = real_sort(stacked)
+        ev[1].record()
+        sorts.append((ev, int(stacked.shape[1])))
+        return res
+
+    def run(workload, name, **kw):
+        o = os.path.join(tmp, f"{workload}_{name}.out")
+        sorts.clear()
+        collect_mod.sort_pairs = timed_sort
+        try:
+            r = run_job(JobConfig(output_path=o, backend=backend,
+                                  metrics=False, **kw), workload)
+        finally:
+            collect_mod.sort_pairs = real_sort
+        torch.cuda.synchronize()
+        sort_ms = (sorts[0][0][0].elapsed_time(sorts[0][0][1])
+                   if sorts else None)
+        if (kw.get("collect_sort") == "device") != bool(sorts):
+            raise AssertionError(f"{workload} {name}: card sorts {sorts}")
+        m = r.metrics
+        log(dataflow_line(f"{workload} {name}", m, sort_ms)
+            + (f"; {sorts[0][1]} padded pairs" if sorts else ""))
+        return {"metrics": m, "out": o, "sort_ms": sort_ms}
+
+    # the record files: a sort input with a run of equal keys (the payload
+    # order counts), two join sides, one day of session events
+    t0 = time.perf_counter()
+    keys = rng.integers(0, 1 << 64, SORT_N, dtype=np.uint64)
+    keys[keys == RESERVED_KEY] -= np.uint64(1)
+    keys[:1 << 16] = keys[0]
+    recs = {"sort": save_records(
+        os.path.join(tmp, "sort.npy"), keys,
+        rng.integers(0, 1 << 64, SORT_N, dtype=np.uint64))}
+    del keys
+    for side in ("a", "b"):
+        recs[side] = save_records(
+            os.path.join(tmp, f"{side}.npy"),
+            rng.integers(0, JOIN_KEYS, JOIN_N, dtype=np.uint64),
+            rng.integers(0, 1 << 63, JOIN_N, dtype=np.uint64))
+    recs["events"] = save_records(
+        os.path.join(tmp, "events.npy"),
+        rng.integers(0, SESS_KEYS, SESS_N, dtype=np.uint64),
+        rng.integers(0, SESS_SPAN, SESS_N, dtype=np.uint64))
+    log(f"records: sort {SORT_N}, join 2 x {JOIN_N}, sessionize {SESS_N} "
+        f"rows ({time.perf_counter() - t0:.1f} s to make)")
+    models = {w: os.path.join(tmp, f"{w}_model.out")
+              for w in ("sort", "join", "sessionize")}
+    out: dict = {"sort": {}, "join": {}, "sessionize": {}}
+    with ProcessPoolExecutor(
+            3, mp_context=multiprocessing.get_context("spawn")) as pool:
+        oracles = {
+            "sort": pool.submit(dataflow_oracle, "sort", models["sort"],
+                                [recs["sort"]]),
+            "join": pool.submit(dataflow_oracle, "join", models["join"],
+                                [recs["a"], recs["b"]]),
+            "sessionize": pool.submit(
+                dataflow_oracle, "sessionize", models["sessionize"],
+                [recs["events"]], SESS_GAP)}
+        # sort: host, card and a forced demotion
+        for name, kw in (("host", {}),
+                         ("device", {"collect_sort": "device"}),
+                         ("demoted", {"collect_max_rows": SORT_N // 3,
+                                      "shuffle_transport": "hybrid"})):
+            out["sort"][name] = run("sort", name, input_path=recs["sort"],
+                                    chunk_bytes=CHUNK_BYTES, **kw)
+        if "demote/events" not in out["sort"]["demoted"]["metrics"]:
+            raise AssertionError("the forced sort demotion did not demote")
+        # join: both sorts
+        for name, kw in (("host", {}),
+                         ("device", {"collect_sort": "device"})):
+            out["join"][name] = run("join", name, input_path=recs["a"],
+                                    join_input_path=recs["b"],
+                                    chunk_bytes=CHUNK_BYTES, **kw)
+        # sessionize: the card sort
+        out["sessionize"]["device"] = run(
+            "sessionize", "device", input_path=recs["events"],
+            chunk_bytes=CHUNK_BYTES, session_gap=SESS_GAP,
+            collect_sort="device")
+        t0 = time.perf_counter()
+        for w in models:
+            oracles[w].result()
+    log(f"oracles done {time.perf_counter() - t0:.1f} s after the last job")
+    for w, runs in out.items():
+        want = read(models[w])
+        for name, run_out in runs.items():
+            if read(run_out["out"]) != want:
+                raise AssertionError(f"{w} {name} differs from its oracle")
+    log(f"sort host, card and demoted, join host and card "
+        f"({out['join']['host']['metrics']['join/matches']} matches) and "
+        f"sessionize on the card "
+        f"({out['sessionize']['device']['metrics']['sessions/count']} "
+        "sessions) byte-identical to sort_model, join_model and "
+        "sessionize_model")
+    launches = {w.__name__: w.launches for w in wrappers}
+    if any(launches.values()):
+        raise AssertionError(f"phase 10 launched {launches}: no hand kernel "
+                             "is on the dataflow route")
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 10 (dataflow) wall {out['wall_s']:.1f} s; launches "
+        f"{launches}")
+    return out
+
+
+# --- phase 11 ---------------------------------------------------------------
+
+def profile_device_map(path: str, backend: str) -> dict:
+    """A device-map word count over a ``DEVMAP_PROFILE_CHUNKS``-chunk prefix
+    under ``torch.profiler``: the device's busy share of the host window,
+    the kernel's and the copies' shares, and the host-to-device GB/s of
+    the chunk copies while they copy."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from map_oxidize_tpu_torch.config import JobConfig
+    from map_oxidize_tpu_torch.runtime import run_job
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        r = run_job(JobConfig(input_path=path, output_path="",
+                              backend=backend, mapper="device",
+                              chunk_bytes=CHUNK_BYTES, metrics=False),
+                    "wordcount")
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    ev, busy, copy = device_intervals(prof)
+    if not ev:
+        return {"note": "the profiler recorded no device events: not "
+                        "measured"}
+    kernel = sum(b - a for a, b, name in ev if "tokenize_compact" in name)
+    chunks = r.metrics["chunks"]
+    big = sorted((b - a for a, b, name in ev if "Memcpy HtoD" in name),
+                 reverse=True)[:chunks]
+    ops = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+           if str(e.device_type).endswith("CUDA")
+           and e.self_device_time_total > 0]
+    ops.sort(key=lambda kv: -kv[1])
+    return {"chunks": chunks, "wall_ms": wall_us / 1e3,
+            "busy_share": busy / wall_us, "kernel_share": kernel / wall_us,
+            "copy_share": copy / wall_us,
+            "h2d_gb_s": chunks * CHUNK_BYTES / (sum(big) * 1e-6) / 1e9,
+            "top": [(name[:48], round(t / 1e3, 3)) for name, t in ops[:6]]}
+
+
+def phase_device_map(tmp: str, backend: str, wc: dict, collect: dict,
+                     wrappers) -> dict:
+    """The device mapper (module docstring, phase 11): word count on phase
+    5's corpus, bigram on phase 9's prefix, a killed and resumed word
+    count."""
+    import map_oxidize_tpu_torch.runtime.device_map as dm
+    from map_oxidize_tpu_torch.config import JobConfig
+    from map_oxidize_tpu_torch.ops.device_tokenize import tokenize_compact
+    from map_oxidize_tpu_torch.runtime import run_job
+
+    t_phase = time.perf_counter()
+    path = wc["path"]
+    native = wc["runs"]["native"]
+    out: dict = {}
+
+    # the counted run: word count on phase 5's corpus
+    o = os.path.join(tmp, "final_result_device.txt")
+    for w in wrappers:
+        w.launches = 0
+    r = run_job(JobConfig(input_path=path, output_path=o, backend=backend,
+                          mapper="device", chunk_bytes=CHUNK_BYTES,
+                          metrics=False), "wordcount")
+    launches = {w.__name__: w.launches for w in wrappers}
+    m = r.metrics
+    log(collect_line("wordcount mapper=device", m)
+        + f"; {m['distinct_keys']} distinct, {m['chunks']} chunks, "
+        f"records_per_sec {m['records_per_sec']}, accumulator on "
+        f"{m['accumulator_device']}; launches {launches}")
+    if launches["tokenize_compact"] != m["chunks"]:
+        raise AssertionError(f"tokenize_compact launched "
+                             f"{launches['tokenize_compact']} times for "
+                             f"{m['chunks']} chunks")
+    if launches["fused_assign_sum"]:
+        raise AssertionError("the device map launched the k-means kernel")
+    if read(o) != read(native["out"]):
+        raise AssertionError("device-map final_result.txt differs from "
+                             "phase 5's native run")
+    nm = native["metrics"]
+    log(f"device-map word count byte-identical to phase 5's native run: "
+        f"{m['records_in'] / job_s(m):.0f} words/s over the job against "
+        f"native {nm['records_in'] / job_s(nm):.0f} (map+reduce "
+        f"{m['time/map+reduce_s']:.2f} s against "
+        f"{nm['time/map+reduce_s']:.2f} s)")
+    out["wordcount"] = {"metrics": m, "launches": launches}
+    prof_path = prefix_file(path, os.path.join(tmp, "devmap_prefix.txt"),
+                            DEVMAP_PROFILE_CHUNKS * CHUNK_BYTES)
+    out["profile"] = profile_device_map(prof_path, backend)
+    log(f"device-map profile over a {DEVMAP_PROFILE_CHUNKS}-chunk prefix: "
+        f"{out['profile']}")
+
+    # bigram on phase 9's prefix as one chunk, against the native bigram
+    # at the same chunking (bigram pairs never straddle chunks, and the
+    # device mapper cuts chunks at any whitespace, the host at newlines)
+    bpath = os.path.join(tmp, "bigram_corpus.txt")
+    distinct = collect["bigram"]["auto"]["metrics"]["distinct_keys"]
+    chunk_keys = 1 << distinct.bit_length()
+    runs = {}
+    for name, kw in (("device", {"mapper": "device",
+                                 "device_chunk_keys": chunk_keys}),
+                     ("native", {})):
+        ob = os.path.join(tmp, f"bigram_one_chunk_{name}.txt")
+        for w in wrappers:
+            w.launches = 0
+        rb = run_job(JobConfig(input_path=bpath, output_path=ob,
+                               backend=backend, chunk_bytes=BIGRAM_BYTES,
+                               key_capacity=chunk_keys, metrics=False, **kw),
+                     "bigram")
+        runs[name] = {"metrics": rb.metrics, "out": ob,
+                      "launches": {w.__name__: w.launches
+                                   for w in wrappers}}
+        log(collect_line(f"bigram {name} (one chunk)", rb.metrics)
+            + f"; launches {runs[name]['launches']}")
+    if read(runs["device"]["out"]) != read(runs["native"]["out"]):
+        raise AssertionError("device-map bigram differs from the native "
+                             "bigram at the same chunking")
+    log(f"device-map bigram byte-identical to the native bigram "
+        f"({runs['device']['metrics']['distinct_keys']} distinct bigrams; "
+        f"device_chunk_keys {chunk_keys} from phase 9's {distinct})")
+    out["bigram"] = runs
+
+    # killed past its first snapshot, resumed
+    ck = os.path.join(tmp, "devmap_checkpoint")
+    o = os.path.join(tmp, "final_result_device_resumed.txt")
+    cfg = JobConfig(input_path=path, output_path=o, backend=backend,
+                    mapper="device", chunk_bytes=DEVMAP_SNAP_CHUNK,
+                    checkpoint_dir=ck, metrics=False)
+    real = dm.iter_chunks_capped
+
+    def dying(*a, **k):
+        for i, c in enumerate(real(*a, **k)):
+            if i == DEVMAP_KILL_AFTER:
+                raise KeyboardInterrupt("simulated kill")
+            yield c
+
+    dm.iter_chunks_capped = dying
+    t0 = time.perf_counter()
+    try:
+        run_job(cfg, "wordcount")
+        raise AssertionError("the killed device map ran to its end")
+    except KeyboardInterrupt:
+        pass
+    finally:
+        dm.iter_chunks_capped = real
+    t_killed = time.perf_counter() - t0
+    if not os.path.isfile(os.path.join(ck, "snapshot.npz")):
+        raise AssertionError("the killed device map left no snapshot")
+    r = run_job(cfg, "wordcount")
+    m = r.metrics
+    if read(o) != read(native["out"]) or os.path.exists(ck):
+        raise AssertionError("the resumed device map differs from phase "
+                             "5's output")
+    log(f"device-map word count in {DEVMAP_SNAP_CHUNK >> 20} MiB chunks "
+        f"killed after {DEVMAP_KILL_AFTER} chunks ({t_killed:.2f} s), "
+        f"resumed from the snapshot at chunk {dm._SNAP_EVERY}: "
+        f"byte-identical to phase 5 ({m['chunks']} chunks, job "
+        f"{job_s(m):.2f} s)")
+    out["resume"] = {"metrics": m, "killed_s": t_killed}
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 11 (device map) wall {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from map_oxidize_tpu_torch.ops.device_tokenize import tokenize_compact
     from map_oxidize_tpu_torch.ops.kmeans_kernel import fused_assign_sum
 
     # plain versions compute f32 products in full f32
@@ -1637,19 +2103,23 @@ def main() -> int:
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}; host "
         f"{os.cpu_count()} CPUs")
     resources = build_kernels()
-    wrappers = [fused_assign_sum]
+    wrappers = [fused_assign_sum, tokenize_compact]
     configs = phase_kernels()
     with tempfile.TemporaryDirectory(prefix="moxt_smoke_") as tmp:
+        corpus = write_corpus(tmp, CORPUS_BYTES, VOCAB)
+        tok = phase_tokenize_kernel(corpus)
         phase_trace_dir(tmp, "cuda")
         km = phase_kmeans(tmp, "cuda", KMEANS_N, KMEANS_D, KMEANS_K,
                           KMEANS_ITERS, wrappers)
-        wc = phase_wordcount(tmp, "cuda", CORPUS_BYTES, VOCAB, wrappers)
+        wc = phase_wordcount(tmp, "cuda", corpus, wrappers)
         wc_resume = phase_resume_wordcount(tmp, "cuda", wc, wrappers)
         km_resume = phase_resume_kmeans(tmp, "cuda", km, wrappers)
         stream = phase_stream(tmp, "cuda", wrappers, torch.Generator(
             device="cuda").manual_seed(SEED + 5))
         phase_flight(tmp, "cuda")
         collect = phase_collect(tmp, "cuda", wc, wrappers)
+        dataflow = phase_dataflow(tmp, "cuda", wrappers)
+        devmap = phase_device_map(tmp, "cuda", wc, collect, wrappers)
     if km["launches"]["fused_assign_sum"] != 2 * KMEANS_ITERS:
         raise AssertionError(f"kmeans path launched the kernel "
                              f"{km['launches']} times, expected "
@@ -1672,8 +2142,29 @@ def main() -> int:
         "bound_by": main_cfg["bound_by"],
         "library_ms": main_cfg["library_ms"],
         "checked_against_plain": True,
-        "resources": resources,
+        "resources": {k: v for k, v in resources.items()
+                      if not k.startswith("tokenize_compact")},
         "configs": configs + stream["configs"],
+    }, {
+        "name": "tokenize_compact",
+        "route": "cuda",
+        "source": "map_oxidize_tpu_torch/ops/csrc/tokenize_compact.cu",
+        "replaces": "map_oxidize_tpu/ops/device_tokenize.py:85",
+        "replaces_note": "tokenize_hash (:85) + _compact_tokens (:124), "
+                         "XLA programs, not a Pallas kernel",
+        "launches": devmap["wordcount"]["launches"]["tokenize_compact"],
+        "max_abs_err": tok["max_abs_err"],
+        "ms": tok["ms"],
+        "plain_ms": tok["plain_ms"],
+        "bound_ms": tok["bound_ms"],
+        "bound_by": tok["bound_by"],
+        "library_ms": None,
+        "yardstick_ms": tok["yardstick_ms"],
+        "yardstick": tok["yardstick"],
+        "checked_against_plain": True,
+        "checked": tok["checked"],
+        "resources": {k: v for k, v in resources.items()
+                      if k.startswith("tokenize_compact")},
     }]
     wc_rate = {name: run["metrics"]["records_in"] / job_s(run["metrics"])
                for name, run in wc["runs"].items()}
@@ -1693,7 +2184,12 @@ def main() -> int:
         f"card sort {collect['card_sort']}, distinct estimate "
         f"{collect['distinct']['estimate']:.1f} of "
         f"{collect['distinct']['exact']}, phase 9 "
-        f"{collect['wall_s']:.1f} s; "
+        f"{collect['wall_s']:.1f} s; dataflow rows/s "
+        f"{ {w + ' ' + n: round(b['metrics']['records_in'] / job_s(b['metrics'])) for w in ('sort', 'join', 'sessionize') for n, b in dataflow[w].items()} }, "
+        f"phase 10 {dataflow['wall_s']:.1f} s; device-map words/s "
+        f"{devmap['wordcount']['metrics']['records_in'] / job_s(devmap['wordcount']['metrics']):.0f}, "
+        f"tokenize_compact {tok['ms']:.3f} ms per 32 MiB chunk, phase 11 "
+        f"{devmap['wall_s']:.1f} s; "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,7 +1,9 @@
-"""Tests of the port that need a CUDA card: the hand-written kernel against
-its plain version, the fold on the card against the fold on the CPU, the
-streamed k-means through the pinned staging ring, and the observability
-seams on the card (device memory, the profiler trace, determinism).
+"""Tests of the port that need a CUDA card: the hand-written kernels
+against their plain versions, the fold on the card against the fold on the
+CPU, the streamed k-means through the pinned staging ring, the
+observability seams on the card (device memory, the profiler trace,
+determinism), the collect route, the device mapper and the dataflow card
+sort against the CPU and the host.
 They skip without a card.  On a card (no JAX needed):
 
     python -m pytest tests/test_torch_cuda.py -m cuda
@@ -469,3 +471,141 @@ def test_collect_route_on_the_card_matches_the_cpu(cuda, tmp_path):
         tmp_path / "1_cuda.txt").read_bytes()
     assert (tmp_path / "2_cuda.txt").read_bytes() == (
         tmp_path / "3_cuda.txt").read_bytes()
+
+
+def _byte_chunks():
+    """Padded chunks for the tokenizer: random text, all spaces, one token
+    filling the window, a token at byte 0, tokens on every tile edge, a
+    chunk that ends inside a token, ragged windows."""
+    rng = np.random.default_rng(9)
+    n = 1 << 20
+    alphabet = np.frombuffer(b"abcdEFG,.  \n\t\x00\xff", np.uint8)
+    text = rng.choice(alphabet, size=n)
+    edges = np.full(n, 32, np.uint8)
+    for e in range(4096, n, 4096):
+        edges[e - 3:e + 2] = np.frombuffer(b"TiLeX", np.uint8)
+    for e in range(16, n, 16 * 37):
+        edges[e - 1:e + 1] = np.frombuffer(b"zq", np.uint8)
+    head = np.full(n, 32, np.uint8)
+    head[0] = ord("A")
+    tail = rng.choice(np.frombuffer(b"ab ", np.uint8), size=n)
+    tail[-7:] = ord("k")
+    out = [("text", text), ("spaces", np.full(n, 32, np.uint8)),
+           ("one token", np.full(n, ord("w"), np.uint8)),
+           ("byte 0", head), ("tile edges", edges), ("ends in a token", tail)]
+    for m in (1, 15, 17, 4095, 4097, 12345):
+        out.append((f"ragged {m}", rng.choice(alphabet, size=m)))
+    return out
+
+
+@pytest.mark.parametrize("name,arr", _byte_chunks(),
+                         ids=[c[0] for c in _byte_chunks()])
+def test_tokenize_compact_matches_plain_exactly(cuda, name, arr):
+    """The tokenize-and-compact kernel against its plain version: every row,
+    the padding and the token count bit-equal."""
+    from map_oxidize_tpu_torch.ops.device_tokenize import (
+        tokenize_compact,
+        tokenize_compact_plain,
+    )
+
+    chunk = torch.from_numpy(arr.copy()).to(cuda)
+    max_tokens = arr.shape[0] // 2 + 1
+    before = tokenize_compact.launches
+    got = tokenize_compact(chunk, max_tokens)
+    want = tokenize_compact_plain(chunk, max_tokens)
+    torch.cuda.synchronize()
+    assert tokenize_compact.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    # fewer row slots than tokens: the rows past them drop, the count stays
+    few, few_want = (tokenize_compact(chunk, 3),
+                     tokenize_compact_plain(chunk, 3))
+    for g, w in zip(few, few_want):
+        assert torch.equal(g, w)
+
+
+def test_tokenize_compact_refuses_what_it_cannot_take(cuda):
+    from map_oxidize_tpu_torch.ops.device_tokenize import tokenize_compact
+
+    chunk = torch.full((64,), 32, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        tokenize_compact(chunk[1:], 10)
+    with pytest.raises(ValueError, match="uint8"):
+        tokenize_compact(chunk.int(), 10)
+
+
+@pytest.mark.parametrize("workload", ["wordcount", "bigram"])
+def test_device_map_on_the_card_matches_the_cpu(cuda, tmp_path, workload):
+    """``mapper='device'`` on the card (the kernel, the staging ring, the
+    pinned packed fetch, the overflow fetch on its side stream) writes the
+    CPU port's bytes, and launches the kernel once per chunk."""
+    from map_oxidize_tpu_torch.ops.device_tokenize import tokenize_compact
+
+    inp = _text_corpus(tmp_path / "c.txt", lines=40000)
+    out = {}
+    for backend in ("cuda", "cpu"):
+        path = tmp_path / f"{backend}.txt"
+        before = tokenize_compact.launches
+        r = run_job(JobConfig(input_path=str(inp), output_path=str(path),
+                              backend=backend, mapper="device",
+                              chunk_bytes=96 << 10, device_chunk_keys=1 << 16,
+                              metrics=False), workload)
+        out[backend] = path.read_bytes()
+        launched = tokenize_compact.launches - before
+        assert launched == (r.metrics["chunks"] if backend == "cuda" else 0)
+    assert out["cuda"] == out["cpu"]
+
+
+def test_device_map_snapshot_resume_on_the_card(cuda, tmp_path, monkeypatch):
+    """Killed past its first snapshot on the card, resumed: the bytes of an
+    uninterrupted run."""
+    import map_oxidize_tpu_torch.runtime.device_map as dm
+
+    inp = _text_corpus(tmp_path / "c.txt", lines=30000)
+    kw = dict(input_path=str(inp), backend="cuda", mapper="device",
+              chunk_bytes=16 << 10, device_chunk_keys=1 << 13, metrics=False)
+    run_job(JobConfig(output_path=str(tmp_path / "fresh.txt"), **kw))
+    real = dm.iter_chunks_capped
+
+    def dying(*a, **k):
+        for i, c in enumerate(real(*a, **k)):
+            if i == dm._SNAP_EVERY + 2:
+                raise KeyboardInterrupt("simulated kill")
+            yield c
+
+    ck = str(tmp_path / "ck")
+    monkeypatch.setattr(dm, "iter_chunks_capped", dying)
+    with pytest.raises(KeyboardInterrupt):
+        run_job(JobConfig(output_path="", checkpoint_dir=ck, **kw))
+    monkeypatch.setattr(dm, "iter_chunks_capped", real)
+    run_job(JobConfig(output_path=str(tmp_path / "resumed.txt"),
+                      checkpoint_dir=ck, **kw))
+    assert (tmp_path / "resumed.txt").read_bytes() == (
+        tmp_path / "fresh.txt").read_bytes()
+
+
+@pytest.mark.parametrize("workload", ["sort", "join", "sessionize"])
+def test_dataflow_card_sort_matches_the_host_sort(cuda, tmp_path, workload):
+    """The dataflow jobs with their pairs sorted on the card write the host
+    sort's bytes (and the CPU's)."""
+    rng = np.random.default_rng(13)
+    n = 200_000
+    keys = rng.integers(0, 1 << 64, n, dtype=np.uint64)
+    keys[keys == np.uint64(2**64 - 1)] = 0
+    keys[:5000] = keys[0]
+    pay = rng.integers(0, 1 << 63, n, dtype=np.uint64)
+    if workload != "sort":
+        keys %= np.uint64(30_000)
+    recs = tmp_path / "r.npy"
+    np.save(recs, np.stack([keys, pay], axis=1))
+    out = {}
+    for name, backend, sort in (("card", "cuda", "device"),
+                                ("host", "cuda", "host"),
+                                ("cpu", "cpu", "device")):
+        path = tmp_path / f"{name}.out"
+        run_job(JobConfig(input_path=str(recs), output_path=str(path),
+                          join_input_path=str(recs), backend=backend,
+                          collect_sort=sort, chunk_bytes=1 << 20,
+                          metrics=False), workload)
+        out[name] = path.read_bytes()
+    assert out["card"] == out["host"] == out["cpu"]

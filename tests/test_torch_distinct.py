@@ -17,6 +17,7 @@ import map_oxidize_tpu.runtime.driver as jdriver
 import map_oxidize_tpu_torch.runtime.driver as tdriver
 from map_oxidize_tpu.cli import main as jax_cli_main
 from map_oxidize_tpu.config import JobConfig as JaxJobConfig
+from map_oxidize_tpu.runtime import resolve_mapper as jax_resolve_mapper
 from map_oxidize_tpu.runtime import run_job as jax_run_job
 from map_oxidize_tpu.workloads import distinct as jd
 from map_oxidize_tpu_torch import cli
@@ -82,7 +83,7 @@ def test_device_mapper_resolves_to_native_with_the_jax_log_line(caplog):
     """``mapper='device'`` on distinct (and on any workload with a
     non-ascii tokenizer) runs the native map, as the JAX package's
     ``resolve_mapper`` does; wordcount and bigram with the ascii tokenizer
-    still raise, naming the ROADMAP item."""
+    resolve to the device mapper, as there."""
     with caplog.at_level(logging.INFO):
         assert resolve_mapper(JobConfig(mapper="device"), "distinct") == \
             "native"
@@ -94,8 +95,9 @@ def test_device_mapper_resolves_to_native_with_the_jax_log_line(caplog):
         in msgs
     assert "device mapper is ascii-only; using native for 'unicode'" in msgs
     for wl in ("wordcount", "bigram"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-            resolve_mapper(JobConfig(mapper="device"), wl)
+        assert resolve_mapper(JobConfig(mapper="device"), wl) == "device"
+        assert jax_resolve_mapper(JaxJobConfig(mapper="device"),
+                                  wl) == "device"
 
 
 @pytest.mark.parametrize("p", [11, 16, 18])
