@@ -48,6 +48,7 @@ from map_oxidize_tpu_torch.ops.hashing import SENTINEL
 from map_oxidize_tpu_torch.ops.segment_reduce import (
     SENTINEL_KEY,
     keys_from_plane_tensors,
+    plane_tensors_from_keys,
 )
 
 #: polynomial multipliers: odd (invertible mod 2^32), independent; P1 is the
@@ -58,8 +59,6 @@ P2 = 0x85EBCA6B
 _WS = (32, 9, 10, 13, 11, 12)  # ' ' \t \n \r \v \f — bytes.split() semantics
 _M32 = 0xFFFFFFFF
 _INT32_MAX = (1 << 31) - 1
-#: the top bit of an int64, to flip it
-_SIGN_I64 = -(1 << 63)
 
 #: odd mixing multipliers for composing adjacent token hashes into an n-gram
 #: key (uint32 wraparound; golden-ratio and murmur-style constants)
@@ -286,9 +285,7 @@ def _dedup_chunk(t_hi, t_lo, t_start, out_keys: int):
     counts = torch.where(live, counts, 0)
     reps = torch.where(live, reps, _INT32_MAX)
     n_dropped = (n_unique - out_keys).clamp_min(0)
-    u = ukeys ^ _SIGN_I64
-    u_hi = ((u >> 32) & _M32).to(torch.int32)
-    u_lo = (u & _M32).to(torch.int32)
+    u_hi, u_lo = plane_tensors_from_keys(ukeys)
     return (u_hi[:out_keys], u_lo[:out_keys], counts[:out_keys],
             reps[:out_keys], n_unique, n_dropped)
 

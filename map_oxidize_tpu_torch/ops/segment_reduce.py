@@ -48,9 +48,20 @@ def keys_from_planes(hi, lo) -> np.ndarray:
 def keys_from_plane_tensors(hi: torch.Tensor,
                             lo: torch.Tensor) -> torch.Tensor:
     """(hi, lo) planes as int32 (or int64) tensors holding u32 bit patterns
-    -> int64 order keys, on the planes' device."""
+    -> int64 order keys, on the planes' device (torch's uint64 sort on
+    CUDA is not relied on)."""
     return (((hi.to(torch.int64) & 0xFFFFFFFF) << 32)
             | (lo.to(torch.int64) & 0xFFFFFFFF)) ^ _SIGN_I64
+
+
+def plane_tensors_from_keys(keys: torch.Tensor
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The inverse of :func:`keys_from_plane_tensors`: int64 order keys ->
+    the (hi, lo) planes as int32 bit-pattern tensors, on the keys'
+    device."""
+    u = keys ^ _SIGN_I64
+    return ((u >> 32) & 0xFFFFFFFF).to(torch.int32), (
+        u & 0xFFFFFFFF).to(torch.int32)
 
 
 def planes_from_keys(keys) -> tuple[np.ndarray, np.ndarray]:

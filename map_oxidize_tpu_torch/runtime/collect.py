@@ -32,29 +32,14 @@ from map_oxidize_tpu_torch.api import MapOutput
 from map_oxidize_tpu_torch.config import JobConfig
 from map_oxidize_tpu_torch.obs import observe_device_wait
 from map_oxidize_tpu_torch.ops.hashing import SENTINEL
+from map_oxidize_tpu_torch.ops.segment_reduce import (
+    keys_from_plane_tensors,
+    plane_tensors_from_keys,
+)
 from map_oxidize_tpu_torch.runtime.engine import next_pow2, pick_device
 from map_oxidize_tpu_torch.utils.logging import get_logger
 
 _log = get_logger(__name__)
-
-#: the top bit of an int64, to flip it
-_SIGN_I64 = -(1 << 63)
-_LOW32 = 0xFFFFFFFF
-
-
-def _ordered64(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
-    """Two int32 tensors holding uint32 bit patterns -> int64 whose SIGNED
-    order is the unsigned order of ``(hi << 32) | lo``: the top bit is
-    flipped (torch's uint64 sort on CUDA is not relied on)."""
-    return (((hi.to(torch.int64) & _LOW32) << 32)
-            | (lo.to(torch.int64) & _LOW32)) ^ _SIGN_I64
-
-
-def _planes(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The inverse of :func:`_ordered64`: int64 order values -> the two
-    int32 bit-pattern planes."""
-    u = x ^ _SIGN_I64
-    return ((u >> 32) & _LOW32).to(torch.int32), (u & _LOW32).to(torch.int32)
 
 
 def sort_pairs(stacked: torch.Tensor) -> torch.Tensor:
@@ -67,14 +52,14 @@ def sort_pairs(stacked: torch.Tensor) -> torch.Tensor:
     sort by doc, then a stable sort by key over that order, gives the
     (key, doc) order.  Rows equal in all four planes are
     indistinguishable, so stability needs no further tie rule."""
-    key = _ordered64(stacked[0], stacked[1])
-    doc = _ordered64(stacked[2], stacked[3])
+    key = keys_from_plane_tensors(stacked[0], stacked[1])
+    doc = keys_from_plane_tensors(stacked[2], stacked[3])
     doc, order = torch.sort(doc, stable=True)
     key = key[order]
     key, order = torch.sort(key, stable=True)
     doc = doc[order]
-    khi, klo = _planes(key)
-    dhi, dlo = _planes(doc)
+    khi, klo = plane_tensors_from_keys(key)
+    dhi, dlo = plane_tensors_from_keys(doc)
     return torch.stack([khi, klo, dhi, dlo])
 
 
