@@ -195,7 +195,8 @@ def test_snapshot_cadence_and_counters(tmp_path):
     ("distinct", "device", "ascii", "native"),
     ("wordcount", "auto", "ascii", "native"),
 ])
-def test_run_job_dispatch_matches_the_jax_package(tmp_path, caplog, workload,
+def test_run_job_dispatch_matches_the_jax_package(tmp_path, caplog,
+                                                  monkeypatch, workload,
                                                   mapper, tokenizer, want):
     from map_oxidize_tpu.runtime import resolve_mapper as jax_resolve
 
@@ -203,14 +204,18 @@ def test_run_job_dispatch_matches_the_jax_package(tmp_path, caplog, workload,
     kw = dict(mapper=mapper, tokenizer=tokenizer, chunk_bytes=4096,
               device_chunk_keys=1024)
     cfg = _cfg(JobConfig, path, tmp_path / "p.out", **kw)
-    with caplog.at_level(logging.INFO):
+    # a CLI run earlier in this process detaches the package loggers from
+    # the root logger and raises their level (utils.logging.configure)
+    monkeypatch.setattr(logging.getLogger("moxt"), "propagate", True)
+    with caplog.at_level(logging.INFO, logger="moxt"):
         assert resolve_mapper(cfg, workload) == want
     port_lines = [r.getMessage() for r in caplog.records]
     caplog.clear()
-    with caplog.at_level(logging.INFO):
+    with caplog.at_level(logging.INFO, logger="moxt"):
         assert jax_resolve(_cfg(JaxJobConfig, path, "", **kw),
                            workload) == want
     assert port_lines == [r.getMessage() for r in caplog.records]
+    assert bool(port_lines) == (mapper == "device" and want == "native")
     r = run_job(cfg, workload)
     if want == "device":
         assert "device_rows_fed" not in r.metrics  # the device driver's keys

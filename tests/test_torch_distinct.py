@@ -79,12 +79,16 @@ def test_npy_output_matches_jax(tmp_path, corpus):
                                   res["port"][0].registers)
 
 
-def test_device_mapper_resolves_to_native_with_the_jax_log_line(caplog):
+def test_device_mapper_resolves_to_native_with_the_jax_log_line(
+        caplog, monkeypatch):
     """``mapper='device'`` on distinct (and on any workload with a
     non-ascii tokenizer) runs the native map, as the JAX package's
     ``resolve_mapper`` does; wordcount and bigram with the ascii tokenizer
     resolve to the device mapper, as there."""
-    with caplog.at_level(logging.INFO):
+    # a CLI run earlier in this process detaches the package loggers from
+    # the root logger and raises their level (utils.logging.configure)
+    monkeypatch.setattr(logging.getLogger("moxt"), "propagate", True)
+    with caplog.at_level(logging.INFO, logger="moxt"):
         assert resolve_mapper(JobConfig(mapper="device"), "distinct") == \
             "native"
         assert resolve_mapper(JobConfig(mapper="device",
