@@ -21,12 +21,16 @@ Phases (any failure exits non-zero, before the result line):
              events), the plain version's and one PyTorch library call's
              time, the bound, and the launch plan (blocks per SM, shared
              bytes, resident centroids, partial in shared memory); the
-             tokenizer bit-equal on six 32 MiB chunks (a chunk of phase
+             tokenizer bit-equal on ten 32 MiB chunks (a chunk of phase
              5's corpus, all spaces, one token filling it, a token at
              byte 0, tokens straddling every tile edge, a chunk ending
-             inside a token), with its time, the plain version's, a
-             ``torch.cumsum`` over one int64 plane of the chunk as the
-             yardstick, and the bound;
+             inside a token, tokens ending on a tile's or a thread's last
+             byte and starting on its first, tokens longer than a tile, a
+             token end on every other byte), at fewer row slots than
+             tokens, and over 20 repeated launches; with its time, its
+             device work per call by kernel (``torch.profiler``), the
+             plain version's time, a ``torch.cumsum`` over one int64 plane of
+             the chunk as the yardstick, and the bound;
 4. kmeans    ``run_job("kmeans")`` on seeded blobs (n=2^22, d=64, k=256,
              10 iterations) in both precisions, launch counts reset just
              before and read just after; each fit's ``attrib/*`` buckets and
@@ -135,6 +139,7 @@ from __future__ import annotations
 import collections
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -167,7 +172,7 @@ BIGRAM_CHUNK = 8 << 20
 II_MODEL_BYTES = 16 << 20  # the prefix held to inverted_index_model
 DISTINCT_PY_BYTES = 4 << 20  # the prefix the Python HLL map takes
 II_KILL_AFTER = 3
-TOKENIZE_TILE = 4096      # bytes per block of the tokenize kernel
+TOKENIZE_REPEATS = 20     # launches on one chunk that must agree
 SORT_N = 1 << 25          # phase 10: records of the sort (512 MiB)
 JOIN_N, JOIN_KEYS = 1 << 23, 1 << 23
 SESS_N, SESS_KEYS, SESS_GAP = 1 << 24, 1 << 20, 3600
@@ -258,12 +263,17 @@ def variant(mangled: str) -> str:
                       ("prep_centroidsIf", "prep_centroids f32"),
                       ("prep_centroidsI13__nv_bfloat16",
                        "prep_centroids bf16"),
-                      ("sum_partials", "sum_partials"),
-                      ("tile_reduce", "tokenize_compact tile_reduce"),
-                      ("tile_scan", "tokenize_compact tile_scan"),
-                      ("tile_scatter", "tokenize_compact tile_scatter")):
+                      ("sum_partials", "sum_partials")):
         if tag in mangled:
             return name
+    tag = "16tokenize_compact"  # the namespace's length-prefixed name
+    at = mangled.find(tag)
+    if at >= 0:
+        digits = re.match(r"\d+", mangled[at + len(tag):])
+        if digits:
+            start = at + len(tag) + len(digits.group())
+            return ("tokenize_compact "
+                    + mangled[start:start + int(digits.group())])
     return mangled
 
 
@@ -455,34 +465,57 @@ def phase_kernels() -> list[dict]:
     return configs
 
 
-def tokenize_chunks(path: str) -> list[tuple[str, np.ndarray]]:
-    """The six padded ``CHUNK_BYTES`` chunks phase 3 holds the tokenizer
-    to its plain version on."""
+def tokenize_chunks(path: str, layout: dict) -> list[tuple[str,
+                                                         np.ndarray]]:
+    """The padded ``CHUNK_BYTES`` chunks phase 3 holds the tokenizer to its
+    plain version on: corpus text, corner cases, and tokens on the edges of
+    the built kernel's tiles and threads (``layout``)."""
     from map_oxidize_tpu_torch.io.splitter import iter_chunks_capped
     from map_oxidize_tpu_torch.ops.device_tokenize import pad_chunk
 
-    n = CHUNK_BYTES
+    n, tile, per = CHUNK_BYTES, layout["tile"], layout["bytes_per_thread"]
     corpus = pad_chunk(bytes(next(iter_chunks_capped(path, n))), n).copy()
     head = np.full(n, 32, np.uint8)
     head[0] = ord("A")
     edges = np.full(n, 32, np.uint8)
-    for e in range(TOKENIZE_TILE, n, TOKENIZE_TILE):
+    for e in range(tile, n, tile):
         edges[e - 3:e + 2] = np.frombuffer(b"TiLeX", np.uint8)
-    for e in range(16, n, 16 * 37):  # thread edges, every 37th
+    for e in range(per, n, per * 37):  # thread edges, every 37th
         edges[e - 1:e + 1] = np.frombuffer(b"zq", np.uint8)
     ends_inside = corpus.copy()
     ends_inside[-9:] = np.frombuffer(b"unfinishe", np.uint8)
+    # tokens ending on a tile's last byte, then starting on its first
+    tile_aligned = np.full(n, 32, np.uint8)
+    for e in range(tile, n, tile):
+        if e < n // 2:
+            tile_aligned[e - 5:e] = np.frombuffer(b"EnDsT", np.uint8)
+        else:
+            tile_aligned[e:e + 5] = np.frombuffer(b"StArT", np.uint8)
+    # every thread's last byte a space, then every thread's first byte
+    threads = np.full(n, ord("t"), np.uint8)
+    threads[per - 1:n // 2:per] = 32
+    threads[n // 2::per] = 32
+    # tokens longer than a tile, so some tiles lie inside one token
+    long_tokens = np.full(n, ord("L"), np.uint8)
+    long_tokens[3 * tile // 2 + 7::3 * tile // 2 + 8] = 32
+    # the most rows a tile can hold: a token end on every other byte
+    dense = np.full(n, 32, np.uint8)
+    dense[: n // 2:2] = ord("d")
+    dense[n // 2 + 1::2] = ord("o")
     return [("corpus", corpus), ("all spaces", np.full(n, 32, np.uint8)),
             ("one token", np.full(n, ord("w"), np.uint8)),
             ("token at byte 0", head), ("tile edges", edges),
-            ("ends inside a token", ends_inside)]
+            ("ends inside a token", ends_inside),
+            ("tokens on tile bounds", tile_aligned),
+            ("tokens on thread bounds", threads),
+            ("tokens longer than a tile", long_tokens),
+            ("a row every other byte", dense)]
 
 
-def phase_tokenize_kernel(path: str) -> dict:
-    """``tokenize_compact`` against ``tokenize_compact_plain`` on the card,
-    bit-equal on every chunk of :func:`tokenize_chunks`; on the corpus
-    chunk the kernel's time, the plain version's, the ``torch.cumsum``
-    yardstick and the bound."""
+def check_tokenize(name: str, chunk, max_tokens: int) -> tuple[int, float]:
+    """One ``tokenize_compact`` call against ``tokenize_compact_plain``,
+    every output bit-equal; returns the token count and the largest
+    absolute difference of any output (0 when they agree)."""
     import torch
 
     from map_oxidize_tpu_torch.ops.device_tokenize import (
@@ -490,26 +523,90 @@ def phase_tokenize_kernel(path: str) -> dict:
         tokenize_compact_plain,
     )
 
+    got = tokenize_compact(chunk, max_tokens)
+    want = tokenize_compact_plain(chunk, max_tokens)
+    torch.cuda.synchronize()
+    err = max(float((g.long() - w.long()).abs().max())
+              for g, w in zip(got, want))
+    if err or not all(g.dtype == w.dtype and torch.equal(g, w)
+                      for g, w in zip(got, want)):
+        raise AssertionError(f"tokenize_compact != plain on {name!r} at "
+                             f"max_tokens={max_tokens}")
+    return int(got[3]), err
+
+
+def tokenize_split(chunk, max_tokens: int, calls: int = 10) -> dict:
+    """The device work of one ``tokenize_compact`` call, by name, from
+    ``torch.profiler`` over ``calls`` calls: launches per call and device
+    ms per call of each kernel (``tokenize_compact::<kernel>``) and each
+    other device op (the scratch's memset)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from map_oxidize_tpu_torch.ops.device_tokenize import tokenize_compact
+
+    tokenize_compact(chunk, max_tokens)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            tokenize_compact(chunk, max_tokens)
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total <= 0:
+            continue
+        split[e.key.split("(")[0]] = {
+            "per_call": e.count / calls,
+            "ms": e.self_device_time_total / calls / 1e3}
+    return split
+
+
+def phase_tokenize_kernel(path: str, resources: dict) -> dict:
+    """``tokenize_compact`` against ``tokenize_compact_plain`` on the card,
+    bit-equal on every chunk of :func:`tokenize_chunks`, at fewer row slots
+    than tokens, and over repeated launches; on the corpus chunk the
+    kernel's time, its split by kernel (``torch.profiler``), the plain
+    version's time, the ``torch.cumsum`` yardstick and the bound."""
+    import torch
+
+    from map_oxidize_tpu_torch.ops.device_tokenize import (
+        built_layout,
+        tokenize_compact,
+        tokenize_compact_plain,
+    )
+
     n = CHUNK_BYTES
     max_tokens = n // 2 + 1
-    out = {"n": n, "max_tokens": max_tokens, "checked": []}
-    for name, arr in tokenize_chunks(path):
+    layout = built_layout()
+    out = {"n": n, "max_tokens": max_tokens, "checked": [], "layout": layout}
+    errs = []
+    for name, arr in tokenize_chunks(path, layout):
         chunk = torch.from_numpy(arr).cuda()
-        got = tokenize_compact(chunk, max_tokens)
-        want = tokenize_compact_plain(chunk, max_tokens)
-        torch.cuda.synchronize()
-        err = max(float((g.long() - w.long()).abs().max())
-                  for g, w in zip(got, want))
-        if err or not all(g.dtype == w.dtype and torch.equal(g, w)
-                          for g, w in zip(got, want)):
-            raise AssertionError(f"tokenize_compact != plain on {name!r}")
-        out["checked"].append((name, int(got[3])))
-        log(f"tokenize_compact {name}: {int(got[3])} tokens, bit-equal to "
-            "the plain version")
+        n_tok, err = check_tokenize(name, chunk, max_tokens)
+        errs.append(err)
+        out["checked"].append((name, n_tok))
+        log(f"tokenize_compact {name}: {n_tok} tokens, bit-equal to the "
+            "plain version")
+        if name in ("corpus", "a row every other byte"):
+            # fewer row slots than tokens, off the 16-byte store width
+            for few in (n_tok // 2 + 3, n_tok - 1):
+                errs.append(check_tokenize(name, chunk, few)[1])
+                out["checked"].append((f"{name} max_tokens={few}", n_tok))
+            log(f"tokenize_compact {name}: bit-equal at max_tokens "
+                f"{n_tok // 2 + 3} and {n_tok - 1}")
+            first = tokenize_compact(chunk, max_tokens)
+            for _ in range(TOKENIZE_REPEATS - 1):
+                again = tokenize_compact(chunk, max_tokens)
+                if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                    raise AssertionError(f"tokenize_compact on {name!r}: a "
+                                         "repeated launch differs")
+            log(f"tokenize_compact {name}: {TOKENIZE_REPEATS} launches, "
+                "the same bits")
         if name == "corpus":
-            out["max_abs_err"] = err
             out["ms"] = time_ms(lambda: tokenize_compact(chunk, max_tokens),
                                 reps=20)
+            out["split"] = tokenize_split(chunk, max_tokens)
             out["plain_ms"] = time_ms(
                 lambda: tokenize_compact_plain(chunk, max_tokens), reps=3,
                 warmup=1)
@@ -517,19 +614,29 @@ def phase_tokenize_kernel(path: str) -> dict:
             out["yardstick_ms"] = time_ms(lambda: torch.cumsum(plane, 0),
                                           reps=5, warmup=1)
             del plane
-        del chunk, got, want
+        del chunk
         torch.cuda.empty_cache()
+    out["max_abs_err"] = max(errs)  # over every output of every check
     # the chunk read once, the padded rows and the count written once
     nbytes = n + 12 * max_tokens + 4
     out["bound_ms"] = nbytes / PEAK_BYTES * 1e3
     out["bound_by"] = "bytes"
     out["yardstick"] = ("torch.cumsum over one int64 plane of the chunk "
                         "(a yardstick: no PyTorch call tokenizes)")
-    log(f"tokenize_compact {n >> 20} MiB: kernel {out['ms']:.3f} ms, plain "
-        f"{out['plain_ms']:.3f} ms, torch.cumsum yardstick "
-        f"{out['yardstick_ms']:.3f} ms, bound {out['bound_ms']:.3f} ms "
-        f"({nbytes} bytes; {out['bound_ms'] / out['ms']:.1%} of it "
-        "reached)")
+    out["launches_per_call"] = {k: v["per_call"]
+                                for k, v in out["split"].items()}
+    out["resources"] = {k: v for k, v in resources.items()
+                        if k.startswith("tokenize_compact")}
+    split = ", ".join(f"{k} {v['ms']:.4f} ms x{v['per_call']:g}"
+                      for k, v in out["split"].items())
+    log(f"tokenize_compact {n >> 20} MiB: kernel {out['ms']:.4f} ms "
+        f"({out['bound_ms'] / out['ms']:.1%} of the bound "
+        f"{out['bound_ms']:.4f} ms, {nbytes} bytes; "
+        f"{out['ms'] / out['yardstick_ms']:.2f}x the torch.cumsum "
+        f"yardstick {out['yardstick_ms']:.4f} ms), plain "
+        f"{out['plain_ms']:.3f} ms; device work per call: {split}; "
+        f"resources {out['resources']}; layout {layout} (dynamic shared "
+        "bytes per block beside the static bytes ptxas reports)")
     return out
 
 
@@ -2107,7 +2214,7 @@ def main() -> int:
     configs = phase_kernels()
     with tempfile.TemporaryDirectory(prefix="moxt_smoke_") as tmp:
         corpus = write_corpus(tmp, CORPUS_BYTES, VOCAB)
-        tok = phase_tokenize_kernel(corpus)
+        tok = phase_tokenize_kernel(corpus, resources)
         phase_trace_dir(tmp, "cuda")
         km = phase_kmeans(tmp, "cuda", KMEANS_N, KMEANS_D, KMEANS_K,
                           KMEANS_ITERS, wrappers)
@@ -2163,8 +2270,10 @@ def main() -> int:
         "yardstick": tok["yardstick"],
         "checked_against_plain": True,
         "checked": tok["checked"],
-        "resources": {k: v for k, v in resources.items()
-                      if k.startswith("tokenize_compact")},
+        "split": tok["split"],
+        "launches_per_call": tok["launches_per_call"],
+        "layout": tok["layout"],
+        "resources": tok["resources"],
     }]
     wc_rate = {name: run["metrics"]["records_in"] / job_s(run["metrics"])
                for name, run in wc["runs"].items()}

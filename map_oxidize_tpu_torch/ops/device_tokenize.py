@@ -194,7 +194,12 @@ def tokenize_compact_plain(chunk: torch.Tensor, max_tokens: int):
 def _library() -> ctypes.CDLL:
     from map_oxidize_tpu_torch.ops.build import load
 
-    lib = load(_LIB)
+    return bind_library(load(_LIB))
+
+
+def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C interface of a built ``tokenize_compact.cu`` on
+    ``lib`` and returns it."""
     lib.moxt_tokenize_compact_scratch.argtypes = [ctypes.c_longlong]
     lib.moxt_tokenize_compact_scratch.restype = ctypes.c_longlong
     lib.moxt_tokenize_compact.argtypes = [
@@ -204,7 +209,44 @@ def _library() -> ctypes.CDLL:
     lib.moxt_tokenize_compact.restype = ctypes.c_int
     lib.moxt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.moxt_cuda_error_string.restype = ctypes.c_char_p
+    lib.moxt_tokenize_compact_layout.argtypes = [
+        ctypes.POINTER(ctypes.c_int)] * 3
+    lib.moxt_tokenize_compact_layout.restype = None
     return lib
+
+
+def _layout(threads: int, bytes_per_thread: int, **more) -> dict:
+    return {"threads": threads, "bytes_per_thread": bytes_per_thread,
+            "tile": threads * bytes_per_thread, **more}
+
+
+@functools.cache
+def source_layout() -> dict:
+    """The kernel's launch layout as its source declares it, read without
+    building it: ``threads`` per block, ``bytes_per_thread`` and ``tile``
+    (bytes per block).  Tests place tokens on these edges;
+    :func:`built_layout` is the built library's own word."""
+    import re
+
+    from map_oxidize_tpu_torch.ops.build import CSRC
+
+    src = (CSRC / f"{_LIB}.cu").read_text()
+    found = {}
+    for name in ("THREADS", "BYTES_PER_THREAD"):
+        m = re.search(rf"^constexpr int {name} = (\d+);", src, re.M)
+        if m is None:
+            raise RuntimeError(f"{_LIB}.cu declares no {name}")
+        found[name] = int(m.group(1))
+    return _layout(found["THREADS"], found["BYTES_PER_THREAD"])
+
+
+def built_layout() -> dict:
+    """The built kernel's launch layout: :func:`source_layout`'s keys and
+    ``dynamic_smem_bytes`` per block.  Builds the library (needs ``nvcc``)."""
+    vals = [ctypes.c_int() for _ in range(3)]
+    _library().moxt_tokenize_compact_layout(*(ctypes.byref(v) for v in vals))
+    threads, per_thread, smem = (v.value for v in vals)
+    return _layout(threads, per_thread, dynamic_smem_bytes=smem)
 
 
 def tokenize_compact(chunk: torch.Tensor, max_tokens: int):
@@ -353,9 +395,10 @@ def pad_chunk(chunk: bytes, n: int) -> np.ndarray:
 
 class DeviceTokenizer:
     """Host-side wrapper: pads a chunk, copies it to ``device`` and runs
-    :func:`tokenize_count_core` (JAX ``DeviceTokenizer``).  The job driver
-    stages its chunks through a pinned ring instead and calls
-    :meth:`map_padded`."""
+    :func:`tokenize_count_core` (JAX ``DeviceTokenizer``).  ``device=None``
+    is the CUDA card, and raises without one; the CPU only when asked for.
+    A device-map job stages its chunks through a pinned ring instead
+    (``runtime/device_map.py``) and calls :meth:`map_padded`."""
 
     def __init__(self, chunk_bytes: int, out_keys: int = 1 << 19,
                  device=None, fetch_keys: int = 1 << 16, ngram: int = 1):
@@ -366,7 +409,11 @@ class DeviceTokenizer:
         # actual (clamped) output width
         self.out_keys = min(out_keys, self.max_tokens)
         self.fetch_keys = min(fetch_keys, self.out_keys)
-        self.device = torch.device(device if device is not None else "cpu")
+        if device is None:
+            from map_oxidize_tpu_torch.runtime.engine import pick_device
+
+            device = pick_device("cuda")
+        self.device = torch.device(device)
         self.ngram = ngram
 
     def pad_chunk(self, chunk: bytes) -> np.ndarray:

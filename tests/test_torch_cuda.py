@@ -473,27 +473,55 @@ def test_collect_route_on_the_card_matches_the_cpu(cuda, tmp_path):
         tmp_path / "3_cuda.txt").read_bytes()
 
 
+def _tokenize_layout() -> dict:
+    """The tokenize kernel's tile (bytes per block) and bytes per thread,
+    from its source (no build needed to collect the cases)."""
+    from map_oxidize_tpu_torch.ops.device_tokenize import source_layout
+
+    return source_layout()
+
+
 def _byte_chunks():
     """Padded chunks for the tokenizer: random text, all spaces, one token
     filling the window, a token at byte 0, tokens on every tile edge, a
-    chunk that ends inside a token, ragged windows."""
+    chunk that ends inside a token, tokens ending on a thread's or a tile's
+    last byte and starting on its first, tokens longer than a tile, a row
+    every other byte, ragged windows."""
     rng = np.random.default_rng(9)
-    n = 1 << 20
+    layout = _tokenize_layout()
+    n, tile, per = 1 << 20, layout["tile"], layout["bytes_per_thread"]
     alphabet = np.frombuffer(b"abcdEFG,.  \n\t\x00\xff", np.uint8)
     text = rng.choice(alphabet, size=n)
     edges = np.full(n, 32, np.uint8)
-    for e in range(4096, n, 4096):
+    for e in range(tile, n, tile):
         edges[e - 3:e + 2] = np.frombuffer(b"TiLeX", np.uint8)
-    for e in range(16, n, 16 * 37):
+    for e in range(per, n, per * 37):
         edges[e - 1:e + 1] = np.frombuffer(b"zq", np.uint8)
     head = np.full(n, 32, np.uint8)
     head[0] = ord("A")
     tail = rng.choice(np.frombuffer(b"ab ", np.uint8), size=n)
     tail[-7:] = ord("k")
+    thread_bounds = np.full(n, ord("t"), np.uint8)
+    thread_bounds[per - 1:n // 2:per] = 32
+    thread_bounds[n // 2::per] = 32
+    tile_bounds = np.full(n, 32, np.uint8)
+    for e in range(tile, n, tile):
+        if e < n // 2:
+            tile_bounds[e - 5:e] = np.frombuffer(b"EnDsT", np.uint8)
+        else:
+            tile_bounds[e:e + 5] = np.frombuffer(b"StArT", np.uint8)
+    long_tokens = np.full(n, ord("L"), np.uint8)
+    long_tokens[3 * tile // 2 + 7::3 * tile // 2 + 8] = 32
+    dense = np.full(n, 32, np.uint8)
+    dense[: n // 2:2] = ord("d")
+    dense[n // 2 + 1::2] = ord("o")
     out = [("text", text), ("spaces", np.full(n, 32, np.uint8)),
            ("one token", np.full(n, ord("w"), np.uint8)),
-           ("byte 0", head), ("tile edges", edges), ("ends in a token", tail)]
-    for m in (1, 15, 17, 4095, 4097, 12345):
+           ("byte 0", head), ("tile edges", edges), ("ends in a token", tail),
+           ("thread bounds", thread_bounds), ("tile bounds", tile_bounds),
+           ("longer than a tile", long_tokens), ("row every other byte",
+                                                 dense)]
+    for m in (1, 15, 17, 31, 33, 4095, 4097, 8191, 8193, 12345):
         out.append((f"ragged {m}", rng.choice(alphabet, size=m)))
     return out
 
@@ -522,6 +550,66 @@ def test_tokenize_compact_matches_plain_exactly(cuda, name, arr):
                      tokenize_compact_plain(chunk, 3))
     for g, w in zip(few, few_want):
         assert torch.equal(g, w)
+
+
+def _full_width_chunk(seed: int) -> np.ndarray:
+    """A 32 MiB chunk (the device mapper's default) of short mixed-case
+    words."""
+    rng = np.random.default_rng(seed)
+    return rng.choice(np.frombuffer(b"abcdefgHIJK   \n", np.uint8),
+                      size=32 << 20)
+
+
+def test_tokenize_compact_repeats_its_bits(cuda):
+    """20 launches on one 32 MiB chunk give the same bits, the first equal
+    to the plain version: the tiles' look-back orders nothing by timing."""
+    from map_oxidize_tpu_torch.ops.device_tokenize import (
+        tokenize_compact,
+        tokenize_compact_plain,
+    )
+
+    chunk = torch.from_numpy(_full_width_chunk(21)).to(cuda)
+    max_tokens = chunk.shape[0] // 2 + 1
+    first = tokenize_compact(chunk, max_tokens)
+    want = tokenize_compact_plain(chunk, max_tokens)
+    torch.cuda.synchronize()
+    for g, w in zip(first, want):
+        assert torch.equal(g, w)
+    for _ in range(19):
+        again = tokenize_compact(chunk, max_tokens)
+        for g, w in zip(again, first):
+            assert torch.equal(g, w)
+
+
+def test_tokenize_compact_drops_rows_past_max_tokens_at_full_width(cuda):
+    """At 32 MiB with fewer row slots than tokens (a count off the 16-byte
+    stores): the kept rows, the count and no padding, as the plain
+    version."""
+    from map_oxidize_tpu_torch.ops.device_tokenize import (
+        tokenize_compact,
+        tokenize_compact_plain,
+    )
+
+    chunk = torch.from_numpy(_full_width_chunk(22)).to(cuda)
+    n_tok = int(tokenize_compact_plain(chunk, 1)[3])
+    for max_tokens in (n_tok // 3 + 1, n_tok - 1):
+        got = tokenize_compact(chunk, max_tokens)
+        want = tokenize_compact_plain(chunk, max_tokens)
+        torch.cuda.synchronize()
+        assert int(got[3]) == n_tok
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_tokenize_compact_built_layout_is_the_sources(cuda):
+    """The layout the edge cases above are placed on is the built
+    kernel's, and its shared memory holds a whole tile's rows (at most one
+    per two bytes, 12 bytes each)."""
+    from map_oxidize_tpu_torch.ops.device_tokenize import built_layout
+
+    built = built_layout()
+    assert {k: built[k] for k in _tokenize_layout()} == _tokenize_layout()
+    assert built["dynamic_smem_bytes"] >= 12 * (built["tile"] // 2)
 
 
 def test_tokenize_compact_refuses_what_it_cannot_take(cuda):

@@ -18,8 +18,9 @@ from map_oxidize_tpu_torch.ops import device_tokenize as tdt
 
 torch.set_num_threads(2)
 
-#: the kernel's tile (bytes per block) and bytes per thread
-TILE, PER_THREAD = 4096, 16
+#: the kernel's tile (bytes per block) and bytes per thread, from its source
+TILE = tdt.source_layout()["tile"]
+PER_THREAD = tdt.source_layout()["bytes_per_thread"]
 
 CASES = [
     b"",
@@ -148,7 +149,8 @@ def test_mulu32_matches_numpy_wraparound():
 def test_count_core_is_bit_equal_to_jax(name, chunk, n, ngram):
     out_keys, fetch = 1024, 256
     jt = jdt.DeviceTokenizer(n, out_keys, fetch_keys=fetch, ngram=ngram)
-    tt = tdt.DeviceTokenizer(n, out_keys, fetch_keys=fetch, ngram=ngram)
+    tt = tdt.DeviceTokenizer(n, out_keys, device="cpu", fetch_keys=fetch,
+                             ngram=ngram)
     want = [np.asarray(x) for x in jt.map_chunk_device(chunk)]
     got = [x.numpy() for x in tt.map_chunk_device(chunk)]
     names = ("u_hi", "u_lo", "counts", "reps", "packed")
@@ -162,7 +164,7 @@ def test_count_core_is_bit_equal_to_jax(name, chunk, n, ngram):
 def test_device_counts_match_python(name, chunk, n):
     """Parity on the (token -> count) mapping, rebuilt through the
     representative offsets as the job driver does."""
-    tt = tdt.DeviceTokenizer(n, 1 << 14)
+    tt = tdt.DeviceTokenizer(n, 1 << 14, device="cpu")
     u_hi, u_lo, counts, reps, packed = tt.map_chunk_device(chunk)
     nu, n_dropped, n_tokens = packed.numpy()[:3].tolist()
     assert n_dropped == 0
@@ -182,15 +184,16 @@ def test_device_counts_match_python(name, chunk, n):
 
 def test_out_keys_overflow_detected():
     chunk = b" ".join(b"w%d" % i for i in range(200))
-    for tok_cls in (jdt.DeviceTokenizer, tdt.DeviceTokenizer):
-        tok = tok_cls(4096, out_keys=64)
+    for tok in (jdt.DeviceTokenizer(4096, out_keys=64),
+                tdt.DeviceTokenizer(4096, out_keys=64, device="cpu")):
         packed = np.asarray(tok.map_chunk_device(chunk)[-1])
         n_unique, n_dropped, _ = packed[:3].astype(np.int64).tolist()
         assert (n_unique, n_dropped) == (200, 136)
 
 
 def test_out_keys_and_fetch_keys_are_clamped():
-    tok = tdt.DeviceTokenizer(2048, out_keys=1 << 16, fetch_keys=1 << 20)
+    tok = tdt.DeviceTokenizer(2048, out_keys=1 << 16, device="cpu",
+                              fetch_keys=1 << 20)
     assert tok.max_tokens == 1025
     assert tok.out_keys == tok.fetch_keys == 1025
     u_hi, *_, packed = tok.map_chunk_device(b"a b c")
@@ -208,3 +211,179 @@ def test_the_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="no kernel"):
         tdt.tokenize_compact(torch.zeros(8, dtype=torch.uint8,
                                          device="meta"), 5)
+
+
+def test_device_tokenizer_without_a_device_needs_a_card():
+    """``device=None`` is the CUDA card, as in every entry point of the
+    port: without one it raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        assert tdt.DeviceTokenizer(4096).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tdt.DeviceTokenizer(4096)
+
+
+# --- the kernel's decomposition, modelled in numpy --------------------------
+
+_U32 = 0xFFFFFFFF
+_IDENTITY = (1, 0, 1, 0, 0, -1)
+
+
+def _compose(left, right):
+    """``right o left`` of two scan states ``(a1, c1, a2, c2, ends,
+    last_start)``, u32 maps ``x -> a x + c``, as the kernel's
+    ``combine``."""
+    a1, c1, a2, c2, e, last = left
+    b1, d1, b2, d2, f, last_r = right
+    return (b1 * a1 & _U32, (b1 * c1 + d1) & _U32, b2 * a2 & _U32,
+            (b2 * c2 + d2) & _U32, e + f, last_r if last_r >= 0 else last)
+
+
+def _kernel_model(arr: np.ndarray, max_tokens: int, per: int, threads: int):
+    """``tokenize_compact.cu``'s arithmetic over a padded chunk: threads of
+    ``per`` bytes, tiles of ``threads`` threads.
+
+    Each thread walks its bytes once by Horner's rule (reset by a space),
+    staging a row at each token end with its local hashes and start, and
+    has the state ``(a, c)`` per hash with ``a`` = P^per if it holds no
+    space, else 0.  Tile aggregates compose in tile order into each tile's
+    exclusive prefix (what the look-back yields), the thread states in
+    thread order within the tile; a row whose token began before its
+    thread, ending at its byte k, takes ``P^(k+1) * h_in + c_local`` and
+    the carried start.  Each tile's share of the padding rows must cover
+    them once.  Returns the kernel's outputs as numpy arrays."""
+    n = arr.shape[0]
+    tile = per * threads
+    size = max(1, -(-n // tile)) * tile
+    b = np.full(size, 32, np.uint8)
+    b[:n] = arr
+    nsp = ~np.isin(b, np.frombuffer(b" \t\n\r\x0b\x0c", np.uint8))
+    starts = nsp & ~np.concatenate([[False], nsp[:-1]])
+    ends = nsp & ~np.concatenate([nsp[1:], [False]])
+    v = np.where((b >= 65) & (b <= 90), b + 32, b).astype(np.uint32) + 1
+    n_threads = size // per
+    nsp_t, starts_t, ends_t, v_t = (x.reshape(n_threads, per)
+                                    for x in (nsp, starts, ends, v))
+    pos = np.arange(size).reshape(n_threads, per)
+    c = [np.zeros(n_threads, np.uint32), np.zeros(n_threads, np.uint32)]
+    begun = np.full(n_threads, -1, np.int64)
+    staged = []  # (position, thread, k, local h1, local h2, local start)
+    for k in range(per):
+        for h, p in enumerate((tdt.P1, tdt.P2)):
+            c[h] = np.where(nsp_t[:, k], c[h] * np.uint32(p) + v_t[:, k],
+                            np.uint32(0))
+        begun = np.where(starts_t[:, k], pos[:, k], begun)
+        for t in np.nonzero(ends_t[:, k])[0].tolist():
+            staged.append((t * per + k, t, k, int(c[0][t]), int(c[1][t]),
+                           int(begun[t])))
+    whole = nsp_t.all(axis=1)
+    last = np.where(starts_t.any(axis=1),
+                    pos[:, 0] + per - 1 - np.argmax(starts_t[:, ::-1], 1), -1)
+    state = [(pow(tdt.P1, per, 1 << 32) if whole[t] else 0, int(c[0][t]),
+              pow(tdt.P2, per, 1 << 32) if whole[t] else 0, int(c[1][t]),
+              int(ends_t[t].sum()), int(last[t])) for t in range(n_threads)]
+    tile_prefix = _IDENTITY
+    carry_in = []  # the state before each thread
+    tile_ends = []  # (ends before the tile, ends in it)
+    for j in range(size // tile):
+        in_tile = _IDENTITY
+        for t in range(j * threads, (j + 1) * threads):
+            carry_in.append(_compose(tile_prefix, in_tile))
+            in_tile = _compose(in_tile, state[t])
+        tile_ends.append((tile_prefix[4], in_tile[4]))
+        tile_prefix = _compose(tile_prefix, in_tile)
+    rows = []
+    for _, t, k, h1, h2, st in sorted(staged):
+        if st < 0:
+            x = carry_in[t]
+            h1 = (pow(tdt.P1, k + 1, 1 << 32) * x[1] + h1) & _U32
+            h2 = (pow(tdt.P2, k + 1, 1 << 32) * x[3] + h2) & _U32
+            st = x[5]
+        if h1 == h2 == _U32:
+            h2 -= 1
+        rows.append((h1, h2, st))
+    n_tokens = tile_prefix[4]
+    assert n_tokens == len(rows)
+    t_hi = np.zeros(max_tokens, np.uint32)
+    t_lo = np.zeros(max_tokens, np.uint32)
+    t_start = np.zeros(max_tokens, np.int32)
+    kept = rows[:max_tokens]
+    if kept:
+        t_hi[:len(kept)], t_lo[:len(kept)], t_start[:len(kept)] = zip(*kept)
+    # the padding, a range per tile between the slots that the bytes up to
+    # its start and up to its end rule out, and a slice per tile of the
+    # slots no chunk of n bytes reaches: every padding row written once
+    def bound(ends, left):
+        return min(max_tokens, ends + (max(left, 0) + 1) // 2)
+
+    writes = np.zeros(max_tokens, np.int64)
+    n_tiles = len(tile_ends)
+    reach = bound(0, n)
+    for j, (before, inside) in enumerate(tile_ends):
+        for a, b in ((bound(before + inside, n - (j + 1) * tile),
+                      bound(before, n - j * tile)),
+                     (reach + (max_tokens - reach) * j // n_tiles,
+                      reach + (max_tokens - reach) * (j + 1) // n_tiles)):
+            writes[a:b] += 1
+    assert not writes[:len(kept)].any()
+    assert (writes[len(kept):] == 1).all()
+    t_hi[len(kept):] = t_lo[len(kept):] = _U32
+    t_start[len(kept):] = 2**31 - 1
+    return t_hi, t_lo, t_start, n_tokens
+
+
+def _model_chunks(per: int, threads: int):
+    """Chunks for the model at one thread and tile width: random text,
+    tokens straddling every thread and tile edge, tokens ending on a
+    thread's last byte and starting on its first, tokens longer than a
+    tile, one token filling the chunk, a row every other byte, ragged
+    lengths."""
+    tile = per * threads
+    n = 5 * tile + 37
+    straddle = np.full(n, 32, np.uint8)
+    for e in range(per, n, per):
+        straddle[e - 2:e + 1] = np.frombuffer(b"aBc", np.uint8)
+    for e in range(tile, n, tile):
+        straddle[e - 4:e + 3] = np.frombuffer(b"TiLeEdG", np.uint8)
+    bounds = np.full(n, ord("q"), np.uint8)
+    bounds[per - 1:n // 2:per] = 32
+    bounds[n // 2::per] = 32
+    long = np.full(n, ord("L"), np.uint8)
+    long[tile + tile // 2::tile + tile // 2 + 3] = 32
+    dense = np.full(n, 32, np.uint8)
+    dense[1::2] = ord("d")
+    rng = np.random.default_rng(per * threads)
+    text = np.frombuffer(_random_text(per + threads, n, b"abXY\x00\xff ,\n"),
+                         np.uint8)
+    yield "text", text
+    yield "straddle", straddle
+    yield "thread bounds", bounds
+    yield "longer than a tile", long
+    yield "one token", np.full(n, ord("w"), np.uint8)
+    yield "dense", dense
+    for m in (1, per - 1, per + 1, tile - 1, tile + 1, 2 * tile + per // 2):
+        yield f"ragged {m}", rng.choice(
+            np.frombuffer(b"ab c\t", np.uint8), size=m)
+
+
+@pytest.mark.parametrize("per,threads", [(16, 4), (16, 8), (32, 4), (32, 8),
+                                         (32, 256)])
+def test_kernel_decomposition_is_bit_equal_to_plain(per, threads):
+    """The kernel's arithmetic (per-thread Horner states with ``a`` in {0,
+    P^per}, tile aggregates composed in tile order, the carry-in formula)
+    against ``tokenize_compact_plain`` at two thread widths and three tile
+    sizes (the last the kernel's own: 32 bytes x 256 threads), with all
+    row slots and with fewer slots than tokens."""
+    for name, arr in _model_chunks(per, threads):
+        chunk = torch.from_numpy(arr.copy())
+        n_tok = int(tdt.tokenize_compact_plain(chunk, 1)[3])
+        for max_tokens in {arr.shape[0] // 2 + 1, max(1, n_tok - 1),
+                           max(1, n_tok // 2 + 3)}:
+            want = tdt.tokenize_compact_plain(chunk, max_tokens)
+            got = _kernel_model(arr, max_tokens, per, threads)
+            assert np.array_equal(got[0], _u32(want[0])), (name, max_tokens)
+            assert np.array_equal(got[1], _u32(want[1])), (name, max_tokens)
+            assert np.array_equal(got[2], want[2].numpy()), (name,
+                                                             max_tokens)
+            assert got[3] == int(want[3]), (name, max_tokens)
+
