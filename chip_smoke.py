@@ -33,7 +33,9 @@ Phases (any failure exits non-zero, before the result line):
              the chunk as the yardstick, and the bound;
 4. kmeans    ``run_job("kmeans")`` on seeded blobs (n=2^22, d=64, k=256,
              10 iterations) in both precisions, launch counts reset just
-             before and read just after; each fit's ``attrib/*`` buckets and
+             before and read just after, each with ``metrics_out`` (its
+             ``xprof`` rows, printed in phase 12); each fit's ``attrib/*``
+             buckets and
              ``device/compute_ms``, and its ``iterate`` phase over the
              iterations agreeing within 10% with the fit's own timers
              (the one-time transfer plus the iterations) over them;
@@ -59,8 +61,9 @@ Phases (any failure exits non-zero, before the result line):
              6 kernel launches);
 7. stream    the streamed k-means: seeded blobs, n=2^24, d=64, k=512 (a
              4 GiB ``.npy``), ``run_job`` with ``mapper='auto'`` and no fit
-             budget set, which must route to ``stream_device``; 5
-             iterations in each precision, launch counts reset just before
+             budget set, which must route to ``stream_device``, with B
+             pinned to 1; 3 iterations in each precision (the pinned
+             reference of phase 12), launch counts reset just before
              and read just after (one launch per chunk per iteration),
              ms/iter, host-to-device bytes and GB/s, ``feed_wait_s`` and
              ``overlap_ratio``, the ``attrib/*`` buckets and
@@ -127,7 +130,23 @@ Phases (any failure exits non-zero, before the result line):
              prefix as one chunk (``device_chunk_keys`` reckoned from phase
              9's distinct bigrams), byte-identical to the native bigram at
              the same chunking; a device-map word count in 8 MiB chunks
-             killed past its first snapshot and resumed, byte-identical.
+             killed past its first snapshot and resumed, byte-identical;
+12. plan     the dispatch-batch resolver and the job planner on phase 7's
+             file (n=2^24, d=64, k=512) in both precisions, phase 7's 3
+             iterations per fit: the card's sustained bf16 matmul rate
+             (``torch.matmul`` at 8192^3) and device copy rate, beside its
+             name and power limit; a cold ``stream_device`` fit
+             (``dispatch_batch=0``, ``plan='auto'``, an empty ``calib_dir``,
+             the launch ledger and the resolver's memo reset as in a fresh
+             process) with its B, rule, floor and compute sources and
+             ``hbm_cap``, its ms/iter beside phase 7's B=1 and B=8; a warm
+             fit on the same ``calib_dir`` (the plan's ``curve``
+             provenance, predicted wall, ``plan/model_error_pct``); both
+             bit-equal to phase 7's pinned B=1 fit; the ``xprof`` rows of
+             ``kmeans/stream_step``, phase 4's ``kmeans/fit`` and phase 6's
+             ``kmeans/step`` (dispatches, sampled device ms, achieved
+             rates, the share of the measured peaks, the bound); launch
+             counts reset just before and read just after.
 
 Then one JSON line with every kernel, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Inputs are made from fixed
@@ -162,7 +181,7 @@ CHUNK_BYTES = 32 << 20  # JobConfig's default: 8 chunks of the corpus
 VOCAB = 1_000_000
 WC_KILL_AFTER = 3       # chunks mapped before the simulated kill
 KMEANS_KILL_AFTER = 4   # iterations run before the simulated kill
-STREAM_N, STREAM_K, STREAM_ITERS = 1 << 24, 512, 5
+STREAM_N, STREAM_K, STREAM_ITERS = 1 << 24, 512, 3
 OBS_N = 1 << 16         # the small fit of phase 8
 SCHEDULE_ITERS = 2      # iterations per run of the stager schedules
 HOST_N, HOST_K = 1 << 20, 64               # the host-assign stream
@@ -672,18 +691,21 @@ def phase_kmeans(tmp: str, backend: str, n: int, d: int, k: int,
     log(f"kmeans input: {n} x {d} points, k={k} "
         f"({time.perf_counter() - t0:.1f} s to make)")
 
-    def cfg(precision, n_iters, out):
+    def cfg(precision, n_iters, out, **kw):
         return JobConfig(input_path=path, output_path=out, backend=backend,
                          kmeans_k=k, kmeans_iters=n_iters,
-                         kmeans_precision=precision, metrics=False)
+                         kmeans_precision=precision, metrics=False, **kw)
 
     for w in wrappers:
         w.launches = 0
-    runs = {}
+    runs, xprof = {}, {}
     for precision in ("highest", "bf16"):
         out = os.path.join(tmp, f"centroids_{precision}.npy")
-        r = run_job(cfg(precision, iters, out), "kmeans")
+        doc = os.path.join(tmp, f"kmeans_{precision}.json")
+        r = run_job(cfg(precision, iters, out, metrics_out=doc), "kmeans")
         runs[precision] = r
+        with open(doc) as f:
+            xprof[precision] = json.load(f)["xprof"]
         log(f"kmeans {precision}: {iters} iterations in "
             f"{r.metrics['time/iter_s']:.4f} s "
             f"({r.metrics['time/iter_s'] / iters * 1e3:.3f} ms/iter), "
@@ -722,7 +744,8 @@ def phase_kmeans(tmp: str, backend: str, n: int, d: int, k: int,
         log(f"kmeans {precision}: fit {ms:.3f} ms/iter, its kernel alone "
             f"{prof['kernel_ms'][precision]:.3f} ms per call")
     return {"launches": launches, "ms_per_iter": ms_per_iter, "path": path,
-            "centroids": {p: r.centroids for p, r in runs.items()}, **prof}
+            "centroids": {p: r.centroids for p, r in runs.items()},
+            "xprof": xprof, **prof}
 
 
 def profile_fit_steps(pts: np.ndarray, k: int, iters: int) -> dict:
@@ -1109,8 +1132,11 @@ def phase_resume_kmeans(tmp: str, backend: str, km: dict, wrappers) -> dict:
         killed = {w.__name__: w.launches for w in wrappers}
         for w in wrappers:
             w.launches = 0
+        cfg.metrics_out = os.path.join(tmp, f"km_resume_{precision}.json")
         r = run_job(cfg, "kmeans")
         launches = {w.__name__: w.launches for w in wrappers}
+        with open(cfg.metrics_out) as f:
+            out.setdefault("xprof", {})[precision] = json.load(f)["xprof"]
         ran = KMEANS_ITERS - KMEANS_KILL_AFTER
         ms = r.metrics["time/iter_s"] / ran * 1e3
         log(f"kmeans {precision} resume: killed after {KMEANS_KILL_AFTER} "
@@ -1251,12 +1277,12 @@ def phase_stream(tmp: str, backend: str, wrappers, g) -> dict:
                          kmeans_k=k, kmeans_iters=iters,
                          kmeans_precision=precision, metrics=False, **kw)
 
-    out = {"chunk_rows": chunk_rows, "n_chunks": n_chunks,
+    out = {"chunk_rows": chunk_rows, "n_chunks": n_chunks, "path": path,
            "runs": {}, "configs": []}
     for w in wrappers:
         w.launches = 0
     for precision in ("highest", "bf16"):
-        r = run_job(cfg(precision, STREAM_ITERS), "kmeans")
+        r = run_job(cfg(precision, STREAM_ITERS, dispatch_batch=1), "kmeans")
         m = r.metrics
         if m["kmeans_mode"] != "stream_device":
             raise AssertionError(f"auto routed n={n} to {m['kmeans_mode']}")
@@ -1289,9 +1315,9 @@ def phase_stream(tmp: str, backend: str, wrappers, g) -> dict:
     # beside the counted runs, three stager schedules in turns (two
     # rounds, the second in reverse order): the counted one (depth 2, B 1),
     # the serial one (depth 1: no stager thread) and blocks of 8 chunks
-    # (the port has no auto-B resolver yet); all give the same bits
-    schedules = (("depth 2, B 1", {}), ("depth 1, B 1",
-                                        dict(pipeline_depth=1)),
+    # (B pinned; phase 12 runs the auto resolution); all give the same bits
+    schedules = (("depth 2, B 1", dict(dispatch_batch=1)),
+                 ("depth 1, B 1", dict(pipeline_depth=1, dispatch_batch=1)),
                  ("depth 2, B 8", dict(dispatch_batch=8)))
     for precision in ("highest", "bf16"):
         times, ref = {}, None
@@ -2191,6 +2217,175 @@ def phase_device_map(tmp: str, backend: str, wc: dict, collect: dict,
     return out
 
 
+# --- phase 12 ---------------------------------------------------------------
+
+#: iterations of each phase-12 fit: phase 7's, so its counted B=1 fits
+#: are the pinned reference
+PLAN_ITERS = STREAM_ITERS
+PEAK_MM = 8192        # the bf16 matmul probe's square size
+
+
+def measure_peaks() -> dict:
+    """The card's sustained bf16 matmul rate (``torch.matmul`` at
+    ``PEAK_MM``^3, FLOPs = 2 m n k over the CUDA-event time) and its
+    device-to-device copy rate (a 1 GiB ``copy_``, bytes read plus bytes
+    written over the time): the peaks ``obs/xprof.py`` quotes MFU
+    against.  A probe, not a port of anything."""
+    import torch
+
+    a = torch.randn(PEAK_MM, PEAK_MM, device="cuda", dtype=torch.bfloat16)
+    b = torch.randn(PEAK_MM, PEAK_MM, device="cuda", dtype=torch.bfloat16)
+    mm_ms = time_ms(lambda: torch.matmul(a, b), reps=20, warmup=3)
+    del a, b
+    src = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    cp_ms = time_ms(lambda: dst.copy_(src), reps=20, warmup=3)
+    del src, dst
+    torch.cuda.empty_cache()
+    return {"flops": 2.0 * PEAK_MM ** 3 / (mm_ms / 1e3),
+            "membw": 2.0 * (1 << 30) / (cp_ms / 1e3),
+            "matmul_ms": mm_ms, "copy_ms": cp_ms}
+
+
+def xprof_line(name: str, row: dict, peaks: dict) -> str:
+    """One observed program's ``xprof`` row: dispatches, sampled device
+    ms, achieved rates, MFU against the measured peak, and the bound."""
+    fl = row.get("achieved_flops_per_s")
+    by = row.get("achieved_bytes_per_s")
+    fl_s = "-" if fl is None else f"{fl:.6g}"
+    by_s = "-" if by is None else f"{by:.6g}"
+    mfu = "-" if fl is None else f"{100 * fl / peaks['flops']:.3f}"
+    bw = "-" if by is None else f"{100 * by / peaks['membw']:.3f}"
+    return (f"{name}: {row['dispatches']} dispatches ({row['compiles']} "
+            f"compiles, {row['logical_chunks']} logical chunks), sampled "
+            f"device {row['sampled_device_ms']:.3f} ms over "
+            f"{row['device_samples']} samples, device time "
+            f"{row.get('device_s_est')} s ({row.get('device_time_source')})"
+            f", achieved {fl_s} FLOP/s ({mfu}% of the measured bf16 matmul "
+            f"peak; mfu_pct {row.get('mfu_pct')}), {by_s} B/s ({bw}% of "
+            f"the measured copy rate), bound {row.get('bound')}")
+
+
+def phase_plan(tmp: str, backend: str, stream: dict, km: dict,
+               km_resume: dict, wrappers) -> dict:
+    """Phase 12: the dispatch-batch resolver and the job planner on phase
+    7's file (see the module docstring)."""
+    import torch
+
+    from map_oxidize_tpu_torch.config import JobConfig
+    from map_oxidize_tpu_torch.obs.compile import LEDGER
+    from map_oxidize_tpu_torch.runtime import dispatch, run_job
+
+    card = card_line()
+    peaks = measure_peaks()
+    log(f"peaks on {card}: bf16 matmul {PEAK_MM}^3 {peaks['matmul_ms']:.4f}"
+        f" ms = {peaks['flops']:.6g} FLOP/s; 1 GiB device copy "
+        f"{peaks['copy_ms']:.4f} ms = {peaks['membw']:.6g} B/s (read + "
+        f"written)")
+    path, n_chunks = stream["path"], stream["n_chunks"]
+    out = {"peaks": peaks, "runs": {}}
+
+    def fit(precision, name, **kw):
+        doc = os.path.join(tmp, f"plan_{precision}_{name}.json")
+        r = run_job(JobConfig(input_path=path, output_path="",
+                              backend=backend, kmeans_k=STREAM_K,
+                              kmeans_iters=PLAN_ITERS,
+                              kmeans_precision=precision, metrics=False,
+                              metrics_out=doc, **kw), "kmeans")
+        if r.metrics["kmeans_mode"] != "stream_device":
+            raise AssertionError(f"phase 12 ran {r.metrics['kmeans_mode']}")
+        if not np.isfinite(r.centroids).all():
+            raise AssertionError(f"phase 12 {precision} {name}: non-finite")
+        with open(doc) as f:
+            return r, json.load(f)
+
+    def fresh_process():
+        # a fresh process's resolver: no launch history, no memo
+        LEDGER.reset()
+        dispatch._auto_cache.clear()
+
+    for w in wrappers:
+        w.launches = 0
+    for precision in ("highest", "bf16"):
+        calib_dir = os.path.join(tmp, f"calib_{precision}")
+        runs = {}
+        for name in ("cold", "warm"):
+            fresh_process()
+            runs[name] = fit(precision, name, dispatch_batch=0, plan="auto",
+                             calib_dir=calib_dir)
+        # the pinned B=1 reference: phase 7's counted fit of this file
+        ref = stream["runs"][precision]["centroids"]
+        row = {}
+        sched = stream["runs"][precision]["schedules"]
+        for name in ("cold", "warm"):
+            r, doc = runs[name]
+            m = r.metrics
+            if r.centroids.tobytes() != ref.tobytes():
+                raise AssertionError(f"phase 12 {precision} {name}: auto B "
+                                     f"{m['dispatch/batch']} differs from "
+                                     "a pinned B=1")
+            ms = m["time/feed_s"] / PLAN_ITERS * 1e3
+            rec = {k[len("dispatch/"):]: v for k, v in m.items()
+                   if k.startswith("dispatch/")}
+            plan = doc.get("plan") or {}
+            row[name] = {"ms_per_iter": ms, "dispatch": rec,
+                         "plan_provenance": plan.get("provenance"),
+                         "predicted_wall_ms": (plan.get("predicted")
+                                               or {}).get("wall_ms"),
+                         "actual_wall_ms": (plan.get("actual")
+                                            or {}).get("wall_ms"),
+                         "model_error_pct": plan.get("model_error_pct"),
+                         "xprof": doc["xprof"]["programs"].get(
+                             "kmeans/stream_step")}
+            log(f"phase 12 {precision} {name} (dispatch_batch=0, "
+                f"calib_dir {'empty' if name == 'cold' else 'warm'}): B "
+                f"{rec.get('batch')}, rule {rec.get('rule')}, floor "
+                f"{rec.get('floor_ms')} ms ({rec.get('floor_source')}), "
+                f"compute {rec.get('compute_ms_per_chunk')} ms "
+                f"({rec.get('compute_source')}), produce "
+                f"{rec.get('produce_ms_per_chunk')} ms, hbm_cap "
+                f"{rec.get('hbm_cap')}; {ms:.3f} ms/iter beside phase 7's "
+                f"B=1 {', '.join(f'{t:.3f}' for t in sched['depth 2, B 1'])}"
+                f" and B=8 "
+                f"{', '.join(f'{t:.3f}' for t in sched['depth 2, B 8'])} "
+                f"ms/iter; plan provenance {row[name]['plan_provenance']}, "
+                f"predicted wall {row[name]['predicted_wall_ms']} ms, "
+                f"actual {row[name]['actual_wall_ms']} ms, "
+                f"plan/model_error_pct {m.get('plan/model_error_pct')}; "
+                f"{card}")
+            log(f"phase 12 {precision} {name} " + xprof_line(
+                "kmeans/stream_step", row[name]["xprof"], peaks))
+        if row["warm"]["plan_provenance"] != "curve":
+            raise AssertionError(f"phase 12 {precision}: the warm plan is "
+                                 f"{row['warm']['plan_provenance']}")
+        if row["cold"]["dispatch"].get("batch_mode") != "auto":
+            raise AssertionError(f"phase 12 {precision}: not auto")
+        row["pinned_ms_per_iter"] = stream["runs"][precision]["ms_per_iter"]
+        log(f"phase 12 {precision}: cold and warm auto-B centroids "
+            f"bit-equal to phase 7's pinned B=1 fit "
+            f"({row['pinned_ms_per_iter']:.3f} ms/iter)")
+        for src, name, doc in (("phase 4", "kmeans/fit",
+                                km["xprof"][precision]),
+                               ("phase 6", "kmeans/step",
+                                km_resume["xprof"][precision])):
+            prog = doc["programs"].get(name)
+            if prog is None:
+                raise AssertionError(f"{src} observed no {name}")
+            row[name] = prog
+            log(f"phase 12 {precision}: {src}'s " + xprof_line(
+                name, prog, peaks) + f"; {card}")
+        out["runs"][precision] = row
+    launches = {w.__name__: w.launches for w in wrappers}
+    want = 2 * 2 * PLAN_ITERS * n_chunks
+    log(f"phase 12 launches: {launches} (2 precisions x 2 fits x "
+        f"{PLAN_ITERS} iterations x {n_chunks} chunks = {want})")
+    if launches["fused_assign_sum"] != want:
+        raise AssertionError(f"phase 12 launched {launches}, expected {want}")
+    out["launches"] = launches
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2227,13 +2422,16 @@ def main() -> int:
         collect = phase_collect(tmp, "cuda", wc, wrappers)
         dataflow = phase_dataflow(tmp, "cuda", wrappers)
         devmap = phase_device_map(tmp, "cuda", wc, collect, wrappers)
+        plan = phase_plan(tmp, "cuda", stream, km, km_resume, wrappers)
     if km["launches"]["fused_assign_sum"] != 2 * KMEANS_ITERS:
         raise AssertionError(f"kmeans path launched the kernel "
                              f"{km['launches']} times, expected "
                              f"{2 * KMEANS_ITERS}")
-    # the counted runs of both k-means paths: phase 4's and phase 7's
+    # the counted runs of both k-means paths: phase 4's, phase 7's and
+    # phase 12's
     launches = (km["launches"]["fused_assign_sum"]
-                + stream["launches"]["fused_assign_sum"])
+                + stream["launches"]["fused_assign_sum"]
+                + plan["launches"]["fused_assign_sum"])
     main_cfg = next(c for c in configs if c["k"] == KMEANS_K
                     and c["precision"] == "highest" and not c["weighted"])
     kernels = [{
@@ -2298,8 +2496,9 @@ def main() -> int:
         f"phase 10 {dataflow['wall_s']:.1f} s; device-map words/s "
         f"{devmap['wordcount']['metrics']['records_in'] / job_s(devmap['wordcount']['metrics']):.0f}, "
         f"tokenize_compact {tok['ms']:.3f} ms per 32 MiB chunk, phase 11 "
-        f"{devmap['wall_s']:.1f} s; "
-        f"total {time.perf_counter() - t_start:.1f} s")
+        f"{devmap['wall_s']:.1f} s; phase 12 auto B "
+        f"{ {p: (r['cold']['dispatch']['batch'], r['warm']['dispatch']['batch']) for p, r in plan['runs'].items()} }"
+        f" (cold, warm); total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

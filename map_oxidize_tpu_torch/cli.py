@@ -199,6 +199,31 @@ def build_parser() -> argparse.ArgumentParser:
                         "partition row-conservation audits, key-skew "
                         "telemetry, data/* gauges — obs/dataplane.py); "
                         "on by default, pure host-side accounting")
+    p.add_argument("--hbm-sample-interval", type=float, default=0.0,
+                   help="device sampler: seconds between background reads "
+                        "of the live device memory (hbm/live_bytes "
+                        "watermark gauges); 0 = off")
+    p.add_argument("--stall-factor", type=float, default=0.0,
+                   help="stall detector: warn with the open span names "
+                        "when no chunk completes within this multiple of "
+                        "the median chunk time; 0 = off")
+    p.add_argument("--plan", choices=["auto", "off"], default="auto",
+                   help="job planner: auto (default) solves the tunable "
+                        "knobs from the calibration store's measured "
+                        "curves before the run and records the plan "
+                        "(per-knob provenance curve/memo/default/pinned, "
+                        "and a predicted wall scored against the measured "
+                        "one as plan/model_error_pct); off skips it")
+    p.add_argument("--calib-dir", default=None,
+                   help="persistent calibration store: accumulate this "
+                        "run's per-program dispatch/compute and its wall "
+                        "attribution into <dir>/calib.json (merged "
+                        "atomically across runs); the next run's planner "
+                        "and auto dispatch batch read it")
+    p.add_argument("--calib-min-samples", type=int, default=3,
+                   help="chooser evidence floor: sampled latencies "
+                        "required in the exact payload bucket before a "
+                        "store curve may steer the exchange collective")
     p.add_argument("-v", "--verbose", action="store_true")
     p.add_argument("-q", "--quiet", action="store_true")
     return p
@@ -242,6 +267,11 @@ def config_from_args(args: argparse.Namespace) -> JobConfig:
         progress=args.progress,
         progress_interval_s=args.progress_interval,
         data_audit=not args.no_data_audit,
+        hbm_sample_s=args.hbm_sample_interval,
+        stall_warn_factor=args.stall_factor,
+        plan=args.plan,
+        calib_dir=args.calib_dir,
+        calib_min_samples=args.calib_min_samples,
     ).validate()
 
 

@@ -159,8 +159,37 @@ class JobConfig:
     #: conservation, key skew and reduction ratio (``data/*``); host-side
     #: accounting, on by default
     data_audit: bool = True
+    #: device sampler (obs/xprof.py): seconds between background reads of
+    #: the live device memory (``hbm/live_bytes_device<i>``); 0 = off
+    hbm_sample_s: float = 0.0
+    #: stall detector: warn, naming the open spans, when no chunk
+    #: completes within this multiple of the median inter-chunk interval;
+    #: 0 = off
+    stall_warn_factor: float = 0.0
+    #: persistent calibration store (obs/calib.py): directory whose
+    #: ``calib.json`` accumulates measured per-(platform, devices,
+    #: topology) program and workload rows, loaded at job start and
+    #: merged at finish; None disables
+    calib_dir: str | None = None
+    #: job planner (runtime/planner.py + obs/plan.py): 'auto' solves the
+    #: tunable knobs from the calibration store's curves before the run
+    #: and records the plan (per-knob value + provenance, and a predicted
+    #: wall scored at finish as ``plan/model_error_pct``); 'off' skips it
+    plan: str = "auto"
+    #: the collective chooser's evidence floor: sampled latencies
+    #: required in the exact payload bucket before a curve may steer it
+    calib_min_samples: int = 3
 
     def validate(self) -> "JobConfig":
+        if self.plan not in ("auto", "off"):
+            raise ValueError(f"plan must be auto|off, got {self.plan!r}")
+        if self.calib_min_samples < 1:
+            raise ValueError(
+                "calib_min_samples must be >= 1 sampled latencies")
+        if self.hbm_sample_s < 0:
+            raise ValueError("hbm_sample_s must be >= 0 (0 = off)")
+        if self.stall_warn_factor < 0:
+            raise ValueError("stall_warn_factor must be >= 0 (0 = off)")
         if self.tokenizer not in ("ascii", "unicode"):
             raise ValueError(
                 f"tokenizer must be ascii|unicode, got {self.tokenizer!r}")

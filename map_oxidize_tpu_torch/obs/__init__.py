@@ -17,13 +17,24 @@ the surfaces the port's jobs run:
 * :mod:`~map_oxidize_tpu_torch.obs.flight` — the crash envelope
   (``crash_dir``) every driver body runs in;
 * :mod:`~map_oxidize_tpu_torch.obs.profiler` — the whole-job
-  ``torch.profiler`` trace (``trace_dir``).
+  ``torch.profiler`` trace (``trace_dir``);
+* :mod:`~map_oxidize_tpu_torch.obs.compile` and
+  :mod:`~map_oxidize_tpu_torch.obs.xprof` — the launch ledger of every
+  observed device program and its roofline rows (``compile/*``,
+  ``xprof/*``), plus the device sampler (``hbm_sample_s``,
+  ``stall_warn_factor``);
+* :mod:`~map_oxidize_tpu_torch.obs.calib` — the cross-run calibration
+  store (``calib_dir``);
+* :mod:`~map_oxidize_tpu_torch.obs.plan` — the job plan
+  (``runtime/planner.py``), published at the start and scored at the end
+  (``plan/*``, ``plan='off'`` skips it);
+* :mod:`~map_oxidize_tpu_torch.obs.critpath` — the one-process critical
+  path (``critpath/*``).
 
 One ``Obs`` is created per job and handed to the layers that record into
-it (driver, engine, pipeline, checkpoint store).  The compile ledger,
-roofline, calibration store, planner, critical path, SLO evaluator, live
-server and time series of the JAX package are not ported yet; their hooks
-are left out, not stubbed.
+it (driver, engine, pipeline, checkpoint store).  The run ledger, SLO
+evaluator, live server and time series of the JAX package are not ported
+yet; their hooks are left out, not stubbed.
 """
 
 from __future__ import annotations
@@ -35,6 +46,12 @@ import threading
 import time
 from dataclasses import dataclass, field
 
+# the job-end modules load with the package, not inside a job's first
+# finish, where their import would be unattributed wall
+from map_oxidize_tpu_torch.obs import attrib, critpath, xprof
+from map_oxidize_tpu_torch.obs import calib as _calib
+from map_oxidize_tpu_torch.obs import compile as _compile
+from map_oxidize_tpu_torch.obs import plan as _plan
 from map_oxidize_tpu_torch.obs.context import current_obs, use_obs
 from map_oxidize_tpu_torch.obs.heartbeat import Heartbeat
 from map_oxidize_tpu_torch.obs.metrics import (
@@ -44,6 +61,9 @@ from map_oxidize_tpu_torch.obs.metrics import (
     sample_host_memory,
 )
 from map_oxidize_tpu_torch.obs.trace import NULL_SPAN, Span, Tracer
+from map_oxidize_tpu_torch.utils.logging import get_logger
+
+_log = get_logger(__name__)
 
 __all__ = [
     "Heartbeat",
@@ -91,6 +111,22 @@ class Obs:
     #: :meth:`request_cancel`, observed at phase starts and per-block feeds
     cancel_event: threading.Event = field(default_factory=threading.Event)
     cancel_reason: "str | None" = None
+    #: the device sampler (device-memory watermarks, stall detector) when
+    #: the config asks for either; stopped by finish and the flight
+    #: recorder
+    sampler: "object | None" = None
+    #: the launch-ledger baseline taken at creation; ``finish_xprof``
+    #: deltas against it
+    xprof_base: "dict | None" = None
+    #: calibration store: ``calib`` accumulates THIS run (merged into the
+    #: file at finish), ``calib_prior`` is the loaded history consumers
+    #: read (the planner, auto-B); both None without ``calib_dir`` or when
+    #: the store refused to load
+    calib: "object | None" = None
+    calib_prior: "object | None" = None
+    #: the job plan, solved in ``recording`` before the body runs and
+    #: scored in ``finish``; None with ``plan='off'``
+    plan: "dict | None" = None
     #: the data-plane audit, created by :meth:`ensure_dataplane`; stays
     #: None when ``config.data_audit`` is off
     dataplane: "object | None" = None
@@ -100,8 +136,12 @@ class Obs:
 
     @classmethod
     def from_config(cls, config) -> "Obs":
-        """Build the bundle a job's config asks for.  ``trace_out='-'``
-        collects the trace for ``result.trace`` without writing a file."""
+        """Build the bundle a job's config asks for (JAX ``Obs.from_config``
+        :194): the launch-ledger window opens, the device sampler starts
+        when asked for, and ``calib_dir``'s store loads (recording
+        ``calib/store_runs``, or ``calib/load_refused`` when it refuses).
+        ``trace_out='-'`` collects the trace for ``result.trace`` without
+        writing a file."""
         hb = None
         if config.progress:
             total = None
@@ -111,9 +151,31 @@ class Obs:
                 pass
             hb = Heartbeat(total_bytes=total,
                            interval_s=config.progress_interval_s)
-        return cls(registry=MetricsRegistry(),
-                   tracer=Tracer(enabled=bool(config.trace_out)),
-                   heartbeat=hb, dataplane_enabled=bool(config.data_audit))
+        obs = cls(registry=MetricsRegistry(),
+                  tracer=Tracer(enabled=bool(config.trace_out)),
+                  heartbeat=hb, dataplane_enabled=bool(config.data_audit))
+        obs.xprof_base = _compile.LEDGER.activate(obs)
+        if config.hbm_sample_s > 0 or config.stall_warn_factor > 0:
+            obs.sampler = xprof.DeviceSampler(
+                obs, interval_s=config.hbm_sample_s,
+                stall_factor=config.stall_warn_factor)
+            obs.sampler.start()
+        if config.calib_dir:
+            path = os.path.join(config.calib_dir, _calib.CALIB_FILE)
+            try:
+                # the history loads read-only for its consumers; the run
+                # accumulates into a fresh store, so the finish-time merge
+                # never counts the history twice
+                obs.calib_prior = _calib.CalibStore.load(path)
+                obs.calib = _calib.CalibStore(path=path)
+                obs.registry.set("calib/store_runs",
+                                 obs.calib_prior.doc.get("runs", 0))
+            except _calib.CalibMismatch as e:
+                # stale or torn evidence never merges: the run proceeds
+                # uncalibrated, loudly
+                obs.registry.set("calib/load_refused", 1)
+                _log.warning("calibration store refused to load: %s", e)
+        return obs
 
     def ensure_dataplane(self, n_partitions: int, conserves: bool = True):
         """Create (once) and return the data-plane audit, or None when
@@ -134,6 +196,16 @@ class Obs:
             return None
         self.dataplane.publish(self.registry)
         return self.dataplane.doc()
+
+    def knob(self, name: str, fallback):
+        """The planner-effective value of a tunable knob: the plan's value
+        when a plan exists, else ``fallback`` (the config's).  Drivers
+        read knobs here so a solved value applies without mutating the
+        config."""
+        row = ((self.plan or {}).get("knobs") or {}).get(name)
+        if row is not None and row.get("value") is not None:
+            return row["value"]
+        return fallback
 
     def request_cancel(self, reason: str = "cancelled") -> None:
         """Ask the job to stop at its next cancellation point (a phase
@@ -194,16 +266,72 @@ class Obs:
             "wall_start_unix_s": round(self.tracer.wall_start, 6),
         }
 
+    def finish_xprof(self) -> dict | None:
+        """Close the job's launch-ledger window: stop the sampler, fold the
+        per-job delta into ``compile/*`` / ``xprof/*`` gauges and return
+        the structured report (None on a second call)."""
+        if self.sampler is not None:
+            self.sampler.stop()
+            self.sampler = None
+        local = _compile.LEDGER.deactivate(self)
+        base, self.xprof_base = self.xprof_base, None
+        if base is None:
+            return None
+        report = xprof.job_report(_compile.LEDGER.job_delta(base, local))
+        for k, v in xprof.flatten_report(report).items():
+            self.registry.set(k, v)
+        return report
+
+    def _merge_calibration(self, xprof_report: dict | None,
+                           workload: str | None, corpus_bytes: float,
+                           attrib_doc: dict | None) -> None:
+        """Fold this run's program rows and its workload's wall
+        attribution into the calibration store and merge it into the
+        file.  A refusal records ``calib/merge_refused``; the job's result
+        never depends on the store."""
+        if self.calib is None:
+            return
+        try:
+            ident = _calib.run_identity(self.n_processes)
+            touched = self.calib.accumulate_run(ident, [], xprof_report)
+            if workload:
+                touched += self.calib.accumulate_workload(
+                    ident, workload, corpus_bytes, attrib_doc)
+            if touched:
+                self.calib.save_merged()
+                self.registry.set("calib/rows_merged", touched)
+                self.registry.set("calib/runs",
+                                  self.calib.doc.get("runs", 0))
+        except _calib.CalibMismatch as e:
+            self.registry.set("calib/merge_refused", 1)
+            _log.warning("calibration store refused the merge: %s", e)
+        except OSError as e:
+            _log.warning("calibration merge failed: %s", e)
+
     def finish(self, config, workload: str | None = None
                ) -> tuple[dict, list | None]:
-        """End-of-job hook: the wall attribution, the data-plane audit,
-        final memory watermarks, the ``metrics_out`` and ``trace_out``
-        exports (stamped), and the ``(summary, trace_events)`` pair the
-        result carries.  ``trace_events`` is None when tracing was off."""
-        from map_oxidize_tpu_torch.obs import attrib
-
+        """End-of-job hook: the launch-ledger report, the wall attribution,
+        the critical path, the plan's score, the calibration merge, the
+        data-plane audit, final memory watermarks, the ``metrics_out`` and
+        ``trace_out`` exports (stamped), and the ``(summary,
+        trace_events)`` pair the result carries.  ``trace_events`` is None
+        when tracing was off."""
+        xprof_report = self.finish_xprof()
         attrib_doc = attrib.finalize(
-            self, max(time.time() - self.tracer.wall_start, 1e-9))
+            self, xprof_report,
+            max(time.time() - self.tracer.wall_start, 1e-9))
+        critpath_doc = critpath.degenerate_from_attrib(attrib_doc,
+                                                       process=self.process)
+        critpath.publish(self.registry, critpath_doc)
+        if self.plan is not None:
+            _plan.finalize(self, self.plan, attrib_doc)
+        corpus_bytes = 0.0
+        try:
+            corpus_bytes = float(os.path.getsize(config.input_path))
+        except OSError:
+            pass
+        self._merge_calibration(xprof_report, workload, corpus_bytes,
+                                attrib_doc)
         data_doc = self.finish_dataplane()
         sample_host_memory(self.registry)
         sample_device_memory(self.registry)
@@ -213,8 +341,13 @@ class Obs:
         if config.metrics_out:
             doc = dict(self.registry.to_dict(), meta=meta)
             doc["attrib"] = attrib_doc
+            if self.plan is not None:
+                doc["plan"] = self.plan
+            doc["critpath"] = critpath_doc
             if data_doc is not None:
                 doc["data"] = data_doc
+            if xprof_report is not None:
+                doc["xprof"] = xprof_report
             write_json_atomic(config.metrics_out, doc)
         trace = self.tracer.chrome_trace() if self.tracer.enabled else None
         if trace is not None:
@@ -232,8 +365,22 @@ class Obs:
         their configured paths and dumps a post-mortem bundle under
         ``config.crash_dir``; then the exception propagates unchanged.
         Also binds this bundle as the context's current job
-        (:mod:`map_oxidize_tpu_torch.obs.context`)."""
+        (:mod:`map_oxidize_tpu_torch.obs.context`).
+
+        Unless ``config.plan`` is ``'off'``, the job plan is solved first
+        (``runtime/planner.py``) and its ``plan/*`` gauges published;
+        planning is evidence, never a reason to fail the job."""
         self.workload = workload
+        if self.plan is None and workload and config.plan != "off":
+            from map_oxidize_tpu_torch.runtime import planner as _planner
+
+            try:
+                self.plan = _planner.build_plan(
+                    config, workload, calib_prior=self.calib_prior,
+                    n_processes=self.n_processes)
+                _plan.publish(self.registry, self.plan)
+            except Exception as e:
+                _log.warning("job planning failed: %s", e)
         try:
             with use_obs(self):
                 yield self

@@ -20,7 +20,8 @@ port feeds:
     ring and the first copies of a streamed fit).
 ``host_produce``
     Host production on the critical path: the ``split`` phase plus
-    explicitly measured inline produce (``attrib/probe_ms``).  In a
+    explicitly measured inline produce (``attrib/probe_ms``: the dispatch
+    resolver's produce probe).  In a
     pipelined run the steady-state produce is hidden in the prefetch
     thread; its visible residue is ``feed_wait``.
 ``feed_wait``
@@ -32,11 +33,12 @@ port feeds:
     host-to-device copy (``feed_block_ms`` total minus those, clamped at
     zero).
 ``dispatch_gap``
-    Per-launch dispatch walls (``device/dispatch_gap_ms``); the port has
-    no launch ledger yet, so this bucket reads 0.
+    Call-to-return walls of every non-compiling dispatch of an observed
+    program (``device/dispatch_gap_ms``, from the launch ledger,
+    :mod:`~map_oxidize_tpu_torch.obs.compile`).
 ``device_compute``
-    The blocking fetches the job pays (``device/compute_ms``): the
-    consumer-visible device time.
+    The device waits the job pays (``device/compute_ms``): the blocking
+    fetches and the ledger's sampled device waits.
 ``collective_wait``
     Lockstep waits on the slowest participant (``dist/flag_wait_ms``); 0
     on one device.
@@ -45,9 +47,10 @@ port feeds:
 ``host_sort``
     Host-side dataflow finalize compute (``attrib/host_sort_ms``).
 ``compile``
-    Compiling dispatches, from the per-program rows (``programs``), plus
-    ``attrib/lowering_ms``.  The port has no compile ledger, so
-    ``programs`` is ``{}``.
+    Compiling dispatches (first calls under a new signature, a kernel
+    build included), from the ledger's per-program rows (``programs``),
+    plus ``attrib/lowering_ms`` (the ledger's cost reckoning of new
+    signatures).
 ``host_write``
     The host-only ``write`` output phase.
 """
@@ -87,9 +90,9 @@ def compute(obs, programs: dict | None = None,
             elapsed_s: float | None = None) -> dict:
     """The attribution document: wall, per-bucket ms + pct, remainder.
 
-    ``programs`` is the per-program compile/dispatch row map (``{}`` when
-    None: the port has no compile ledger).  ``elapsed_s`` overrides the
-    wall (default: now - the tracer's wall start)."""
+    ``programs`` is the per-program compile/dispatch row map of the
+    job's launch-ledger report (``{}`` when None).  ``elapsed_s``
+    overrides the wall (default: now - the tracer's wall start)."""
     programs = programs or {}
     if elapsed_s is None:
         elapsed_s = max(time.time() - obs.tracer.wall_start, 1e-9)
@@ -175,11 +178,12 @@ def publish(obs, doc: dict) -> None:
         hb.where = where_token(doc)
 
 
-def finalize(obs, elapsed_s: float) -> dict:
+def finalize(obs, xprof_report: dict | None, elapsed_s: float) -> dict:
     """The end-of-job attribution (``Obs.finish`` and the flight
-    recorder): computed, published and returned for the metrics
-    document."""
-    doc = compute(obs, elapsed_s=elapsed_s)
+    recorder), from the closed launch-ledger window's per-program rows:
+    computed, published and returned for the metrics document."""
+    programs = (xprof_report or {}).get("programs") or {}
+    doc = compute(obs, programs=programs, elapsed_s=elapsed_s)
     publish(obs, doc)
     return doc
 

@@ -60,8 +60,11 @@ def _record(obs, config, exc, workload):
 
     err = f"{type(exc).__name__}: {exc}"
     obs.tracer.close_open_spans(error=err)
+    # the launch-ledger window closes here too: the compile and dispatch
+    # record as of the crash lands in the bundle
+    xprof_report = obs.finish_xprof()
     attrib_doc = attrib.finalize(
-        obs, max(time.time() - obs.tracer.wall_start, 1e-9))
+        obs, xprof_report, max(time.time() - obs.tracer.wall_start, 1e-9))
     sample_host_memory(obs.registry)
     sample_device_memory(obs.registry)
     obs.registry.set("aborted", True)
@@ -69,6 +72,8 @@ def _record(obs, config, exc, workload):
     meta = obs.stamp(config, workload)
     metrics_doc = dict(obs.registry.to_dict(), meta=meta)
     metrics_doc["attrib"] = attrib_doc
+    if xprof_report is not None:
+        metrics_doc["xprof"] = xprof_report
     trace = obs.tracer.chrome_trace() if obs.tracer.enabled else None
     if trace is not None:
         trace.insert(0, {"name": "moxt_meta", "ph": "M",

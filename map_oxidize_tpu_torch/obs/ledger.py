@@ -20,7 +20,8 @@ import json
 _NON_IDENTITY_FIELDS = frozenset({
     "input_path", "output_path", "checkpoint_dir", "keep_intermediates",
     "trace_dir", "trace_out", "metrics_out", "metrics", "progress",
-    "progress_interval_s", "crash_dir", "data_audit",
+    "progress_interval_s", "crash_dir", "data_audit", "hbm_sample_s",
+    "stall_warn_factor", "calib_dir", "calib_min_samples",
 })
 
 

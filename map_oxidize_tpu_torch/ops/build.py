@@ -15,6 +15,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -51,10 +52,13 @@ def library_path(name: str) -> Path:
 def build(*names: str) -> dict[str, Path]:
     """Compile the named kernels (all of :data:`KERNELS` by default) that
     have no current library, one ``nvcc`` each, all started together.
-    Raises with the compiler's output if any build fails."""
+    Raises with the compiler's output if any build fails.  The build's wall
+    counts as kernel compilation of the observed program whose first call
+    triggered it (``obs.compile.note_backend_compile``)."""
     names = names or KERNELS
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {name: library_path(name) for name in names}
+    t0 = time.perf_counter()
     procs = {}
     for name, path in paths.items():
         if path.is_file():
@@ -72,6 +76,10 @@ def build(*names: str) -> dict[str, Path]:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, paths[name])
+    if procs:
+        from map_oxidize_tpu_torch.obs.compile import note_backend_compile
+
+        note_backend_compile((time.perf_counter() - t0) * 1e3)
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return paths

@@ -44,6 +44,7 @@ import functools
 import numpy as np
 import torch
 
+from map_oxidize_tpu_torch.obs.compile import observed
 from map_oxidize_tpu_torch.ops.hashing import SENTINEL
 from map_oxidize_tpu_torch.ops.segment_reduce import (
     SENTINEL_KEY,
@@ -382,6 +383,11 @@ def tokenize_count_core(chunk: torch.Tensor, max_tokens: int,
     return u_hi, u_lo, counts, reps, packed
 
 
+#: :func:`tokenize_count_core` under the launch ledger (JAX
+#: ``ops/device_tokenize.py:236``)
+tokenize_count_chunk = observed("device_map/tokenize", tokenize_count_core)
+
+
 def pad_chunk(chunk: bytes, n: int) -> np.ndarray:
     """Chunk bytes -> the kernel's fixed [n] uint8 window, space-padded
     (spaces yield no tokens, so no valid-length scalar rides along)."""
@@ -422,8 +428,10 @@ class DeviceTokenizer:
     def map_padded(self, dev: torch.Tensor):
         """``(u_hi, u_lo, counts, reps, packed)`` of one padded chunk
         already on the device."""
-        return tokenize_count_core(dev, self.max_tokens, self.out_keys,
-                                   self.fetch_keys, self.ngram)
+        return tokenize_count_chunk(dev, max_tokens=self.max_tokens,
+                                    out_keys=self.out_keys,
+                                    fetch_keys=self.fetch_keys,
+                                    ngram=self.ngram)
 
     def map_chunk_device(self, chunk: bytes):
         """Device tensors ``(u_hi, u_lo, counts, reps, packed)`` for one

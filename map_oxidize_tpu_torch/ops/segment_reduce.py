@@ -30,6 +30,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from map_oxidize_tpu_torch.obs.compile import observed
+
 #: order key of the padding pair (SENTINEL, SENTINEL): int64 max
 SENTINEL_KEY = (1 << 63) - 1
 _SIGN64 = np.uint64(1 << 63)
@@ -96,8 +98,9 @@ def _identity(combine: str, dtype):
 
 
 def make_accumulator(capacity: int, val_shape=(), val_dtype=torch.int32,
-                     combine: str = "sum", device="cpu"):
-    """A fresh accumulator on ``device``: SENTINEL keys, identity values."""
+                     combine: str = "sum", *, device):
+    """A fresh accumulator on ``device`` (no default: the caller names the
+    card or the CPU): SENTINEL keys, identity values."""
     val_dtype = torch_dtype(val_dtype)
     keys = torch.full((capacity,), SENTINEL_KEY, dtype=torch.int64,
                       device=device)
@@ -183,6 +186,32 @@ def merge_batch_into_accumulator(acc_keys, acc_vals, ovf, stacked_keys,
     return acc_keys, acc_vals, n_unique, ovf
 
 
+def unpack_batch(packed):
+    """A packed ``(3, N)`` int32 block of u32 bit patterns (hi keys, lo
+    keys, int32 values: the JAX package's packed transfer) -> ``(order
+    keys, values)`` on the block's device."""
+    return keys_from_plane_tensors(packed[0], packed[1]), packed[2]
+
+
+def merge_packed_into_accumulator(acc_keys, acc_vals, ovf, packed,
+                                  combine: str = "sum"):
+    """:func:`merge_into_accumulator` of one packed ``(3, N)`` batch of
+    scalar int32 values: the host pays ONE copy per flush instead of two
+    (JAX ``merge_packed_into_accumulator``)."""
+    b_keys, b_vals = unpack_batch(packed)
+    return merge_into_accumulator(acc_keys, acc_vals, ovf, b_keys, b_vals,
+                                  combine)
+
+
+def merge_packed_batch_into_accumulator(acc_keys, acc_vals, ovf, stacked,
+                                        combine: str = "sum"):
+    """:func:`merge_batch_into_accumulator` of B packed batches stacked
+    into one ``(B, 3, N)`` copy (JAX ``_merge_packed_batch``)."""
+    b_keys, b_vals = unpack_batch(stacked.transpose(0, 1))
+    return merge_batch_into_accumulator(acc_keys, acc_vals, ovf, b_keys,
+                                        b_vals, combine)
+
+
 def pack_accumulator_state(keys, vals, n_unique, ovf):
     """Everything finalize needs in ONE ``(3, cap+1)`` int64 tensor with the
     JAX package's packed layout: row 0 = hi keys, row 1 = lo keys, row 2 =
@@ -198,3 +227,14 @@ def pack_accumulator_state(keys, vals, n_unique, ovf):
                          torch.zeros((), dtype=torch.int64,
                                      device=keys.device)])
     return torch.cat([torch.stack([hi, lo, v]), extra[:, None]], dim=1)
+
+
+#: the fold engine's device programs under the launch ledger, by the JAX
+#: package's program names (``ops/segment_reduce.py`` :157, :200, :207,
+#: :222)
+merge = observed("engine/merge", merge_into_accumulator)
+merge_packed = observed("engine/merge_packed", merge_packed_into_accumulator)
+merge_packed_batch = observed(
+    "engine/merge_packed_batch", merge_packed_batch_into_accumulator,
+    chunks_of=lambda *a, **kw: a[3].shape[0])
+pack_finalize = observed("engine/pack_finalize", pack_accumulator_state)

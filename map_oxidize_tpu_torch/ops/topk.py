@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from map_oxidize_tpu_torch.obs.compile import observed
 from map_oxidize_tpu_torch.ops.segment_reduce import SENTINEL_KEY
 
 
@@ -39,6 +40,10 @@ def top_k_pairs(keys, vals, k: int):
     top_vals, idx = torch.sort(mask_padding(keys, vals), descending=True,
                                stable=True)
     return keys[idx[:k]], top_vals[:k]
+
+
+#: :func:`top_k_pairs` under the launch ledger (JAX ``ops/topk.py:59``)
+top_k = observed("engine/top_k", top_k_pairs)
 
 
 def top_k_candidate_indices(vals, k: int):

@@ -31,6 +31,7 @@ import torch
 from map_oxidize_tpu_torch.api import MapOutput
 from map_oxidize_tpu_torch.config import JobConfig
 from map_oxidize_tpu_torch.obs import observe_device_wait
+from map_oxidize_tpu_torch.obs.compile import observed
 from map_oxidize_tpu_torch.ops.hashing import SENTINEL
 from map_oxidize_tpu_torch.ops.segment_reduce import (
     keys_from_plane_tensors,
@@ -61,6 +62,13 @@ def sort_pairs(stacked: torch.Tensor) -> torch.Tensor:
     khi, klo = plane_tensors_from_keys(key)
     dhi, dlo = plane_tensors_from_keys(doc)
     return torch.stack([khi, klo, dhi, dlo])
+
+
+@observed("collect/sort")
+def sort_pairs_observed(stacked: torch.Tensor) -> torch.Tensor:
+    """:func:`sort_pairs` under the launch ledger (JAX
+    ``runtime/collect.py:41``), looked up at each call."""
+    return sort_pairs(stacked)
 
 
 class CollectEngine:
@@ -381,7 +389,7 @@ class CollectEngine:
         stacked = (self._batches[0] if len(self._batches) == 1
                    else torch.cat(self._batches, dim=1))
         self._batches, self._batch_rows = [], []
-        out = sort_pairs(stacked)[:, :total]
+        out = sort_pairs_observed(stacked)[:, :total]
         del stacked
         t0 = time.perf_counter()
         packed = out.cpu().numpy().view(np.uint32)

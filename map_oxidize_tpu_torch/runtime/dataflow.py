@@ -46,25 +46,35 @@ from map_oxidize_tpu_torch.api import MapOutput
 from map_oxidize_tpu_torch.config import JobConfig
 from map_oxidize_tpu_torch.obs import Obs
 from map_oxidize_tpu_torch.obs.attrib import _hist_total_ms
+from map_oxidize_tpu_torch.obs.compile import LEDGER
 from map_oxidize_tpu_torch.runtime.pipeline import pipelined
 from map_oxidize_tpu_torch.utils.logging import get_logger
 
 _log = get_logger(__name__)
 
 
+def _compile_ms(obs) -> float:
+    """The job's compiling-call walls so far plus the ledger's cost
+    reckoning (``attrib/lowering_ms``): what the ``compile`` bucket owns."""
+    return LEDGER.job_compile_ms(obs) + float(
+        obs.registry.counters.get("attrib/lowering_ms", 0.0))
+
+
 @contextmanager
 def device_wait_window(obs):
     """Measure one device-synchronous finalize (the card sort's launch,
-    execution and fetch) into ``device/compute_ms``, MINUS what the port
-    already recorded inside the window: the fetch that
-    ``CollectEngine.finalize`` times into ``device/compute_ms`` itself, and
-    spill I/O.  The JAX package also subtracts its compile-ledger walls and
-    dispatch gaps; the port has neither, so only these two are
-    subtracted.  The buckets stay disjoint."""
+    execution and fetch) into ``device/compute_ms``, MINUS what is already
+    recorded inside the window (JAX ``runtime/dataflow.py:71``): the
+    launch ledger's compiling-call walls and dispatch gaps, the waits in
+    ``device/compute_ms`` (the ledger's samples and the fetch that
+    ``CollectEngine.finalize`` times itself), and spill I/O.  The buckets
+    stay disjoint."""
     if obs is None:
         yield
         return
     reg = obs.registry
+    c0 = _compile_ms(obs)
+    g0 = _hist_total_ms(reg, "device/dispatch_gap_ms")
     w0 = _hist_total_ms(reg, "device/compute_ms")
     io0 = float(reg.counters.get("spill/io_ms", 0.0))
     t0 = time.perf_counter()
@@ -72,7 +82,9 @@ def device_wait_window(obs):
         yield
     finally:
         dt_ms = (time.perf_counter() - t0) * 1e3
-        wait = max(dt_ms - (_hist_total_ms(reg, "device/compute_ms") - w0)
+        wait = max(dt_ms - (_compile_ms(obs) - c0)
+                   - (_hist_total_ms(reg, "device/dispatch_gap_ms") - g0)
+                   - (_hist_total_ms(reg, "device/compute_ms") - w0)
                    - (float(reg.counters.get("spill/io_ms", 0.0)) - io0),
                    0.0)
         reg.observe("device/compute_ms", wait)
@@ -153,7 +165,9 @@ def _feed_records(config: JobConfig, obs: Obs, engine, corpora) -> tuple:
                 yield out, base + end * 16
             base += end * 16
 
-    for out, next_off in pipelined(_gen(), config.pipeline_depth, obs,
+    for out, next_off in pipelined(_gen(),
+                                   obs.knob("pipeline_depth",
+                                            config.pipeline_depth), obs,
                                    name="map"):
         records += out.records_in
         n_chunks += 1

@@ -39,6 +39,7 @@ from map_oxidize_tpu_torch.convert import (
 from map_oxidize_tpu_torch.io.splitter import iter_chunks_capped
 from map_oxidize_tpu_torch.io.writer import write_final_result
 from map_oxidize_tpu_torch.obs import Obs, observe_device_wait
+from map_oxidize_tpu_torch.obs.compile import observed
 from map_oxidize_tpu_torch.ops.device_tokenize import DeviceTokenizer, ngram_at
 from map_oxidize_tpu_torch.ops.hashing import HashDictionary
 from map_oxidize_tpu_torch.runtime.driver import (
@@ -62,6 +63,7 @@ _log = get_logger(__name__)
 _SNAP_EVERY = 16
 
 
+@observed("device_map/prefix_pack")
 def _prefix_packer(u_hi, u_lo, reps, m: int) -> torch.Tensor:
     """``[3, m]`` (hi, lo, rep) prefix, fetched only when a chunk's novelty
     exceeds the pre-packed ``fetch_keys`` rows."""

@@ -94,13 +94,16 @@ def collect_engine_kw(config: JobConfig) -> dict:
             if config.collect_max_rows else {})
 
 
-def solved_transport(config: JobConfig) -> str:
-    """``config.shuffle_transport`` resolved to a concrete transport name
-    through the same router the engines use (JAX ``runtime/driver.py:73``),
-    so the driver's cadence decisions (push pipelining, map-side
-    combining) and the engine's placement agree."""
+def solved_transport(config: JobConfig, obs: Obs) -> str:
+    """The planner's ``shuffle_transport`` knob (``Obs.knob``; a pin is
+    echoed verbatim) resolved to a concrete transport name through the
+    same router the engines use (JAX ``runtime/driver.py:73``), so the
+    driver's cadence decisions (push pipelining, map-side combining) and
+    the engine's placement agree."""
     cap = int(config.collect_max_rows or 0) or (1 << 27)
-    return resolve_transport(config, cap)
+    return resolve_transport(config, cap,
+                             name=obs.knob("shuffle_transport",
+                                           config.shuffle_transport))
 
 
 def make_engine(config: JobConfig, reducer, value_shape=(),
@@ -299,7 +302,7 @@ def _run_wordcount_body(config: JobConfig, obs: Obs, mapper: Mapper,
     # turns on the push cadence — the map runs ahead under the push/* span
     # names with the overlap gauge, and the map-side combiner collapses
     # each push window before the feed
-    transport = solved_transport(config)
+    transport = solved_transport(config, obs)
     push_mode = transport == "pipelined"
     engine = make_engine(config, reducer, value_shape=mapper.value_shape,
                          value_dtype=mapper.value_dtype,
@@ -416,7 +419,7 @@ def _run_wordcount_body(config: JobConfig, obs: Obs, mapper: Mapper,
     # i's feed; order is preserved, so the spill and the output are
     # byte-identical to depth 1
     with obs.phase("map+reduce"):
-        depth = config.pipeline_depth
+        depth = obs.knob("pipeline_depth", config.pipeline_depth)
         if push_mode:
             # the push cadence needs a producer running ahead: depth >= 2,
             # push/* span names and the shuffle overlap gauge
@@ -531,7 +534,7 @@ def _run_inverted_index_body(config: JobConfig, obs: Obs
     metrics = obs.registry
     _require_single_device(config)
     mapper = make_inverted_index(config.tokenizer, config.use_native)
-    transport = solved_transport(config)
+    transport = solved_transport(config, obs)
     push_mode = transport == "pipelined"
     engine = CollectEngine(config, transport=transport,
                            **collect_engine_kw(config))
@@ -592,7 +595,7 @@ def _run_inverted_index_body(config: JobConfig, obs: Obs
                     yield mapper.map_docs(chunk, off - len(chunk)), off
             it = _host_iter()
         # prefetch: doc-chunk read+tokenize overlaps the collect feed
-        depth = config.pipeline_depth
+        depth = obs.knob("pipeline_depth", config.pipeline_depth)
         if push_mode:
             depth = max(2, depth)
         it = pipelined(it, depth, obs,
@@ -874,10 +877,12 @@ def _run_kmeans_body(config: JobConfig, obs: Obs,
                 config.input_path, centroids, iters=remaining,
                 chunk_rows=chunk_rows, device=pick_device(config.backend),
                 precision=config.kmeans_precision, timings=timings,
-                on_iter=on_iter, pipeline_depth=config.pipeline_depth,
+                on_iter=on_iter,
+                pipeline_depth=obs.knob("pipeline_depth",
+                                        config.pipeline_depth),
                 dispatch_batch=config.dispatch_batch)
+            # B and its inputs are already the dispatch/* gauges
             metrics.set("time/feed_s", round(timings["feed_s"], 4))
-            metrics.set("dispatch/batch", timings["dispatch_batch"])
             if "overlap_ratio" in timings:
                 # the stager live-fed pipeline/feed_wait_ms per block
                 metrics.set("pipeline/overlap_ratio",
@@ -894,7 +899,8 @@ def _run_kmeans_body(config: JobConfig, obs: Obs,
                 mapped = pipelined(
                     (mapper.map_chunk(c) for c in
                      km.iter_point_chunks(config.input_path, rows)),
-                    config.pipeline_depth, obs, name="kmeans/map")
+                    obs.knob("pipeline_depth", config.pipeline_depth), obs,
+                    name="kmeans/map")
                 centroids = km.kmeans_iteration(engine, centroids, (),
                                                 mapper=mapper, mapped=mapped)
                 if on_iter is not None:
@@ -1024,7 +1030,9 @@ def _run_distinct_body(config: JobConfig, obs: Obs) -> DistinctResult:
 
     with obs.phase("map+reduce"):
         if file_iter is not None:
-            it = pipelined(file_iter, config.pipeline_depth, obs, name="map")
+            it = pipelined(file_iter,
+                           obs.knob("pipeline_depth", config.pipeline_depth),
+                           obs, name="map")
             for i, (out, next_off) in enumerate(it):
                 _ingest(out, next_off)
                 if ckpt is not None:
@@ -1033,7 +1041,9 @@ def _run_distinct_body(config: JobConfig, obs: Obs) -> DistinctResult:
             for idx, out in run_map_phase(
                     chunks, mapper, config.num_map_workers,
                     config.max_retries,
-                    pipeline_depth=config.pipeline_depth, obs=obs):
+                    pipeline_depth=obs.knob("pipeline_depth",
+                                            config.pipeline_depth),
+                    obs=obs):
                 gidx = resume_k + idx
                 _ingest(out, offsets.get(gidx))
                 if ckpt is not None:

@@ -26,7 +26,10 @@ and ``engine/device_put_bytes``; growth counts ``engine/grows`` and sets
 ``engine/growth_sync_ms`` and ``engine/health_sync_ms``.  The finalize
 fetch, which blocks on the whole accumulated device chain, is timed into
 the current job's ``device/compute_ms``, and a device resolve inside a
-phase into its ``attrib/init_ms``.
+phase into its ``attrib/init_ms``.  The device programs (``engine/merge``,
+``engine/merge_packed``, ``engine/merge_packed_batch``,
+``engine/grow_concat``, ``engine/pack_finalize``, ``engine/top_k``) run
+under the launch ledger (:mod:`map_oxidize_tpu_torch.obs.compile`).
 """
 
 from __future__ import annotations
@@ -41,21 +44,22 @@ import torch
 from map_oxidize_tpu_torch.api import MapOutput, Reducer
 from map_oxidize_tpu_torch.config import JobConfig
 from map_oxidize_tpu_torch.obs import observe_device_wait
+from map_oxidize_tpu_torch.obs.compile import observed
 from map_oxidize_tpu_torch.obs.context import current_obs
 from map_oxidize_tpu_torch.ops.hashing import SENTINEL
 from map_oxidize_tpu_torch.ops.segment_reduce import (
-    SENTINEL_KEY,
     _identity,
     keys_from_plane_tensors,
     keys_from_planes,
     make_accumulator,
-    merge_batch_into_accumulator,
-    merge_into_accumulator,
-    pack_accumulator_state,
+    merge,
+    merge_packed,
+    merge_packed_batch,
+    pack_finalize,
     planes_from_keys,
     torch_dtype,
 )
-from map_oxidize_tpu_torch.ops.topk import top_k_pairs
+from map_oxidize_tpu_torch.ops.topk import top_k
 from map_oxidize_tpu_torch.utils.logging import get_logger
 
 _log = get_logger(__name__)
@@ -85,6 +89,9 @@ def pick_device(backend: str = "cuda") -> torch.device:
                     "available (pass backend='cpu' to run on the CPU)")
             return torch.device("cuda", torch.cuda.current_device())
         if backend == "cpu":
+            from map_oxidize_tpu_torch.obs.calib import note_cpu_device
+
+            note_cpu_device()
             return torch.device("cpu")
         raise ValueError(f"backend must be cuda|cpu, got {backend!r}")
     finally:
@@ -97,6 +104,11 @@ def pick_device(backend: str = "cuda") -> torch.device:
 
 def next_pow2(n: int) -> int:
     return 1 << max(n - 1, 1).bit_length()
+
+
+@observed("engine/grow_concat")
+def _grow_concat(keys, vals, p_keys, p_vals):
+    return torch.cat([keys, p_keys]), torch.cat([vals, p_vals])
 
 
 class StreamingEngineBase(abc.ABC):
@@ -145,16 +157,18 @@ class StreamingEngineBase(abc.ABC):
         return min(next_pow2(max(n, 512)), self.feed_batch)
 
     def _pad(self, hi, lo, vals, start, stop):
-        """Rows [start:stop) as (int64 order keys, values), padded with
+        """Rows [start:stop) as (hi, lo, values) host planes, padded with
         SENTINEL keys / identity values to the rounded batch shape."""
         b = self._round_batch(stop - start)
         n = stop - start
-        keys = np.full(b, SENTINEL_KEY, np.int64)
+        p_hi = np.full(b, SENTINEL, np.uint32)
+        p_lo = np.full(b, SENTINEL, np.uint32)
         p_vals = np.full((b,) + self.value_shape, self._pad_val,
                          self.value_dtype)
-        keys[:n] = keys_from_planes(hi[start:stop], lo[start:stop])
+        p_hi[:n] = hi[start:stop]
+        p_lo[:n] = lo[start:stop]
         p_vals[:n] = vals[start:stop]
-        return keys, p_vals
+        return p_hi, p_lo, p_vals
 
     def feed(self, out: MapOutput) -> None:
         """Stage one mapped chunk; flush to the device once a full batch of
@@ -265,7 +279,7 @@ class StreamingEngineBase(abc.ABC):
 
     @abc.abstractmethod
     def _merge_batch(self, padded) -> None:
-        """Fold one padded ``(keys, vals)`` batch into device state."""
+        """Fold one padded ``(hi, lo, vals)`` batch into device state."""
 
     @abc.abstractmethod
     def _check_health(self) -> None:
@@ -310,13 +324,15 @@ class DeviceReduceEngine(StreamingEngineBase):
         self.feed_batch = config.batch_size
         self.max_capacity = config.key_capacity
         self.capacity = min(config.initial_key_capacity, self.max_capacity)
-        #: full feed batches queued host-side and shipped as ONE stacked
-        #: transfer; the merges still run one by one, in feed order
+        #: full packed feed batches queued host-side and shipped as ONE
+        #: stacked transfer; the merges still run one by one, in feed
+        #: order.  Only an explicit ``dispatch_batch > 1`` batches here, as
+        #: in the JAX package: auto (0) is the streamed k-means fit's
         self.dispatch_batch = max(1, config.dispatch_batch)
         self._queue: list = []
         self._keys, self._vals = make_accumulator(
             self.capacity, self.value_shape, self.value_dtype, self.combine,
-            self.device)
+            device=self.device)
         self._ovf = torch.zeros((), dtype=torch.int64, device=self.device)
 
     def _read_live(self) -> int:
@@ -326,28 +342,53 @@ class DeviceReduceEngine(StreamingEngineBase):
     def _apply_grow(self, new_cap: int) -> None:
         p_keys, p_vals = make_accumulator(
             new_cap - self.capacity, self.value_shape, self.value_dtype,
-            self.combine, self.device)
-        self._keys = torch.cat([self._keys, p_keys])
-        self._vals = torch.cat([self._vals, p_vals])
+            self.combine, device=self.device)
+        self._keys, self._vals = _grow_concat(self._keys, self._vals,
+                                              p_keys, p_vals)
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
+    def _round_batch(self, n: int) -> int:
+        # batched dispatch stacks every packable slice at the ONE queue
+        # shape (feed_batch), so a tail slice queues instead of draining a
+        # partial queue (JAX ``runtime/engine.py:_round_batch``)
+        if self.dispatch_batch > 1 and self._packable():
+            return self.feed_batch
+        return super()._round_batch(n)
+
+    def _packable(self) -> bool:
+        """Scalar int32 values ride the packed single-copy path; any other
+        value type takes the plain merge."""
+        return (self.value_shape == ()
+                and self.value_dtype == np.dtype(np.int32))
+
     def _merge_batch(self, padded) -> None:
-        keys, vals = padded
-        incoming = keys.shape[0]
+        hi, lo, vals = padded
+        incoming = hi.shape[0]
         self._ensure_capacity(incoming)
+        if not self._packable():
+            self._drain()
+            self._keys, self._vals, self._n_unique, self._ovf = merge(
+                self._keys, self._vals, self._ovf,
+                self._to_device(keys_from_planes(hi, lo)),
+                self._to_device(vals), combine=self.combine)
+            self._n_live_ub += incoming
+            return
+        packed = np.empty((3, incoming), np.int32)
+        packed[0] = hi.view(np.int32)
+        packed[1] = lo.view(np.int32)
+        packed[2] = vals
         if self.dispatch_batch > 1 and incoming == self.feed_batch:
-            self._queue.append(padded)
+            self._queue.append(packed)
             self._n_live_ub += incoming
             if len(self._queue) >= self.dispatch_batch:
                 self._drain()
             return
         self._drain()  # merge order = feed order
-        self._keys, self._vals, self._n_unique, self._ovf = (
-            merge_into_accumulator(self._keys, self._vals, self._ovf,
-                                   self._to_device(keys),
-                                   self._to_device(vals), self.combine))
+        self._keys, self._vals, self._n_unique, self._ovf = merge_packed(
+            self._keys, self._vals, self._ovf, self._to_device(packed),
+            combine=self.combine)
         self._n_live_ub += incoming
 
     def feed_device(self, hi: torch.Tensor, lo: torch.Tensor,
@@ -361,25 +402,31 @@ class DeviceReduceEngine(StreamingEngineBase):
         self._ensure_capacity(incoming)
         if count_rows:
             self.rows_fed += incoming
-        self._keys, self._vals, self._n_unique, self._ovf = (
-            merge_into_accumulator(
-                self._keys, self._vals, self._ovf,
-                keys_from_plane_tensors(hi, lo),
-                vals.to(self._vals.dtype), self.combine))
+        self._keys, self._vals, self._n_unique, self._ovf = merge(
+            self._keys, self._vals, self._ovf,
+            keys_from_plane_tensors(hi, lo), vals.to(self._vals.dtype),
+            combine=self.combine)
         self._n_live_ub += incoming
 
     def _drain(self) -> None:
-        """Ship the queued full batches as one stacked transfer and fold
-        them in order."""
+        """Ship the queued packed batches as one stacked copy and fold
+        them in order.  A partial queue pads to B with dead batches
+        (SENTINEL keys, identity values: a bit-exact no-op merge), so one
+        ``(B, 3, feed_batch)`` shape serves every drain."""
         if not self._queue:
             return
-        keys = np.stack([q[0] for q in self._queue])
-        vals = np.stack([q[1] for q in self._queue])
+        real = len(self._queue)
+        if real < self.dispatch_batch:
+            dead = np.empty((3, self.feed_batch), np.int32)
+            dead[:2] = np.uint32(SENTINEL).view(np.int32)
+            dead[2] = _identity(self.combine, np.int32)
+            self._queue.extend([dead] * (self.dispatch_batch - real))
+        stacked = np.stack(self._queue)
         self._queue = []
         self._keys, self._vals, self._n_unique, self._ovf = (
-            merge_batch_into_accumulator(
-                self._keys, self._vals, self._ovf, self._to_device(keys),
-                self._to_device(vals), self.combine))
+            merge_packed_batch(self._keys, self._vals, self._ovf,
+                               self._to_device(stacked),
+                               combine=self.combine, observed_chunks=real))
 
     def export_state(self) -> dict:
         """The reduce state as device tensors plus host counters (the unit
@@ -432,7 +479,7 @@ class DeviceReduceEngine(StreamingEngineBase):
                             self._pad_val, self.value_dtype), 0)
         if self.value_shape == () and self.value_dtype.itemsize == 4:
             # ONE fetch for keys, values, n_unique and the overflow count
-            packed = pack_accumulator_state(
+            packed = pack_finalize(
                 self._keys, self._vals, self._n_unique, self._ovf)
             t0 = time.perf_counter()
             packed = packed.cpu().numpy().astype(np.uint32)
@@ -451,4 +498,4 @@ class DeviceReduceEngine(StreamingEngineBase):
         return hi, lo, vals, int(self._n_unique)
 
     def _top_k_device(self, k: int):
-        return top_k_pairs(self._keys, self._vals, min(k, self.capacity))
+        return top_k(self._keys, self._vals, min(k, self.capacity))

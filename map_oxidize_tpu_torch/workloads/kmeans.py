@@ -35,6 +35,7 @@ import torch
 
 from map_oxidize_tpu_torch.api import Mapper, MapOutput, SumReducer
 from map_oxidize_tpu_torch.obs import observe_device_wait
+from map_oxidize_tpu_torch.obs.compile import observed
 from map_oxidize_tpu_torch.obs.context import current_obs
 from map_oxidize_tpu_torch.ops.kmeans_kernel import (
     fused_assign_sum,
@@ -161,6 +162,19 @@ def _kmeans_step_impl(c, p, k: int, precision: str = "highest"):
                        sums / counts.clamp_min(1.0)[:, None], c)
 
 
+#: one iteration and the whole fit under the launch ledger (JAX
+#: ``workloads/kmeans.py:279-287``): the fit is one dispatch of every
+#: iteration, the step one dispatch of one
+_kmeans_step = observed("kmeans/step", _kmeans_step_impl)
+
+
+@observed("kmeans/fit")
+def _kmeans_fit(c, p, k: int, iters: int, precision: str = "highest"):
+    for _ in range(iters):
+        c = _kmeans_step_impl(c, p, k, precision)
+    return c
+
+
 def kmeans_fit_device(points, centroids, iters: int = 1, device=None,
                       on_iter=None, timings: dict | None = None,
                       precision: str = "highest") -> np.ndarray:
@@ -203,9 +217,11 @@ def kmeans_fit_device(points, centroids, iters: int = 1, device=None,
     if timings is not None:
         timings["transfer_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    for i in range(iters):
-        c = _kmeans_step_impl(c, p, k, precision)
-        if on_iter is not None:
+    if on_iter is None:
+        c = _kmeans_fit(c, p, k, iters, precision)
+    else:
+        for i in range(iters):
+            c = _kmeans_step(c, p, k, precision)
             on_iter(i + 1, _fetch(c))
     out = _fetch(c)
     if timings is not None:
@@ -221,6 +237,30 @@ def _fetch(c: torch.Tensor) -> np.ndarray:
     out = c.cpu().numpy()
     observe_device_wait(t0)
     return out
+
+
+@observed("kmeans/stream_step", dynamic=("rows",))
+def _stream_step(block, c, acc, chunk_rows: int, *, k: int, precision: str,
+                 first: bool, last: bool, rows: int):
+    """One staged block of the streamed fit (JAX
+    ``parallel/kmeans.py:_build_stream_step``): the fused assign + sum of
+    each ``chunk_rows`` chunk among the block's first ``rows`` rows, added
+    to the ``(k, d+1)`` f32 partial ``acc`` in chunk order (zeroed first on
+    an iteration's first block).  The last block of an iteration returns
+    the moved centroids (an empty centroid keeps its position); any other
+    returns ``acc``."""
+    d = c.shape[1]
+    if first:
+        acc.zero_()
+    for lo in range(0, rows, chunk_rows):
+        sums, counts = fused_assign_sum(
+            block[lo:min(lo + chunk_rows, rows)], c, k, precision)
+        acc[:, :d] += sums
+        acc[:, d] += counts
+    if not last:
+        return acc
+    counts = acc[:, d:]
+    return torch.where(counts > 0, acc[:, :d] / counts.clamp_min(1.0), c)
 
 
 def kmeans_fit_streamed_device(path: str, centroids, iters: int = 1,
@@ -239,9 +279,10 @@ def kmeans_fit_streamed_device(path: str, centroids, iters: int = 1,
     its ``(k, d+1)`` partial adds to an f32 accumulator in chunk order,
     starting from zeros, and the last chunk of an iteration moves every
     non-empty centroid to its mean (an empty one keeps its position).
-    Chunks stage in blocks of ``dispatch_batch`` (B; 0 means 1) through a
+    Chunks stage in blocks of B through a
     :class:`~map_oxidize_tpu_torch.runtime.pipeline.StagingRing` of
-    ``pipeline_depth + 1`` slots; with ``pipeline_depth > 1`` one
+    ``pipeline_depth + 1`` slots, one ``kmeans/stream_step`` dispatch per
+    block; with ``pipeline_depth > 1`` one
     :class:`~map_oxidize_tpu_torch.runtime.pipeline.BlockStager` thread
     spans every iteration, filling pinned buffers from the memory map and
     copying them on a copy stream while the device works on earlier
@@ -249,6 +290,16 @@ def kmeans_fit_streamed_device(path: str, centroids, iters: int = 1,
     whatever B and the depth, so the result is bit-identical across both.
     In ``bf16`` mode the chunks are rounded to bf16 on the host before the
     copy (half the bytes over the link).
+
+    ``dispatch_batch`` is B; 0 (auto) resolves it through
+    :func:`~map_oxidize_tpu_torch.runtime.dispatch.resolve_dispatch_batch`
+    (JAX ``parallel/kmeans.py:270-292``) from the measured launch floor,
+    the measured host produce of one chunk (probed here: a real fault-in
+    and copy of the first chunk, skipped when the memo already holds the
+    resolution) and the measured or roofline device compute per chunk,
+    capped by the device memory; inside a job the choice and its inputs
+    land as ``dispatch/*`` and ``plan/dispatch_*`` gauges and the probe in
+    ``attrib/probe_ms``.
 
     ``on_iter(i, centroids_np)`` sees the state after each iteration (one
     ``(k, d)`` fetch).  ``partials``, a list, receives each iteration's
@@ -259,6 +310,11 @@ def kmeans_fit_streamed_device(path: str, centroids, iters: int = 1,
     ring, centroid copy) counts into its ``attrib/init_ms``, the stager
     feeds its live ``pipeline/*`` counters, and the blocking centroid
     fetches land in its ``device/compute_ms``."""
+    from map_oxidize_tpu_torch.runtime.dispatch import (
+        has_cached_auto,
+        record_dispatch_batch,
+        resolve_dispatch_batch,
+    )
     from map_oxidize_tpu_torch.runtime.pipeline import (
         BlockStager,
         StagingRing,
@@ -272,9 +328,10 @@ def kmeans_fit_streamed_device(path: str, centroids, iters: int = 1,
         device = pick_device("cuda")
     device = torch.device(device)
     obs = current_obs()
-    # the set-up window (the staging ring's pinned buffers and device
-    # blocks, the centroid copy) runs inside the driver's iterate phase:
-    # measured so it lands in the attribution's setup bucket
+    # the set-up window (the B resolution, the staging ring's pinned
+    # buffers and device blocks, the centroid copy) runs inside the
+    # driver's iterate phase: measured so it lands in the attribution's
+    # setup bucket; the produce probe counts as host produce instead
     t_init = time.perf_counter()
     pts = np.load(path, mmap_mode="r")
     n, d = pts.shape
@@ -282,11 +339,29 @@ def kmeans_fit_streamed_device(path: str, centroids, iters: int = 1,
     k = c.shape[0]
     chunk_rows = max(1, min(chunk_rows, n))
     starts = list(range(0, n, chunk_rows))
-    B = max(1, dispatch_batch)
+    dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+    chunk_device_bytes = chunk_rows * d * dtype.itemsize
+    flops_per_chunk = 4.0 * chunk_rows * k * d
+    produce_ms = None
+    if (dispatch_batch == 0 and len(starts) > 1
+            and not has_cached_auto("kmeans/stream_step",
+                                    chunk_device_bytes, flops_per_chunk)):
+        t0 = time.perf_counter()
+        # a real fault-in + copy (+ rounding): a view would measure ~0
+        torch.from_numpy(np.array(pts[:chunk_rows], np.float32)).to(dtype)
+        produce_ms = (time.perf_counter() - t0) * 1e3
+    B, binfo = resolve_dispatch_batch(
+        dispatch_batch, n_chunks=len(starts),
+        chunk_device_bytes=chunk_device_bytes,
+        flops_per_chunk=flops_per_chunk, produce_ms=produce_ms,
+        program="kmeans/stream_step")
+    if obs is not None:
+        record_dispatch_batch(obs.registry, B, binfo,
+                              fresh_probe_ms=produce_ms)
     groups = chunk_groups(starts, B)
     n_blocks = len(groups)
-    dtype = torch.bfloat16 if precision == "bf16" else torch.float32
     ring = StagingRing(pipeline_depth + 1, B * chunk_rows, d, dtype, device)
+    acc = torch.zeros((k, d + 1), dtype=torch.float32, device=device)
 
     def _stage(item):
         seq, group = item
@@ -295,7 +370,8 @@ def kmeans_fit_streamed_device(path: str, centroids, iters: int = 1,
 
     if obs is not None:
         obs.registry.count("attrib/init_ms",
-                           (time.perf_counter() - t_init) * 1e3)
+                           (time.perf_counter() - t_init) * 1e3
+                           - (produce_ms or 0.0))
     t0 = time.perf_counter()
     # ONE stager spans every iteration: the blocks do not depend on the
     # centroids, so iteration i+1's first block stages while iteration i's
@@ -308,22 +384,16 @@ def kmeans_fit_streamed_device(path: str, centroids, iters: int = 1,
         blocks = iter(pf)
     else:
         blocks = staged_blocks(all_groups, _stage)
-    acc = None
     for seq, slot, group in blocks:
         bi = seq % n_blocks
-        if bi == 0:
-            acc = torch.zeros((k, d + 1), dtype=torch.float32, device=device)
-        block = ring.acquire(slot)
-        for s in group:
-            lo, hi = s - group[0], min(s + chunk_rows, n) - group[0]
-            sums, counts = fused_assign_sum(block[lo:hi], c, k, precision)
-            acc[:, :d] += sums
-            acc[:, d] += counts
+        out = _stream_step(
+            ring.acquire(slot), c, acc, chunk_rows, k=k, precision=precision,
+            first=bi == 0, last=bi == n_blocks - 1,
+            rows=min(group[-1] + chunk_rows, n) - group[0],
+            observed_chunks=len(group))
         ring.release(slot, seq)
         if bi == n_blocks - 1:
-            counts = acc[:, d:]
-            c = torch.where(counts > 0, acc[:, :d] / counts.clamp_min(1.0),
-                            c)
+            c = out
             if partials is not None:
                 partials.append(acc.cpu().numpy())
             if on_iter is not None:

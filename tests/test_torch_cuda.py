@@ -366,14 +366,15 @@ def _blob_file(tmp_path, n=20_000, d=8, k=16, seed=47):
 
 def test_device_memory_watermarks_on_the_card(cuda, tmp_path):
     """A job on the card reports ``mem/device0_hbm_bytes`` and its peak (the
-    JAX package's names), and the k-means fetches in
-    ``device/compute_ms``."""
+    JAX package's names), and in ``device/compute_ms`` the k-means fetch
+    and the launch ledger's sampled wait of the fit's one dispatch."""
     r = run_job(JobConfig(input_path=_blob_file(tmp_path), output_path="",
                           backend="cuda", kmeans_k=16, kmeans_iters=2,
                           mapper="device", metrics=False), "kmeans")
     m = r.metrics
     assert m["mem/device0_hbm_peak_bytes"] >= m["mem/device0_hbm_bytes"] > 0
-    assert m["device/compute_ms/count"] == 1
+    assert m["device/compute_ms/count"] == 2
+    assert m["xprof/kmeans/fit/dispatches"] == 1
     assert m["attrib/device_compute_ms"] > 0
 
 
@@ -697,3 +698,58 @@ def test_dataflow_card_sort_matches_the_host_sort(cuda, tmp_path, workload):
                           metrics=False), workload)
         out[name] = path.read_bytes()
     assert out["card"] == out["host"] == out["cpu"]
+
+
+def test_ledger_samples_the_kernel_within_its_call_to_ready_wall(cuda):
+    """The launch ledger's sampled device time of a k-means step on the
+    card (an event on the step's stream, waited for after the call) is
+    positive and no larger than the wall from the call to the result being
+    ready."""
+    import time
+
+    from map_oxidize_tpu_torch.obs import compile as led
+    from map_oxidize_tpu_torch.workloads.kmeans import _kmeans_step_impl
+
+    step = led.ObservedProgram("test/kmeans_step", _kmeans_step_impl,
+                               ledger=led.CompileLedger(), sample_every=1)
+    rng = np.random.default_rng(49)
+    p = torch.from_numpy(rng.normal(size=(1 << 20, 64)).astype(
+        np.float32)).to(cuda)
+    c = p[:256].clone()
+    step(c, p, 256)  # the first call compiles (builds the kernel)
+    stats = step._ledger.programs["test/kmeans_step"]
+    samples, sampled_ms = stats.samples, stats.sampled_ms
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = step(c, p, 256)  # every dispatch is sampled at sample_every=1
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    assert stats.samples == samples + 1
+    assert 0 < stats.sampled_ms - sampled_ms <= wall_ms
+    assert out.shape == c.shape and torch.isfinite(out).all()
+
+
+def test_auto_b_stream_fit_on_the_card_is_bit_equal_to_b1(cuda, tmp_path):
+    """``dispatch_batch=0`` resolves B through the dispatch resolver on the
+    card (``platform='gpu'``, capped by the device memory) and the fit is
+    bit-equal to B=1."""
+    from map_oxidize_tpu_torch.runtime import dispatch
+    from map_oxidize_tpu_torch.workloads.kmeans import (
+        kmeans_fit_streamed_device,
+    )
+
+    dispatch._auto_cache.clear()
+    pts = _int_points(50, 40_003, 32, 16)
+    path = str(tmp_path / "p.npy")
+    np.save(path, pts)
+    kw = dict(iters=3, chunk_rows=1000, device=cuda)
+    timings = {}
+    auto = kmeans_fit_streamed_device(path, pts[:16], dispatch_batch=0,
+                                      timings=timings, **kw)
+    one = kmeans_fit_streamed_device(path, pts[:16], dispatch_batch=1, **kw)
+    assert auto.tobytes() == one.tobytes()
+    assert dispatch._platform() == "gpu" and dispatch.hbm_budget_bytes() > 0
+    b, info = dispatch.resolve_dispatch_batch(
+        0, n_chunks=41, chunk_device_bytes=1000 * 32 * 4,
+        flops_per_chunk=4.0 * 1000 * 16 * 32)
+    assert b == timings["dispatch_batch"] and info["hbm_cap"] >= 1

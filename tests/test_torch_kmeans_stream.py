@@ -98,7 +98,7 @@ def test_streamed_fit_matches_jax_and_the_oracle(tmp_path, precision):
     timings = {}
     got = tkm.kmeans_fit_streamed_device(path, init, iters=3, chunk_rows=400,
                                          device="cpu", precision=precision,
-                                         timings=timings)
+                                         timings=timings, dispatch_batch=1)
     want = jkm.kmeans_fit_streamed_device(path, init, iters=3, chunk_rows=400,
                                           precision=precision,
                                           dispatch_batch=1)
@@ -366,7 +366,12 @@ def test_run_job_modes_match_jax(tmp_path, mapper, fit_bytes, mode):
 def test_stream_device_chunking_follows_the_jax_formula(tmp_path,
                                                        monkeypatch):
     """``stream_device`` chunks are ``chunk_bytes // (4 (d + 2k))`` rows and
-    ``dispatch_batch=0`` resolves to B=1."""
+    ``dispatch_batch=0`` resolves B through the dispatch resolver: with a
+    0.001 ms launch floor every rule gives B=1."""
+    from map_oxidize_tpu_torch.runtime import dispatch
+
+    monkeypatch.setattr(dispatch, "_auto_cache", {})
+    monkeypatch.setenv("MOXT_DISPATCH_FLOOR_MS", "0.001")
     pts = _blobs(11, n=3000, d=6)
     path = _save(tmp_path, pts)
     seen = {}
@@ -381,6 +386,8 @@ def test_stream_device_chunking_follows_the_jax_formula(tmp_path,
                   "kmeans")
     assert seen["chunk_rows"] == 4096 // (4 * (6 + 2 * 5))
     assert res.metrics["dispatch/batch"] == 1
+    assert res.metrics["dispatch/batch_mode"] == "auto"
+    assert res.metrics["dispatch/floor_source"] == "env"
 
 
 def test_cli_reaches_every_mode(tmp_path, capsys):

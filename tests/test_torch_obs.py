@@ -3,13 +3,17 @@ seeded jobs through both packages (word count with the native, the Python
 and the device map, word count resumed from a checkpoint, k-means in its
 ``device``, ``stream_device`` and ``stream`` modes, bigram through the
 collect reduce, the inverted index, distinct, and sort, join and
-sessionize) report the same metric keys, the same exact counts and data-plane audit, the same phases in the
-trace and the same metrics-document sections, apart from the surfaces the
-port has not ported yet (``ALLOWLIST``) and the port's own keys
-(``PORT_OWN``).  Unit cases hold ``MetricsRegistry``, ``Tracer``,
-``attrib.compute``, the data-plane digests and ``Heartbeat`` to the JAX
-functions on the same inputs; the flight recorder, the CLI flags and the
-``torch.profiler`` trace are checked on the CPU."""
+sessionize) report the same metric keys (the launch ledger's
+``compile/*`` and ``xprof/*``, the plan's, the dispatch resolver's and the
+critical path's among them), the same exact counts and data-plane audit,
+the same phases in the trace and the same metrics-document sections,
+apart from the port's own keys (``PORT_OWN``); ``ALLOWLIST`` (surfaces not
+ported yet) is empty.  Each pair of jobs starts from fresh launch ledgers
+and jit caches in both packages, so what compiles is the job's own.  Unit
+cases hold ``MetricsRegistry``, ``Tracer``, ``attrib.compute``, the
+data-plane digests and ``Heartbeat`` to the JAX functions on the same
+inputs; the flight recorder, the CLI flags and the ``torch.profiler``
+trace are checked on the CPU."""
 
 import itertools
 import json
@@ -48,24 +52,12 @@ from map_oxidize_tpu_torch.workloads.wordcount import make_wordcount
 torch.set_num_threads(2)
 
 #: keys of the JAX package's surfaces that the port has not ported yet,
-#: by prefix (ending in "/") or exact name, with the reason
-ALLOWLIST = {
-    "compile/": "the compile ledger (obs/compile.py): ROADMAP A12",
-    "xprof/": "the roofline observatory (obs/xprof.py): ROADMAP A12",
-    "calib/": "the calibration store (obs/calib.py): ROADMAP A12",
-    "critpath/": "the critical path (obs/critpath.py): ROADMAP A12",
-    "plan/": "the job planner (runtime/planner.py, obs/plan.py): A12",
-    "attrib/lowering_ms": "the compile ledger's lowering wall: A12",
-    "device/dispatch_gap_ms/": "the compile ledger's per-dispatch gaps: A12",
-    "device/dispatch_gap_per_chunk_ms/": "the same, per chunk: A12",
-    "dispatch/": "the dispatch-batch resolver's record "
-                 "(runtime/dispatch.py): ROADMAP A10",
-    "attrib/probe_ms": "the resolver's produce probe: ROADMAP A10",
-}
+#: by prefix (ending in "/") or exact name, with the reason: none left
+ALLOWLIST: dict = {}
 #: ... except these, which the port emits with the same meaning
-NOT_ALLOWLISTED = {"dispatch/batch"}
+NOT_ALLOWLISTED: set = set()
 #: metrics-document sections of the same surfaces
-ALLOWLISTED_SECTIONS = {"critpath", "plan", "xprof"}
+ALLOWLISTED_SECTIONS: set = set()
 #: keys only the port emits, with the reason
 PORT_OWN = {
     "accumulator_device": "where the word-count or bigram reduce ran (no "
@@ -139,9 +131,27 @@ def _records(seed=2, n=6000, keys=700):
                      rng.integers(0, 1 << 40, n, dtype=np.uint64)], axis=1)
 
 
+def _fresh_ledgers():
+    """Both packages' launch ledgers, jit caches and dispatch memos as in a
+    fresh process, so a job's compiles are its own whatever ran before."""
+    import jax
+
+    from map_oxidize_tpu.obs.compile import LEDGER as JAX_LEDGER
+    from map_oxidize_tpu.runtime import dispatch as jax_dispatch
+    from map_oxidize_tpu_torch.obs.compile import LEDGER
+    from map_oxidize_tpu_torch.runtime import dispatch
+
+    jax.clear_caches()
+    JAX_LEDGER.programs.clear()
+    LEDGER.reset()
+    jax_dispatch._auto_cache.clear()
+    dispatch._auto_cache.clear()
+
+
 def _run_pair(tmp, job):
     """Run ``job`` through both packages; returns per package the result,
     the ``metrics_out`` document and the ``trace_out`` events."""
+    _fresh_ledgers()
     workload, kw = JOBS[job]
     if workload in TEXT:
         inp = tmp / "corpus.txt"
@@ -443,7 +453,8 @@ def test_a_cpu_job_initialises_no_cuda(tmp_path):
 
 FLAGS = ["--metrics-out", "--trace-out", "--trace-dir", "--crash-dir",
          "--progress", "--progress-interval", "--no-data-audit",
-         "--chunk-mb", "--kmeans-fit-bytes"]
+         "--chunk-mb", "--kmeans-fit-bytes", "--plan", "--calib-dir",
+         "--calib-min-samples", "--hbm-sample-interval", "--stall-factor"]
 
 
 @pytest.mark.parametrize("flag", FLAGS)
@@ -761,3 +772,26 @@ def test_obs_records_no_spans_when_untraced():
         pass
     assert obs.tracer._events == []
     assert "attrib/pre_phase_ms" in obs.registry.gauges
+
+
+@pytest.mark.parametrize("case", ["wordcount_like", "kmeans_like", "empty",
+                                  "over_attributed"])
+def test_critpath_matches_jax(case):
+    """The one-process critical path of the same attribution document:
+    the same document, headline gauges and report as the JAX package's
+    ``degenerate_from_attrib``, ``publish`` and ``render``."""
+    from map_oxidize_tpu.obs import critpath as jax_critpath
+    from map_oxidize_tpu_torch.obs import critpath
+
+    reg = JaxRegistry()
+    _fill_attrib(reg, case)
+    doc = jax_attrib.compute(types.SimpleNamespace(registry=reg),
+                             programs={}, elapsed_s=1.25)
+    mine = critpath.degenerate_from_attrib(doc, process=0)
+    theirs = jax_critpath.degenerate_from_attrib(doc, process=0)
+    assert mine == theirs
+    regs = MetricsRegistry(), JaxRegistry()
+    assert critpath.publish(regs[0], mine) == jax_critpath.publish(
+        regs[1], theirs)
+    assert regs[0].summary() == regs[1].summary()
+    assert critpath.render(mine) == jax_critpath.render(theirs)

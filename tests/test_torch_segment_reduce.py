@@ -67,7 +67,7 @@ def test_merge_matches_jax(combine):
     """A sequence of merges into a small accumulator, values int32."""
     rng = np.random.default_rng(12)
     cap = 512
-    a_keys, a_vals = tsr.make_accumulator(cap, combine=combine)
+    a_keys, a_vals = tsr.make_accumulator(cap, combine=combine, device="cpu")
     ovf = torch.zeros((), dtype=torch.int64)
     j_acc = [jnp.asarray(a) for a in jsr.make_accumulator(cap, combine=combine)]
     j_ovf = jnp.zeros((), jnp.int32)
@@ -87,7 +87,7 @@ def test_overflow_is_cumulative_and_matches_jax():
     that are already resident adds no drop and does not reset the count."""
     rng = np.random.default_rng(13)
     cap = 64
-    a_keys, a_vals = tsr.make_accumulator(cap)
+    a_keys, a_vals = tsr.make_accumulator(cap, device="cpu")
     ovf = torch.zeros((), dtype=torch.int64)
     j_acc = [jnp.asarray(a) for a in jsr.make_accumulator(cap)]
     j_ovf = jnp.zeros((), jnp.int32)
@@ -116,7 +116,7 @@ def test_exactly_full_accumulator_is_not_an_error():
     rng = np.random.default_rng(14)
     hi, lo, vals = _pairs(rng, 2000, 128, np.int32, pad_frac=0.0)
     distinct = len(np.unique((hi.astype(np.uint64) << 32) | lo))
-    a_keys, a_vals = tsr.make_accumulator(distinct)
+    a_keys, a_vals = tsr.make_accumulator(distinct, device="cpu")
     ovf = torch.zeros((), dtype=torch.int64)
     a_keys, a_vals, n, ovf = tsr.merge_into_accumulator(
         a_keys, a_vals, ovf, _t(hi, lo), torch.from_numpy(vals))
@@ -134,7 +134,7 @@ def test_batched_merge_equals_single_merges_and_jax():
                    np.full(nb, SENTINEL, np.uint32), np.zeros(nb, np.int32)))
     keys = torch.stack([_t(h, lo) for h, lo, _ in planes])
     vals = torch.stack([torch.from_numpy(v) for *_, v in planes])
-    acc = tsr.make_accumulator(cap)
+    acc = tsr.make_accumulator(cap, device="cpu")
     zero = torch.zeros((), dtype=torch.int64)
     batched = tsr.merge_batch_into_accumulator(*acc, zero, keys, vals)
     single = (*acc, None, zero)
