@@ -146,7 +146,30 @@ Phases (any failure exits non-zero, before the result line):
              ``kmeans/stream_step``, phase 4's ``kmeans/fit`` and phase 6's
              ``kmeans/step`` (dispatches, sampled device ms, achieved
              rates, the share of the measured peaks, the bound); launch
-             counts reset just before and read just after.
+             counts reset just before and read just after;
+13. serve    the resident job service: ``python -m map_oxidize_tpu_torch
+             serve`` as a subprocess (``--port 0``, two workers, a spool
+             in the temporary directory), driven over HTTP through
+             ``ServeClient``: its warm-up's ``hbm/budget_bytes`` equal to
+             the card's total memory; a cold and a warm k-means job on
+             phase 4's file, both bit-equal to phase 4's ``run_job``, the
+             warm one with 0 compiles, ``serve/warm_compiles`` 0 and no
+             ``warm-serve-recompile`` alert, ``hbm/live_bytes_device0 > 0``
+             while the cold one runs; two word counts at once on phase 5's
+             corpus (the native map and the device map), each
+             byte-identical to phase 5's, the device job's
+             ``device_map/tokenize`` dispatches equal to its chunks, their
+             words/s and ``device/compute_ms`` beside their solo runs
+             (phases 5 and 11); a 2 s ``POST /profile`` capture during a
+             bf16 k-means job whose device trace names
+             ``kmeans_assign_sum``; an oversized submission rejected with
+             admission's named reason; the key sets of ``/healthz``,
+             ``/status``, ``/metrics``, ``/series``, ``/alerts`` and
+             ``/jobs``; the server process's kernel launch counts
+             (``kernels/<name>/launches``, from 0 at its start); a
+             ``POST /shutdown`` drain: exit 0, ``obs_port.json`` removed,
+             one ledger entry per done job.  Each job's submit-to-done
+             latency, queue wait and run wall.
 
 Then one JSON line with every kernel, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Inputs are made from fixed
@@ -2386,6 +2409,318 @@ def phase_plan(tmp: str, backend: str, stream: dict, km: dict,
     return out
 
 
+# --- phase 13 ---------------------------------------------------------------
+
+#: phase 13's k-means job under the capture: bf16 iterations enough for a
+#: fit that outlasts the profiler's start (~9 s, the first in a process)
+#: and the capture window; a served job's heartbeat fetches the centroids
+#: every iteration (~5 ms each)
+SERVE_CAPTURE_ITERS = 6000
+SERVE_CAPTURE_S = 2.0
+#: the endpoints' key sets (the JAX package's documents)
+SERVE_KEYS = {
+    "/healthz": {"schema", "version", "t_unix_s", "uptime_s", "phase",
+                 "workload", "process", "n_processes", "jobs"},
+    "/status": {"schema", "meta", "t_unix_s", "elapsed_s", "phase",
+                "progress", "xprof", "hbm", "counters", "comms"},
+    "/series": {"schema", "interval_s", "capacity", "samples_taken",
+                "t_unix_s", "series"},
+    "/alerts": {"schema", "t_unix_s", "interval_s", "counts", "firing",
+                "resolved", "rules", "timeline"},
+    "/jobs": {"schema", "t_unix_s", "uptime_s", "draining", "workers",
+              "queue", "hbm", "corpora", "counts", "jobs"},
+}
+
+
+def prom_values(text: str) -> dict:
+    """``{series: value}`` of a Prometheus text document's samples."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, _, v = line.rpartition(" ")
+            out[name] = float(v)
+    return out
+
+
+def serve_job_line(name: str, row: dict, m: dict) -> str:
+    return (f"{name}: {row['state']}, submit-to-done "
+            f"{row['finished_unix_s'] - row['submitted_unix_s']:.3f} s, "
+            f"queue wait {row['queue_wait_s']:.3f} s, run wall "
+            f"{row['duration_s']:.3f} s, job {job_s(m):.3f} s, compiles "
+            f"{m.get('compile/total_compiles')}")
+
+
+def phase_serve(tmp: str, km: dict, wc: dict, devmap: dict) -> dict:
+    """The resident job service (module docstring, phase 13): ``python -m
+    map_oxidize_tpu_torch serve`` as a subprocess, driven over HTTP; the
+    subprocess is killed if a check fails."""
+    t_phase = time.perf_counter()
+    spool = os.path.join(tmp, "serve_spool")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    log_path = os.path.join(tmp, "serve.log")
+    with open(log_path, "w") as srv_log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "map_oxidize_tpu_torch", "serve",
+             "--port", "0", "--workers", "2", "--spool-dir", spool,
+             "--obs-sample-interval", "0.25"],
+            cwd=tmp, env=env, stdout=srv_log, stderr=subprocess.STDOUT)
+    try:
+        out = _drive_server(tmp, spool, proc, km, wc, devmap)
+    except BaseException:
+        proc.kill()
+        proc.wait(timeout=60)
+        with open(log_path) as f:
+            log("server log tail:\n" + f.read()[-4000:])
+        raise
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 13 (serve) wall {out['wall_s']:.1f} s")
+    return out
+
+
+def _drive_server(tmp: str, spool: str, proc, km: dict, wc: dict,
+                  devmap: dict) -> dict:
+    import threading
+    import urllib.request
+
+    import torch
+
+    from map_oxidize_tpu_torch.serve.client import ServeClient
+
+    port_file = os.path.join(spool, "obs_port.json")
+    t0 = time.perf_counter()
+    while not os.path.isfile(port_file):
+        if proc.poll() is not None:
+            raise AssertionError(f"the server exited {proc.returncode}")
+        if time.perf_counter() - t0 > 120:
+            raise AssertionError("the server wrote no obs_port.json")
+        time.sleep(0.05)
+    with open(port_file) as f:
+        url = json.load(f)["url"]
+    c = ServeClient(url, timeout_s=60)
+    # the warm-up on the card publishes the admission budget
+    budget = None
+    while budget is None:
+        budget = c.status()["hbm"].get("hbm/budget_bytes")
+        if budget is None:
+            if time.perf_counter() - t0 > 120:
+                raise AssertionError("the server never published "
+                                     "hbm/budget_bytes")
+            time.sleep(0.05)
+    total = torch.cuda.get_device_properties(0).total_memory
+    if budget != total:
+        raise AssertionError(f"hbm/budget_bytes {budget} != the card's "
+                             f"{total}")
+    log(f"server up at {url} in {time.perf_counter() - t0:.2f} s, "
+        f"hbm/budget_bytes {budget} (the card's total memory)")
+    out: dict = {"rows": {}}
+
+    def run(name, workload, path, config, output, watch=False):
+        t = time.perf_counter()
+        row = c.submit(workload, path, config=config, output=output)
+        live = 0
+        while row["state"] in ("queued", "running"):
+            if watch and row["state"] == "running":
+                live = max(live, c.status()["hbm"].get(
+                    "hbm/live_bytes_device0", 0))
+            time.sleep(0.05)
+            row = c.job(row["id"])
+        wall = time.perf_counter() - t
+        if row["state"] != "done":
+            raise AssertionError(f"{name}: {row['state']} "
+                                 f"({row.get('reason')})")
+        m = row["metrics"]
+        out["rows"][name] = {"row": row, "client_s": wall}
+        log(serve_job_line(name, row, m) + f", client wall {wall:.3f} s")
+        return row, m, live
+
+    # a cold and a warm k-means job on phase 4's file
+    km_cfg = {"kmeans_k": KMEANS_K, "kmeans_iters": KMEANS_ITERS,
+              "kmeans_precision": "highest"}
+    for i, name in enumerate(("kmeans cold", "kmeans warm")):
+        o = os.path.join(tmp, f"serve_centroids_{i}.npy")
+        row, m, live = run(name, "kmeans", km["path"], km_cfg, o,
+                           watch=(i == 0))
+        got = np.load(o)
+        if not np.array_equal(got, km["centroids"]["highest"]):
+            raise AssertionError(f"{name}: centroids differ from phase "
+                                 f"4's run_job (max |d| "
+                                 f"{np.abs(got - km['centroids']['highest']).max()})")
+        if i == 0:
+            if not live > 0:
+                raise AssertionError("hbm/live_bytes_device0 was 0 while "
+                                     "the cold job ran")
+            out["live_bytes"] = live
+            log(f"hbm/live_bytes_device0 {live} while the cold job ran")
+    if row["compiles"] != 0 or m["compile/total_compiles"] != 0:
+        raise AssertionError(f"the warm k-means job compiled "
+                             f"{m['compile/total_compiles']} programs")
+    prom = prom_values(urllib.request.urlopen(url + "/metrics",
+                                              timeout=60).read().decode())
+    if prom.get("moxt_serve_warm_compiles", 0) != 0:
+        raise AssertionError("serve/warm_compiles moved on the warm job")
+    firing = [a["rule"] for a in c._request("/alerts")["firing"]]
+    if "warm-serve-recompile" in firing:
+        raise AssertionError("warm-serve-recompile fired")
+    log("the warm k-means job: 0 compiles, bit-equal to phase 4's "
+        "run_job; serve/warm_compiles 0; no warm-serve-recompile alert")
+
+    # two word counts at once: the native host map and the device map
+    native = wc["runs"]["native"]
+    outs = {n: os.path.join(tmp, f"serve_final_result_{n}.txt")
+            for n in ("auto", "device")}
+    subs = {n: c.submit("wordcount", wc["path"],
+                        config={"mapper": n, "chunk_bytes": CHUNK_BYTES},
+                        output=outs[n])
+            for n in ("auto", "device")}
+    rows = {n: c.wait(r["id"], timeout_s=600) for n, r in subs.items()}
+    docs = {}
+    for n, row in rows.items():
+        if row["state"] != "done":
+            raise AssertionError(f"wordcount {n}: {row['state']} "
+                                 f"({row.get('reason')})")
+        row = rows[n] = c.job(row["id"])
+        if read(outs[n]) != read(native["out"]):
+            raise AssertionError(f"served wordcount mapper={n} differs "
+                                 f"from phase 5's final_result.txt")
+        with open(row["artifacts"]["metrics_out"]) as f:
+            docs[n] = json.load(f)
+        out["rows"][f"wordcount {n}"] = {"row": row}
+    dev = rows["device"]["metrics"]
+    tok = docs["device"]["xprof"]["programs"]["device_map/tokenize"]
+    if tok["dispatches"] != dev["chunks"]:
+        raise AssertionError(f"device_map/tokenize dispatched "
+                             f"{tok['dispatches']} times for "
+                             f"{dev['chunks']} chunks")
+    solo = {"auto": native["metrics"],
+            "device": devmap["wordcount"]["metrics"]}
+    rates = {}
+    for n, row in rows.items():
+        m = row["metrics"]
+        rates[n] = m["records_in"] / job_s(m)
+        s = solo[n]
+        log(serve_job_line(f"wordcount {n} (concurrent)", row, m)
+            + f"; {rates[n]:.0f} words/s against "
+            f"{s['records_in'] / job_s(s):.0f} alone (phase "
+            f"{5 if n == 'auto' else 11}); device/compute_ms count "
+            f"{m.get('device/compute_ms/count')} p50 "
+            f"{m.get('device/compute_ms/p50')} max "
+            f"{m.get('device/compute_ms/max')} against alone "
+            f"{s.get('device/compute_ms/count')} / "
+            f"{s.get('device/compute_ms/p50')} / "
+            f"{s.get('device/compute_ms/max')}")
+    log(f"both served word counts byte-identical to phase 5's; the device "
+        f"job's device_map/tokenize {tok['dispatches']} dispatches = "
+        f"{dev['chunks']} chunks, its compile_ms {tok['compile_ms']}, "
+        f"backend_compile_ms {tok['backend_compile_ms']} (the library was "
+        f"built in phase 2, so the server only loads it)")
+    out["rates"] = rates
+
+    # a capture during a bf16 k-means job: the job first, the capture once
+    # its fit runs, and the fit must outlast the capture's window
+    o = os.path.join(tmp, "serve_centroids_bf16.npy")
+    row = c.submit("kmeans", km["path"], output=o, config=dict(
+        km_cfg, kmeans_precision="bf16", kmeans_iters=SERVE_CAPTURE_ITERS))
+    while row["state"] in ("queued", "running") and row.get(
+            "phase") != "iterate":
+        time.sleep(0.02)
+        row = c.job(row["id"])
+    if row["state"] != "running":
+        raise AssertionError(f"the bf16 job ended before its fit was seen "
+                             f"({row['state']}, {row.get('reason')})")
+    t_post = time.perf_counter()
+    doc = c._request("/profile", {"duration_s": SERVE_CAPTURE_S,
+                                  "label": "phase 13"})
+    post_s = time.perf_counter() - t_post
+    row = c.wait(row["id"], timeout_s=600)
+    if row["state"] != "done":
+        raise AssertionError(f"the captured bf16 job: {row['state']} "
+                             f"({row.get('reason')})")
+    row = c.job(row["id"])
+    out["rows"]["kmeans bf16 (captured)"] = {"row": row}
+    log(serve_job_line("kmeans bf16 (captured)", row, row["metrics"]))
+    window_end = doc["t_unix_s"] + doc["duration_s"]
+    if row["finished_unix_s"] < window_end:
+        raise AssertionError(
+            f"the bf16 job ended {window_end - row['finished_unix_s']:.3f}"
+            " s before the capture's window did")
+    got = np.load(o)
+    if got.shape != (KMEANS_K, KMEANS_D) or not np.isfinite(got).all():
+        raise AssertionError("the captured bf16 job's centroids are bad")
+    dev_doc = doc["device"]
+    if "error" in dev_doc or "skipped" in dev_doc or "trace" not in dev_doc:
+        raise AssertionError(f"the capture's device half: {dev_doc}")
+    with open(dev_doc["trace"]) as f:
+        events = json.load(f).get("traceEvents", [])
+    hits = dict(collections.Counter(
+        e.get("cat", "-") for e in events
+        if "kmeans_assign_sum" in e.get("name", "")))
+    if not hits:
+        cats = collections.Counter(e.get("cat", "-") for e in events)
+        raise AssertionError(f"the capture names no kmeans_assign_sum "
+                             f"({len(events)} events by category "
+                             f"{dict(cats)})")
+    log(f"POST /profile {SERVE_CAPTURE_S:g} s during the bf16 job (the "
+        f"request took {post_s:.3f} s): "
+        f"{doc['host_samples']} host samples, running jobs "
+        f"{doc.get('meta', {}).get('running_jobs')}, events naming "
+        f"kmeans_assign_sum by category {hits}")
+    out["capture"] = {"kernels": hits, "host_samples": doc["host_samples"]}
+
+    # a rejection past the card's memory
+    rej = c.submit("wordcount", wc["path"], config={"key_capacity": 1 << 33})
+    if (rej["state"] != "rejected" or not str(rej["reason"]).startswith(
+            "working_set_exceeds_hbm_budget")):
+        raise AssertionError(f"the oversized job: {rej['state']} "
+                             f"({rej['reason']})")
+    log(f"oversized submission rejected: {rej['reason']}")
+
+    # the endpoints
+    for path, keys in SERVE_KEYS.items():
+        got_keys = set(c._request(path))
+        if got_keys != keys:
+            raise AssertionError(f"{path} keys {sorted(got_keys)} != "
+                                 f"{sorted(keys)}")
+    text = urllib.request.urlopen(url + "/metrics",
+                                  timeout=60).read().decode()
+    prom = prom_values(text)
+    for needle in ("# TYPE moxt_serve_queue_wait_ms summary",
+                   "# TYPE moxt_serve_queue_wait_ms_hist histogram",
+                   "# TYPE moxt_hbm_budget_bytes gauge"):
+        if needle not in text:
+            raise AssertionError(f"/metrics lacks {needle!r}")
+    launches = {n: int(prom.get(f"moxt_kernels_{n}_launches", 0))
+                for n in ("kmeans_assign_sum", "tokenize_compact")}
+    want = {"kmeans_assign_sum": 2 * KMEANS_ITERS + SERVE_CAPTURE_ITERS,
+            "tokenize_compact": dev["chunks"]}
+    if launches != want:
+        raise AssertionError(f"the server's kernel launches {launches} != "
+                             f"{want}")
+    out["launches"] = launches
+    hist = {k: prom.get(f"moxt_serve_{k}_sum") for k in
+            ("queue_wait_ms", "admission_wait_ms", "run_wall_ms")}
+    log(f"endpoints hold the JAX key sets; the server's kernel launches "
+        f"{launches}; latency sums over {int(prom['moxt_serve_jobs_done'])}"
+        f" done jobs (ms) {hist}")
+
+    # shutdown: a clean drain
+    c.shutdown(drain=True)
+    rc = proc.wait(timeout=180)
+    if rc != 0:
+        raise AssertionError(f"the server exited {rc} after the drain")
+    if os.path.exists(port_file):
+        raise AssertionError("obs_port.json outlived the server")
+    with open(os.path.join(spool, "ledger", "ledger.jsonl")) as f:
+        entries = [json.loads(line) for line in f if line.strip()]
+    done = int(prom["moxt_serve_jobs_done"])
+    if len(entries) != done or done != 5:
+        raise AssertionError(f"{len(entries)} ledger entries for {done} "
+                             f"done jobs")
+    log(f"POST /shutdown drained the server: exit 0, obs_port.json gone, "
+        f"{len(entries)} ledger entries for {done} done jobs")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2423,15 +2758,18 @@ def main() -> int:
         dataflow = phase_dataflow(tmp, "cuda", wrappers)
         devmap = phase_device_map(tmp, "cuda", wc, collect, wrappers)
         plan = phase_plan(tmp, "cuda", stream, km, km_resume, wrappers)
+        serve = phase_serve(tmp, km, wc, devmap)
     if km["launches"]["fused_assign_sum"] != 2 * KMEANS_ITERS:
         raise AssertionError(f"kmeans path launched the kernel "
                              f"{km['launches']} times, expected "
                              f"{2 * KMEANS_ITERS}")
     # the counted runs of both k-means paths: phase 4's, phase 7's and
-    # phase 12's
+    # phase 12's, and the served jobs of phase 13 (the server process's
+    # own counts, from 0 at its start)
     launches = (km["launches"]["fused_assign_sum"]
                 + stream["launches"]["fused_assign_sum"]
-                + plan["launches"]["fused_assign_sum"])
+                + plan["launches"]["fused_assign_sum"]
+                + serve["launches"]["kmeans_assign_sum"])
     main_cfg = next(c for c in configs if c["k"] == KMEANS_K
                     and c["precision"] == "highest" and not c["weighted"])
     kernels = [{
@@ -2457,7 +2795,8 @@ def main() -> int:
         "replaces": "map_oxidize_tpu/ops/device_tokenize.py:85",
         "replaces_note": "tokenize_hash (:85) + _compact_tokens (:124), "
                          "XLA programs, not a Pallas kernel",
-        "launches": devmap["wordcount"]["launches"]["tokenize_compact"],
+        "launches": (devmap["wordcount"]["launches"]["tokenize_compact"]
+                     + serve["launches"]["tokenize_compact"]),
         "max_abs_err": tok["max_abs_err"],
         "ms": tok["ms"],
         "plain_ms": tok["plain_ms"],
@@ -2498,7 +2837,9 @@ def main() -> int:
         f"tokenize_compact {tok['ms']:.3f} ms per 32 MiB chunk, phase 11 "
         f"{devmap['wall_s']:.1f} s; phase 12 auto B "
         f"{ {p: (r['cold']['dispatch']['batch'], r['warm']['dispatch']['batch']) for p, r in plan['runs'].items()} }"
-        f" (cold, warm); total {time.perf_counter() - t_start:.1f} s")
+        f" (cold, warm); served words/s {serve['rates']} (concurrent), "
+        f"phase 13 {serve['wall_s']:.1f} s; total "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,10 @@ Layer map (mirrors the JAX package):
 
 * ``runtime.driver`` — job drivers: word count, device-resident k-means
 * ``runtime.engine`` — streaming device reduce engine
+* ``serve``          — the resident job service (``python -m
+  map_oxidize_tpu_torch serve`` / ``submit``)
+* ``obs``            — per-job observability, the run ledger and the live
+  plane (``/metrics``, ``/status``, ``/series``, ``/alerts``, ``/jobs``)
 * ``api``            — Mapper / Reducer boundary
 * ``ops``            — hashing, sort + segment reduce, top-k, k-means kernel
 * ``io``             — splitter / writer

@@ -16,10 +16,14 @@
     python -m map_oxidize_tpu_torch wordcount corpus.txt --backend cpu
     python -m map_oxidize_tpu_torch wordcount corpus.txt --checkpoint-dir ck
     python -m map_oxidize_tpu_torch wordcount corpus.txt \\
-        --metrics-out m.json --trace-out t.json
+        --metrics-out m.json --trace-out t.json --ledger-dir ledger
+    python -m map_oxidize_tpu_torch serve --port 8321 --spool-dir spool
+    python -m map_oxidize_tpu_torch submit --url http://127.0.0.1:8321 \\
+        --wait wordcount /data/corpus.txt
 
 Flag names and defaults are the JAX package's CLI's; ``--backend`` takes
-``cuda`` (the default, which needs a CUDA device) or ``cpu``.
+``cuda`` (the default, which needs a CUDA device) or ``cpu``.  ``serve``
+and ``submit`` are the resident job service's (:mod:`.serve.cli`).
 """
 
 from __future__ import annotations
@@ -101,6 +105,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "device-resident (device), "
                         "resident or streamed through the device by fit "
                         "(auto), host assign (native, python)")
+    p.add_argument("--no-native", action="store_true",
+                   help="disable the C++ tokenizer hot loop (with --mapper "
+                        "auto: the Python map)")
     p.add_argument("--reduce-mode", choices=["auto", "fold", "collect"],
                    default="auto",
                    help="reduce engine: streaming device fold vs host "
@@ -184,6 +191,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write the structured metrics document (phase "
                         "timings, counters, gauges, histograms) here as "
                         "JSON")
+    p.add_argument("--ledger-dir", default=None,
+                   help="append this job's summary (metrics, phase times, "
+                        "config hash, version) to <dir>/ledger.jsonl, the "
+                        "JAX package's run-ledger format")
     p.add_argument("--crash-dir", default=None,
                    help="failure flight recorder: on an abort, dump a "
                         "post-mortem bundle (config, metrics-so-far, "
@@ -207,6 +218,42 @@ def build_parser() -> argparse.ArgumentParser:
                    help="stall detector: warn with the open span names "
                         "when no chunk completes within this multiple of "
                         "the median chunk time; 0 = off")
+    p.add_argument("--obs-port", type=int, default=-1,
+                   help="live telemetry: serve /metrics (Prometheus), "
+                        "/status, /series, /alerts and /healthz on this "
+                        "127.0.0.1 port while the job runs (0 = "
+                        "ephemeral, port logged); -1 = off")
+    p.add_argument("--obs-sample-interval", type=float, default=0.0,
+                   help="time-series recorder: seconds between ring-"
+                        "buffer snapshots of every counter/gauge/"
+                        "histogram quantile (metrics doc `series` "
+                        "section + /series endpoint); 0 = off unless "
+                        "--obs-port is set (then 1s)")
+    p.add_argument("--obs-spool", default=None,
+                   help="fleet-discovery spool: where the live obs "
+                        "server publishes its port record (default: "
+                        "$MOXT_OBS_SPOOL or a per-user spool under the "
+                        "temporary directory; 'none' disables publishing)")
+    p.add_argument("--slo-rules", default=None,
+                   help="SLO/alerting rule set for the live plane: a "
+                        "JSON file path or inline JSON (a list extends "
+                        "the built-in defaults; {\"defaults\": false, "
+                        "\"rules\": [...]} replaces them).  Evaluated "
+                        "whenever the time-series recorder runs; firing "
+                        "rules emit [alert] lines, serve at /alerts, "
+                        "and write incident bundles")
+    p.add_argument("--incident-dir", default=None,
+                   help="where SLO incident bundles land (series window "
+                        "+ status snapshot per alert firing); default: "
+                        "the --crash-dir, if any")
+    p.add_argument("--profile-dir", default=None,
+                   help="where on-demand POST /profile deep captures "
+                        "land (torch.profiler device trace + host "
+                        "sampling stacks); default: next to the crash "
+                        "bundles / metrics document")
+    p.add_argument("--host-sample-hz", type=float, default=50.0,
+                   help="host sampling profiler rate during a /profile "
+                        "capture (Python stacks per second)")
     p.add_argument("--plan", choices=["auto", "off"], default="auto",
                    help="job planner: auto (default) solves the tunable "
                         "knobs from the calibration store's measured "
@@ -243,7 +290,9 @@ def config_from_args(args: argparse.Namespace) -> JobConfig:
         key_capacity=args.key_capacity,
         backend=args.backend,
         tokenizer=args.tokenizer,
-        mapper=args.mapper,
+        mapper="python" if args.no_native and args.mapper == "auto"
+               else args.mapper,
+        use_native=not args.no_native,
         reduce_mode=args.reduce_mode,
         collect_sort=args.collect_sort,
         collect_max_rows=args.collect_max_rows,
@@ -263,12 +312,20 @@ def config_from_args(args: argparse.Namespace) -> JobConfig:
         trace_dir=args.trace_dir,
         trace_out=args.trace_out,
         metrics_out=args.metrics_out,
+        ledger_dir=args.ledger_dir,
         crash_dir=args.crash_dir,
         progress=args.progress,
         progress_interval_s=args.progress_interval,
         data_audit=not args.no_data_audit,
         hbm_sample_s=args.hbm_sample_interval,
         stall_warn_factor=args.stall_factor,
+        obs_port=args.obs_port,
+        obs_sample_s=args.obs_sample_interval,
+        obs_spool=args.obs_spool,
+        slo_rules=args.slo_rules,
+        incident_dir=args.incident_dir,
+        profile_dir=args.profile_dir,
+        host_sample_hz=args.host_sample_hz,
         plan=args.plan,
         calib_dir=args.calib_dir,
         calib_min_samples=args.calib_min_samples,
@@ -276,6 +333,19 @@ def config_from_args(args: argparse.Namespace) -> JobConfig:
 
 
 def main(argv: list[str] | None = None) -> int:
+    if argv is None:
+        argv = sys.argv[1:]
+    if argv and argv[0] == "serve":
+        # the resident job server (serve/): a long-lived process, jobs
+        # arrive over HTTP; none of the one-shot workload flags apply
+        from map_oxidize_tpu_torch.serve.cli import serve_main
+
+        return serve_main(argv[1:])
+    if argv and argv[0] == "submit":
+        # the client side: HTTP only, no device
+        from map_oxidize_tpu_torch.serve.cli import submit_main
+
+        return submit_main(argv[1:])
     args = build_parser().parse_args(argv)
     configure(logging.DEBUG if args.verbose
               else logging.WARNING if args.quiet else logging.INFO)

@@ -1,13 +1,14 @@
-"""Job configuration of the port.
+"""Job and server configuration of the port.
 
-The fields the ported paths read (word count and bigram through the fold,
-the collect reduce or the device map, the inverted index, distinct,
-k-means in its three single-device modes, sort, join and sessionize,
-checkpoint/resume, the shuffle transports and the observability
-outputs), with the JAX package's defaults
-and validation (JAX ``config.py:94-365``).  ``backend``
-names a torch device family: ``cuda`` (the default) or ``cpu``; nothing
-falls back from one to the other.
+:class:`JobConfig` has every field of the JAX package's (JAX
+``config.py:32-365``), with its defaults and validation, except the
+fields of the multi-process and sharded paths the port has not got yet:
+``dist_coordinator``, ``dist_num_processes``, ``dist_process_id`` and
+``exchange_collective`` (ROADMAP A7) and ``remote_stage_dir`` and
+``remote_stage_timeout_s`` (A8).  ``backend`` names a torch device
+family: ``cuda`` (the default) or ``cpu``; nothing falls back from one to
+the other.  :class:`ServeConfig` is the resident job server's (JAX
+``config.py:505-593``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,11 @@ from dataclasses import dataclass
 #: workloads the port runs
 WORKLOADS = ("wordcount", "bigram", "invertedindex", "kmeans", "distinct",
              "sort", "join", "sessionize")
+
+#: workloads the resident job service serves: every built-in runs through
+#: the drivers the scheduler multiplexes (JAX ``config.py:29``); the
+#: scheduler's submit allowlist and the submit CLI's choices read it
+SERVE_WORKLOADS = WORKLOADS
 
 
 @dataclass
@@ -146,6 +152,10 @@ class JobConfig:
     #: (chrome://tracing / Perfetto); "-" collects the trace onto
     #: ``result.trace`` without writing a file; None disables tracing
     trace_out: str | None = None
+    #: append every finished job's summary (metrics, phase times, config
+    #: hash, version, workload, corpus size) to ``<dir>/ledger.jsonl``
+    #: (obs/ledger.py, the JAX package's format); None disables
+    ledger_dir: str | None = None
     #: failure flight recorder: on an abort, dump a post-mortem bundle
     #: (config, metrics so far, the trace with open spans closed,
     #: traceback) under this directory before propagating; None disables
@@ -166,6 +176,35 @@ class JobConfig:
     #: completes within this multiple of the median inter-chunk interval;
     #: 0 = off
     stall_warn_factor: float = 0.0
+    #: live telemetry HTTP server (obs/serve.py): the port this job's
+    #: /metrics, /status, /series, /alerts and /healthz endpoints bind on
+    #: 127.0.0.1.  0 = ephemeral (the bound port is logged); -1 disables
+    obs_port: int = -1
+    #: time-series recorder (obs/timeseries.py): seconds between ring
+    #: snapshots of every counter, gauge and histogram quantile (the
+    #: metrics document's ``series`` section and /series).  0 = off,
+    #: unless obs_port is set (serving implies sampling, 1 s)
+    obs_sample_s: float = 0.0
+    #: fleet-discovery spool: where the live obs server publishes its
+    #: ``moxt-obs-port-v1`` record.  None = $MOXT_OBS_SPOOL or a per-user
+    #: spool under the temporary directory; "none" disables publishing
+    obs_spool: str | None = None
+    #: SLO rule set (obs/slo.py) for the alert evaluator that watches the
+    #: time-series ring whenever it runs.  None = the built-in defaults;
+    #: else a JSON file path or inline JSON — a list EXTENDS the defaults,
+    #: {"defaults": false, "rules": [...]} replaces them
+    slo_rules: str | None = None
+    #: where alert incident bundles land (series window + /status
+    #: snapshot per firing); None = the crash_dir, if any
+    incident_dir: str | None = None
+    #: deep-profiling plane (obs/profiler.py): where ``POST /profile``
+    #: captures land (the torch.profiler device trace, host sampling
+    #: stacks and profile.json).  None = next to the crash bundles or the
+    #: metrics document, else ./moxt-profiles
+    profile_dir: str | None = None
+    #: host sampling profiler rate of a ``POST /profile`` capture: Python
+    #: thread stacks snapshotted this many times per second
+    host_sample_hz: float = 50.0
     #: persistent calibration store (obs/calib.py): directory whose
     #: ``calib.json`` accumulates measured per-(platform, devices,
     #: topology) program and workload rows, loaded at job start and
@@ -190,6 +229,22 @@ class JobConfig:
             raise ValueError("hbm_sample_s must be >= 0 (0 = off)")
         if self.stall_warn_factor < 0:
             raise ValueError("stall_warn_factor must be >= 0 (0 = off)")
+        if self.obs_port < -1 or self.obs_port > 65535:
+            raise ValueError(
+                "obs_port must be -1 (off), 0 (ephemeral), or a port")
+        if self.obs_sample_s < 0:
+            raise ValueError("obs_sample_s must be >= 0 (0 = off)")
+        if not 0 < self.host_sample_hz <= 1000:
+            raise ValueError(
+                "host_sample_hz must be in (0, 1000] samples/sec, got "
+                f"{self.host_sample_hz}")
+        if self.slo_rules:
+            from map_oxidize_tpu_torch.obs.slo import load_rules
+
+            try:
+                load_rules(self.slo_rules)
+            except (OSError, ValueError) as e:
+                raise ValueError(f"invalid slo_rules: {e}") from e
         if self.tokenizer not in ("ascii", "unicode"):
             raise ValueError(
                 f"tokenizer must be ascii|unicode, got {self.tokenizer!r}")
@@ -258,4 +313,91 @@ class JobConfig:
         if self.kmeans_precision not in ("highest", "bf16"):
             raise ValueError(f"kmeans_precision must be highest|bf16, "
                              f"got {self.kmeans_precision!r}")
+        return self
+
+
+@dataclass
+class ServeConfig:
+    """Resident job service configuration (``python -m
+    map_oxidize_tpu_torch serve``): the long-lived server that holds CUDA,
+    the launch ledger's program signatures, the loaded kernel libraries
+    and opened corpora across jobs, and multiplexes submitted jobs over
+    the drivers (JAX ``config.py:505``).  Per-JOB knobs stay on
+    :class:`JobConfig`; clients send overrides with each submission."""
+
+    #: HTTP bind: the obs telemetry plane (/metrics /status /series) plus
+    #: the job endpoints (/jobs, submit, cancel, shutdown).  0 = ephemeral
+    #: (logged, and written to ``MOXT_OBS_PORT_FILE``)
+    host: str = "127.0.0.1"
+    port: int = 0
+    #: concurrent job slots: worker threads multiplexing admitted jobs
+    #: (each runs a full driver under its own Obs)
+    workers: int = 2
+    #: bounded submission queue: submissions past it are REJECTED with a
+    #: named reason (``queue_full``), never silently dropped
+    max_queue: int = 16
+    #: device-memory admission budget in bytes: jobs whose estimated
+    #: working set can never fit are rejected, jobs that do not fit NEXT
+    #: TO the running set are deferred until memory frees.  0 = the
+    #: card's total memory (read once CUDA is initialised); a host
+    #: without a card leaves admission open
+    hbm_budget_bytes: int = 0
+    #: server working directory: per-job artifact spool
+    #: (``<spool>/<job_id>/`` holds the metrics doc and crash bundles)
+    #: plus the default ledger location
+    spool_dir: str = "moxt-serve-spool"
+    #: run ledger shared by every job the server finishes; empty =
+    #: ``<spool>/ledger``; "none" disables
+    ledger_dir: str = ""
+    #: cached-corpus idle eviction: an opened corpus unused by any job
+    #: for this long is closed; 0 disables eviction
+    idle_evict_s: float = 300.0
+    #: graceful-drain budget: on shutdown, running + already-admitted
+    #: jobs get this long to finish before remaining ones are cancelled
+    drain_timeout_s: float = 60.0
+    #: server-level telemetry cadence (the time-series ring + device
+    #: sampler on the server's own obs bundle)
+    obs_sample_s: float = 1.0
+    #: SLO rule set for the SERVER's alert evaluator (serve-scoped rules
+    #: see the server-lifetime registry: queue-wait p95, warm recompiles,
+    #: the memory watermark); same spelling as JobConfig.slo_rules ("" =
+    #: built-in defaults)
+    slo_rules: str = ""
+    #: per-job silent-heartbeat/series cadence (gives every job's /jobs
+    #: row live rows/sec without progress lines); 0 disables
+    job_sample_s: float = 0.5
+    #: persistent calibration store shared by every job the server runs;
+    #: empty = ``<spool>/calib``; "none" disables
+    calib_dir: str = ""
+    #: terminal-job retention: /jobs lists at most this many finished or
+    #: rejected jobs; older ones are dropped from memory (their spool
+    #: artifacts remain on disk)
+    max_history: int = 512
+
+    def validate(self) -> "ServeConfig":
+        if not 0 <= self.port <= 65535:
+            raise ValueError("serve port must be 0 (ephemeral) or a port")
+        if self.workers < 1:
+            raise ValueError("serve workers must be >= 1")
+        if self.max_queue < 1:
+            raise ValueError("serve max_queue must be >= 1")
+        if self.hbm_budget_bytes < 0:
+            raise ValueError("hbm_budget_bytes must be >= 0 (0 = probe)")
+        if self.idle_evict_s < 0 or self.drain_timeout_s < 0:
+            raise ValueError("idle_evict_s and drain_timeout_s must be "
+                             ">= 0")
+        if self.obs_sample_s < 0 or self.job_sample_s < 0:
+            raise ValueError("obs_sample_s and job_sample_s must be >= 0")
+        if self.max_history < 1:
+            raise ValueError("max_history must be >= 1 (a finished job "
+                             "must stay visible to its waiting client)")
+        if self.slo_rules:
+            from map_oxidize_tpu_torch.obs.slo import load_rules
+
+            try:
+                load_rules(self.slo_rules)
+            except (OSError, ValueError) as e:
+                raise ValueError(f"invalid slo_rules: {e}") from e
+        if not self.spool_dir:
+            raise ValueError("spool_dir must be set")
         return self

@@ -17,7 +17,8 @@ the surfaces the port's jobs run:
 * :mod:`~map_oxidize_tpu_torch.obs.flight` — the crash envelope
   (``crash_dir``) every driver body runs in;
 * :mod:`~map_oxidize_tpu_torch.obs.profiler` — the whole-job
-  ``torch.profiler`` trace (``trace_dir``);
+  ``torch.profiler`` trace (``trace_dir``) and the on-demand deep
+  captures of ``POST /profile`` (``profile_dir``, ``host_sample_hz``);
 * :mod:`~map_oxidize_tpu_torch.obs.compile` and
   :mod:`~map_oxidize_tpu_torch.obs.xprof` — the launch ledger of every
   observed device program and its roofline rows (``compile/*``,
@@ -29,12 +30,22 @@ the surfaces the port's jobs run:
   (``runtime/planner.py``), published at the start and scored at the end
   (``plan/*``, ``plan='off'`` skips it);
 * :mod:`~map_oxidize_tpu_torch.obs.critpath` — the one-process critical
-  path (``critpath/*``).
+  path (``critpath/*``);
+* the live plane (JAX ``Obs.from_config`` :250-300): the time-series ring
+  (:mod:`~map_oxidize_tpu_torch.obs.timeseries`, ``obs_sample_s``), the
+  SLO evaluator riding it (:mod:`~map_oxidize_tpu_torch.obs.slo`,
+  ``slo_rules``, ``incident_dir``) and the HTTP plane
+  (:mod:`~map_oxidize_tpu_torch.obs.serve`, ``obs_port``, ``obs_spool``),
+  stopped by :meth:`Obs.stop_live` from ``finish`` and the flight
+  recorder;
+* :mod:`~map_oxidize_tpu_torch.obs.ledger` — the run ledger
+  (``ledger_dir``): ``finish`` appends one entry per job.
 
 One ``Obs`` is created per job and handed to the layers that record into
-it (driver, engine, pipeline, checkpoint store).  The run ledger, SLO
-evaluator, live server and time series of the JAX package are not ported
-yet; their hooks are left out, not stubbed.
+it (driver, engine, pipeline, checkpoint store).  A resident server's own
+bundle records under the workload ``serve``: it idles between jobs, so
+its finish skips the job-wall decompositions (critical path, plan,
+workload calibration).
 """
 
 from __future__ import annotations
@@ -51,14 +62,24 @@ from dataclasses import dataclass, field
 from map_oxidize_tpu_torch.obs import attrib, critpath, xprof
 from map_oxidize_tpu_torch.obs import calib as _calib
 from map_oxidize_tpu_torch.obs import compile as _compile
+from map_oxidize_tpu_torch.obs import ledger
 from map_oxidize_tpu_torch.obs import plan as _plan
 from map_oxidize_tpu_torch.obs.context import current_obs, use_obs
+from map_oxidize_tpu_torch.obs.dataplane import (
+    ledger_section as dataplane_ledger_section,
+)
 from map_oxidize_tpu_torch.obs.heartbeat import Heartbeat
 from map_oxidize_tpu_torch.obs.metrics import (
     Histogram,
     MetricsRegistry,
     sample_device_memory,
     sample_host_memory,
+)
+from map_oxidize_tpu_torch.obs.serve import ObsServer, serve_port_for_process
+from map_oxidize_tpu_torch.obs.slo import SloEvaluator, load_rules
+from map_oxidize_tpu_torch.obs.timeseries import (
+    DEFAULT_CAPACITY,
+    TimeSeriesRecorder,
 )
 from map_oxidize_tpu_torch.obs.trace import NULL_SPAN, Span, Tracer
 from map_oxidize_tpu_torch.utils.logging import get_logger
@@ -112,9 +133,17 @@ class Obs:
     cancel_event: threading.Event = field(default_factory=threading.Event)
     cancel_reason: "str | None" = None
     #: the device sampler (device-memory watermarks, stall detector) when
-    #: the config asks for either; stopped by finish and the flight
-    #: recorder
+    #: the config asks for either (the live plane implies it); stopped by
+    #: finish and the flight recorder
     sampler: "object | None" = None
+    #: the live plane: the HTTP status server and the time-series
+    #: recorder, both stopped by finish AND the flight recorder
+    server: "object | None" = None
+    series: "object | None" = None
+    #: the SLO evaluator watching the series ring: runs whenever the
+    #: recorder runs, stopped with the live plane (its final tick sees
+    #: the recorder's final sample)
+    alerts: "object | None" = None
     #: the launch-ledger baseline taken at creation; ``finish_xprof``
     #: deltas against it
     xprof_base: "dict | None" = None
@@ -137,29 +166,73 @@ class Obs:
     @classmethod
     def from_config(cls, config) -> "Obs":
         """Build the bundle a job's config asks for (JAX ``Obs.from_config``
-        :194): the launch-ledger window opens, the device sampler starts
-        when asked for, and ``calib_dir``'s store loads (recording
+        :194): the launch-ledger window opens; the device sampler starts
+        when asked for or when the live plane runs; the time series, the
+        SLO evaluator and the HTTP plane start with ``obs_sample_s`` /
+        ``obs_port``; and ``calib_dir``'s store loads (recording
         ``calib/store_runs``, or ``calib/load_refused`` when it refuses).
         ``trace_out='-'`` collects the trace for ``result.trace`` without
         writing a file."""
+        live = config.obs_port >= 0 or config.obs_sample_s > 0
+        sample_s = config.obs_sample_s
+        if live and sample_s <= 0:
+            sample_s = 1.0  # serving implies sampling: /series must work
         hb = None
-        if config.progress:
+        if config.progress or live:
             total = None
             try:
                 total = os.path.getsize(config.input_path)
             except OSError:
                 pass
+            # the live plane needs the heartbeat's row/phase/ETA tracking
+            # for /status even when progress lines are off: a silent
+            # heartbeat tracks the same and emits nothing
+            silent = not config.progress
             hb = Heartbeat(total_bytes=total,
-                           interval_s=config.progress_interval_s)
+                           interval_s=config.progress_interval_s,
+                           emit=(lambda line: None) if silent else None)
+            hb.silent = silent
         obs = cls(registry=MetricsRegistry(),
                   tracer=Tracer(enabled=bool(config.trace_out)),
                   heartbeat=hb, dataplane_enabled=bool(config.data_audit))
         obs.xprof_base = _compile.LEDGER.activate(obs)
-        if config.hbm_sample_s > 0 or config.stall_warn_factor > 0:
+        hbm_s = config.hbm_sample_s
+        if live and hbm_s <= 0:
+            # the live plane implies the device sampler: /status and the
+            # series carry hbm/live_bytes at the sample cadence
+            hbm_s = sample_s
+        if hbm_s > 0 or config.stall_warn_factor > 0:
             obs.sampler = xprof.DeviceSampler(
-                obs, interval_s=config.hbm_sample_s,
+                obs, interval_s=hbm_s,
                 stall_factor=config.stall_warn_factor)
             obs.sampler.start()
+        if sample_s > 0:
+            # MOXT_SERIES_CAPACITY: a test hook for ring-wraparound
+            # coverage (a tiny ring wraps in seconds)
+            try:
+                cap = int(os.environ.get("MOXT_SERIES_CAPACITY", "")
+                          or DEFAULT_CAPACITY)
+            except ValueError:
+                cap = DEFAULT_CAPACITY
+            obs.series = TimeSeriesRecorder(obs.registry,
+                                            interval_s=sample_s,
+                                            capacity=cap,
+                                            heartbeat=obs.heartbeat,
+                                            obs=obs)
+            obs.series.start()
+            # the SLO plane rides the series ring: default rules plus
+            # slo_rules; incident bundles land under incident_dir
+            # (default: crash_dir)
+            obs.alerts = SloEvaluator(
+                obs, load_rules(config.slo_rules), config=config,
+                interval_s=sample_s,
+                incident_dir=config.incident_dir or config.crash_dir)
+            obs.alerts.start()
+        if config.obs_port >= 0:
+            obs.server = ObsServer(
+                obs, config, serve_port_for_process(config.obs_port,
+                                                    obs.process))
+            obs.server.start()
         if config.calib_dir:
             path = os.path.join(config.calib_dir, _calib.CALIB_FILE)
             try:
@@ -266,6 +339,20 @@ class Obs:
             "wall_start_unix_s": round(self.tracer.wall_start, 6),
         }
 
+    def stop_live(self) -> None:
+        """Quiesce the live plane (JAX ``Obs.stop_live`` :444): stop the
+        HTTP server (no scrape may observe a half-finished export), the
+        time-series recorder (which takes its final sample) and then the
+        SLO evaluator (whose final tick sees that sample, so a condition
+        that cleared at the very end still resolves).  Idempotent; called
+        by ``finish`` AND the flight recorder."""
+        if self.server is not None:
+            self.server.stop()
+        if self.series is not None:
+            self.series.stop()
+        if self.alerts is not None:
+            self.alerts.stop()
+
     def finish_xprof(self) -> dict | None:
         """Close the job's launch-ledger window: stop the sampler, fold the
         per-job delta into ``compile/*`` / ``xprof/*`` gauges and return
@@ -294,7 +381,7 @@ class Obs:
         try:
             ident = _calib.run_identity(self.n_processes)
             touched = self.calib.accumulate_run(ident, [], xprof_report)
-            if workload:
+            if workload and workload != "serve":
                 touched += self.calib.accumulate_workload(
                     ident, workload, corpus_bytes, attrib_doc)
             if touched:
@@ -310,19 +397,26 @@ class Obs:
 
     def finish(self, config, workload: str | None = None
                ) -> tuple[dict, list | None]:
-        """End-of-job hook: the launch-ledger report, the wall attribution,
-        the critical path, the plan's score, the calibration merge, the
-        data-plane audit, final memory watermarks, the ``metrics_out`` and
-        ``trace_out`` exports (stamped), and the ``(summary,
-        trace_events)`` pair the result carries.  ``trace_events`` is None
-        when tracing was off."""
+        """End-of-job hook: the live plane stops, then the launch-ledger
+        report, the wall attribution, the critical path, the plan's score,
+        the calibration merge, the data-plane audit, final memory
+        watermarks, the ``metrics_out`` and ``trace_out`` exports
+        (stamped, with the ``series`` and ``alerts`` sections when the
+        live plane ran), the ledger append (JAX :606-631), and the
+        ``(summary, trace_events)`` pair the result carries.
+        ``trace_events`` is None when tracing was off.  The resident
+        server's own bundle (workload ``serve``) has no job wall to
+        decompose, so its finish publishes no critical path."""
+        self.stop_live()
         xprof_report = self.finish_xprof()
         attrib_doc = attrib.finalize(
             self, xprof_report,
             max(time.time() - self.tracer.wall_start, 1e-9))
-        critpath_doc = critpath.degenerate_from_attrib(attrib_doc,
-                                                       process=self.process)
-        critpath.publish(self.registry, critpath_doc)
+        critpath_doc = None
+        if workload != "serve":
+            critpath_doc = critpath.degenerate_from_attrib(
+                attrib_doc, process=self.process)
+            critpath.publish(self.registry, critpath_doc)
         if self.plan is not None:
             _plan.finalize(self, self.plan, attrib_doc)
         corpus_bytes = 0.0
@@ -343,11 +437,16 @@ class Obs:
             doc["attrib"] = attrib_doc
             if self.plan is not None:
                 doc["plan"] = self.plan
-            doc["critpath"] = critpath_doc
+            if critpath_doc is not None:
+                doc["critpath"] = critpath_doc
             if data_doc is not None:
                 doc["data"] = data_doc
             if xprof_report is not None:
                 doc["xprof"] = xprof_report
+            if self.series is not None:
+                doc["series"] = self.series.export()
+            if self.alerts is not None:
+                doc["alerts"] = self.alerts.export()
             write_json_atomic(config.metrics_out, doc)
         trace = self.tracer.chrome_trace() if self.tracer.enabled else None
         if trace is not None:
@@ -356,7 +455,22 @@ class Obs:
                              "args": meta})
             if config.trace_out != "-":
                 write_json_atomic(config.trace_out, trace, indent=None)
-        return self.registry.summary(), trace
+        summary = self.registry.summary()
+        if config.ledger_dir:
+            extra: dict = {}
+            if self.plan is not None:
+                # the full plan rides the entry; the flat plan/* gauges
+                # are already in the summary the gate compares
+                extra["plan"] = self.plan
+            if data_doc is not None:
+                extra["data"] = dataplane_ledger_section(data_doc)
+            if self.alerts is not None and (self.alerts.fired_total
+                                            or self.alerts.resolved_total):
+                extra["alerts"] = self.alerts.timeline_doc()
+            ledger.append(config.ledger_dir, ledger.build_entry(
+                config, workload or "?", summary,
+                n_processes=self.n_processes, extra=extra or None))
+        return summary, trace
 
     @contextlib.contextmanager
     def recording(self, config, workload: str | None = None):
@@ -371,7 +485,8 @@ class Obs:
         (``runtime/planner.py``) and its ``plan/*`` gauges published;
         planning is evidence, never a reason to fail the job."""
         self.workload = workload
-        if self.plan is None and workload and config.plan != "off":
+        if (self.plan is None and workload and workload != "serve"
+                and config.plan != "off"):
             from map_oxidize_tpu_torch.runtime import planner as _planner
 
             try:

@@ -1,6 +1,7 @@
 """Wall-clock attribution ledger: where did every millisecond go.  The port
 of the JAX package's ``obs/attrib.py`` (``compute`` :125, ``where_token``
-:202, ``publish`` :212, ``finalize`` :236, ``render`` :250).
+:202, ``publish`` :212, ``live_update`` :227, ``finalize`` :236,
+``render`` :250).
 
 The decomposition sums to the job's wall: every bucket is critical-path
 time measured on the job's consumer side, so buckets are disjoint by
@@ -75,6 +76,11 @@ SHORT = {
     "host_write": "write", "unattributed": "other",
 }
 
+#: ``obs diff --gate``: an unattributed fraction growing by more than
+#: this many percentage points over the previous comparable run flags
+#: (JAX ``obs/attrib.py:100``)
+UNATTRIBUTED_GATE_POINTS = 10.0
+
 #: host-only phases attributed wholesale (``replay`` and ``finalize`` run
 #: device work, so they contribute through the metric-derived buckets)
 _PRODUCE_PHASES = ("split", "sample")
@@ -90,10 +96,14 @@ def compute(obs, programs: dict | None = None,
             elapsed_s: float | None = None) -> dict:
     """The attribution document: wall, per-bucket ms + pct, remainder.
 
-    ``programs`` is the per-program compile/dispatch row map of the
-    job's launch-ledger report (``{}`` when None).  ``elapsed_s``
-    overrides the wall (default: now - the tracer's wall start)."""
-    programs = programs or {}
+    ``programs`` is the per-program compile/dispatch row map: the job's
+    live launch-ledger overlay when None (the live plane's reads), the
+    closed window's report rows at finish.  ``elapsed_s`` overrides the
+    wall (default: now - the tracer's wall start)."""
+    if programs is None:
+        from map_oxidize_tpu_torch.obs.compile import job_overlay_delta
+
+        programs = job_overlay_delta(obs)
     if elapsed_s is None:
         elapsed_s = max(time.time() - obs.tracer.wall_start, 1e-9)
     wall_ms = elapsed_s * 1e3
@@ -176,6 +186,16 @@ def publish(obs, doc: dict) -> None:
     hb = obs.heartbeat
     if hb is not None:
         hb.where = where_token(doc)
+
+
+def live_update(obs) -> dict:
+    """One live refresh (each time-series tick calls this, JAX
+    ``obs/attrib.py:227``): compute from the running overlay, publish the
+    gauges and the heartbeat token, return the document (the ``/status``
+    payload's ``attrib`` section)."""
+    doc = compute(obs)
+    publish(obs, doc)
+    return doc
 
 
 def finalize(obs, xprof_report: dict | None, elapsed_s: float) -> dict:

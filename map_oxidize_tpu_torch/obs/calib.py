@@ -58,6 +58,10 @@ _WORKLOAD_IDENTITY = ("platform", "device_count", "topology", "workload")
 #: legal evidence provenance tags (trailing ``_COMM_IDENTITY`` field)
 _SOURCES = ("job", "probe")
 
+#: ``obs diff --gate``: coverage dropping more than this many points
+#: against the baseline entry flags (JAX ``obs/calib.py:76``)
+CALIB_COVERAGE_GATE_POINTS = 10.0
+
 #: selection floor: below this many sampled latencies in the exact
 #: bucket the chooser refuses to trust a curve (named reason, default
 #: kept) — 1–2 samples is an anecdote, not evidence

@@ -1,8 +1,9 @@
 """Launch ledger: observe every device program the port runs, by name.
 
 The port of the JAX package's ``obs/compile.py`` (``ProgramStats`` :49,
-``CompileLedger`` :83, ``record_dispatch`` :243, ``job_delta`` :288,
-``_classify`` :371, ``ObservedJit`` :389, ``observed_jit`` :561).  PyTorch
+``CompileLedger`` :83 with ``overlay`` :134, ``record_dispatch`` :243,
+``job_delta`` :288, ``_classify`` :371, ``ObservedJit`` :389,
+``job_overlay_delta`` :544, ``observed_jit`` :561).  PyTorch
 has no jit cache, so the JAX notions map as follows:
 
 * **A compile** is the first dispatch of a program under a new signature
@@ -143,6 +144,16 @@ class CompileLedger:
                     self._active, self._active_base = None, {}
         return entry[2] if entry is not None else None
 
+    def overlay(self, obs) -> "dict | None":
+        """Copy of a still-active job's overlay (JAX ``obs/compile.py:134``):
+        the live ``/status`` table, the ``/jobs`` rows and the series
+        read it without closing the window."""
+        with self._lock:
+            entry = self._actives.get(id(obs))
+            return ({n: dict(r, causes=list(r["causes"]))
+                     for n, r in entry[2].items()}
+                    if entry is not None else None)
+
     def job_compile_ms(self, obs) -> float:
         """Compiling-call wall recorded so far in ``obs``'s open window
         (0 once it closed)."""
@@ -201,9 +212,12 @@ class CompileLedger:
             line = (f"[xprof] recompile #{job_compiles} of {stats.name} "
                     f"this job: {cause} ({len(stats.sigs)} input-shape "
                     "sets)")
-            if obs.heartbeat is not None:
-                obs.heartbeat._emit(line)
+            hb = obs.heartbeat
+            if hb is not None and not hb.silent:
+                hb._emit(line)
             else:
+                # a silent tracking-only heartbeat (live plane without
+                # progress lines) must not swallow the warning
                 _log.warning("%s", line)
 
     def record_dispatch(self, stats: ProgramStats, gap_ms: float,
@@ -298,6 +312,23 @@ class CompileLedger:
 
 #: the process ledger every observed program records into
 LEDGER = CompileLedger()
+
+
+def job_overlay_delta(obs) -> dict:
+    """Live per-program compile/dispatch delta of a STILL-RECORDING job
+    (JAX ``obs/compile.py:544``): the activity routed to this job by its
+    overlay, disjoint from concurrent jobs' in one process.  The ``/jobs``
+    rows, the live attribution and the resident server's warm-compile
+    evidence read it mid-run; ``Obs.finish_xprof`` keeps the end-of-job
+    export.  ``{}`` for a job whose window never opened or already
+    closed."""
+    base = getattr(obs, "xprof_base", None)
+    if base is None:
+        return {}
+    local = LEDGER.overlay(obs)
+    if local is None:
+        return {}
+    return LEDGER.job_delta(base, local)
 
 
 def note_backend_compile(ms: float) -> None:
@@ -577,17 +608,26 @@ class ObservedProgram:
             if obs is not None and obs.current_phase:
                 obs.registry.count("attrib/lowering_ms",
                                    (time.perf_counter() - t_cost) * 1e3)
-        compiled = sig not in self._seen
+        # claim the signature before the call: of two jobs calling a new
+        # signature at once in one process, exactly one compiles (a jit
+        # cache compiles once too); a failed first call gives it back
+        with led._lock:
+            compiled = sig not in self._seen
+            self._seen.add(sig)
         tls = led._tls
         prev, tls.current = getattr(tls, "current", None), stats
         bc0 = stats.backend_compile_ms
         t0 = time.perf_counter()
         try:
             out = self._fn(*args, **kw)
+        except BaseException:
+            if compiled:
+                with led._lock:
+                    self._seen.discard(sig)
+            raise
         finally:
             tls.current = prev
         gap_ms = (time.perf_counter() - t0) * 1e3
-        self._seen.add(sig)
         if compiled:
             cause = ("first" if not stats.sigs
                      else _classify(sig, stats.sigs) if new_sig

@@ -2,14 +2,16 @@
 port of the JAX package's ``obs/flight.py`` (``record_failure`` :50).
 
 :func:`record_failure` is the except-path twin of ``Obs.finish``: it closes
-still-open spans (on every thread, so the trace stays well-formed),
-attributes the wall as of the abort, snapshots memory watermarks, flushes
+still-open spans (on every thread, so the trace stays well-formed), stops
+the live plane (JAX :68-71), attributes the wall as of the abort, snapshots memory watermarks, flushes
 the partial metrics and trace to the ``metrics_out`` / ``trace_out`` paths
 the run asked for, and dumps one bundle per crash under ``crash_dir``:
 
 * ``error.json``   — exception type/message/traceback, run metadata
   (version, config hash, workload), full config;
-* ``metrics.json`` — the metrics document as of the crash;
+* ``metrics.json`` — the metrics document as of the crash, with the
+  ``series`` and ``alerts`` sections when the live plane ran (JAX
+  :99-104);
 * ``trace.json``   — Chrome trace-event JSON with the interrupted spans
   closed at crash time and tagged ``unfinished`` (only when the run
   traced).
@@ -60,6 +62,10 @@ def _record(obs, config, exc, workload):
 
     err = f"{type(exc).__name__}: {exc}"
     obs.tracer.close_open_spans(error=err)
+    # the live plane shuts down FIRST: the status server must not serve a
+    # half-recorded crash, and the time-series recorder takes its final
+    # sample so the bundle's series ends at the crash instant
+    obs.stop_live()
     # the launch-ledger window closes here too: the compile and dispatch
     # record as of the crash lands in the bundle
     xprof_report = obs.finish_xprof()
@@ -74,6 +80,11 @@ def _record(obs, config, exc, workload):
     metrics_doc["attrib"] = attrib_doc
     if xprof_report is not None:
         metrics_doc["xprof"] = xprof_report
+    if obs.series is not None:
+        metrics_doc["series"] = obs.series.export()
+    if obs.alerts is not None:
+        # which SLOs were firing when the job died
+        metrics_doc["alerts"] = obs.alerts.export()
     trace = obs.tracer.chrome_trace() if obs.tracer.enabled else None
     if trace is not None:
         trace.insert(0, {"name": "moxt_meta", "ph": "M",

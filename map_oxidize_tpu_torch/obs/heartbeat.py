@@ -1,6 +1,7 @@
 """Progress heartbeat: periodic rows/sec, percent-done, ETA and phase
 lines (``progress`` / ``--progress``, ``--progress-interval``).  The port of
-the JAX package's ``obs/heartbeat.py`` (``Heartbeat`` :23).
+the JAX package's ``obs/heartbeat.py`` (``Heartbeat`` :23, ``announce``
+:65).
 
 Opt-in, because its audience is a human watching a long streamed job.  The
 beat is driven *inline* from the driver's per-chunk/per-iteration update
@@ -43,10 +44,23 @@ class Heartbeat:
         self.rows = 0
         self.bytes_done = 0
         self.fraction: float | None = None
+        #: live device memory in use (max over devices), fed by the device
+        #: sampler thread when one runs; None keeps it off the line
+        self.hbm_bytes: int | None = None
+        #: True when this heartbeat only TRACKS progress (the live plane's
+        #: /status feed) and emits no lines: warning producers (the stall
+        #: detector, recompile warnings) then fall back to the logger
+        self.silent = False
         #: one-token wall attribution (e.g. ``compute 61%``), set by
         #: :func:`map_oxidize_tpu_torch.obs.attrib.publish`; None keeps it
         #: off the line
         self.where: str | None = None
+
+    def announce(self, line: str) -> None:
+        """Emit one out-of-band line at once (alert transitions, warnings)
+        through the heartbeat's sink; the interval throttle paces only the
+        periodic progress lines."""
+        self._emit(line)
 
     def set_phase(self, name: str) -> None:
         self.phase = name
@@ -91,6 +105,8 @@ class Heartbeat:
             if 0 < frac < 1:
                 eta = elapsed * (1 - frac) / frac
                 parts.append(f"eta={_fmt_eta(eta)}")
+        if self.hbm_bytes is not None:
+            parts.append(f"hbm={self.hbm_bytes / (1 << 30):.2f}GB")
         if self.where is not None:
             parts.append(f"where={self.where}")
         self._emit(" ".join(parts))

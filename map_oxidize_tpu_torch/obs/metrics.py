@@ -24,9 +24,17 @@ flush cadence, where contention is negligible.
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import threading
 import time
+
+#: default cumulative-bucket bounds for latency histograms, in ms — 5 ms to
+#: 10 min, roughly log-spaced (the serve job-latency SLO metrics: queue
+#: wait, admission wait, run wall; JAX ``obs/metrics.py:40``)
+LATENCY_BUCKETS_MS = (
+    5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 500.0, 1000.0, 2500.0, 5000.0,
+    10_000.0, 30_000.0, 60_000.0, 120_000.0, 300_000.0, 600_000.0)
 
 
 class Histogram:
@@ -38,12 +46,17 @@ class Histogram:
     the kept set reaches ``max_samples`` it is decimated 2:1 and the stride
     doubles — bounded memory, no RNG, and the sample stays uniformly spread
     over the series.
+
+    ``buckets`` (a sorted sequence of upper bounds) additionally keeps exact
+    fixed-bucket counts, so the histogram exports as a cumulative-bucket
+    Prometheus histogram (``_bucket{le=...}``); the serve job-latency
+    histograms use :data:`LATENCY_BUCKETS_MS`.
     """
 
     __slots__ = ("count", "total", "min", "max", "_samples", "_stride",
-                 "_max_samples")
+                 "_max_samples", "buckets", "bucket_counts")
 
-    def __init__(self, max_samples: int = 8192):
+    def __init__(self, max_samples: int = 8192, buckets=None):
         self.count = 0
         self.total = 0.0
         self.min: float | None = None
@@ -51,6 +64,12 @@ class Histogram:
         self._samples: list[float] = []
         self._stride = 1
         self._max_samples = max_samples
+        #: fixed upper bounds (an implicit +Inf bucket rides at the end);
+        #: None = a summary-only histogram
+        self.buckets: tuple | None = (
+            tuple(sorted(float(b) for b in buckets)) if buckets else None)
+        self.bucket_counts: list[int] | None = (
+            [0] * (len(self.buckets) + 1) if self.buckets else None)
 
     def observe(self, value: float) -> None:
         value = float(value)
@@ -60,11 +79,26 @@ class Histogram:
             self.min = value
         if self.max is None or value > self.max:
             self.max = value
+        if self.buckets is not None:
+            self.bucket_counts[bisect.bisect_left(self.buckets,
+                                                  value)] += 1
         if self.count % self._stride == 0:
             self._samples.append(value)
             if len(self._samples) >= self._max_samples:
                 self._samples = self._samples[1::2]
                 self._stride *= 2
+
+    def cumulative_buckets(self) -> list[tuple[float, int]] | None:
+        """``(le, cumulative_count)`` pairs ending at ``(+inf, count)``, or
+        None for a summary-only histogram."""
+        if self.buckets is None:
+            return None
+        out, acc = [], 0
+        for le, n in zip(self.buckets, self.bucket_counts):
+            acc += n
+            out.append((le, acc))
+        out.append((float("inf"), self.count))
+        return out
 
     def quantile(self, q: float) -> float | None:
         if not self._samples:
@@ -74,13 +108,18 @@ class Histogram:
         return s[idx]
 
     def summary(self) -> dict:
-        return {
+        s = {
             "count": self.count,
             "mean": round(self.total / self.count, 6) if self.count else 0.0,
             "p50": _round6(self.quantile(0.50)),
             "p95": _round6(self.quantile(0.95)),
             "max": _round6(self.max),
         }
+        if self.buckets is not None:
+            s["buckets"] = {
+                ("+Inf" if le == float("inf") else f"{le:g}"): n
+                for le, n in self.cumulative_buckets()}
+        return s
 
 
 def _round6(v):
@@ -102,6 +141,12 @@ class MetricsRegistry:
         self.gauges: dict[str, float] = {}
         self.histograms: dict[str, Histogram] = {}
         self._lock = threading.Lock()
+        #: sticky Prometheus export-name assignments for this registry's
+        #: lifetime ((kind, name) -> moxt_* name, plus the taken set): a
+        #: key created later must never take the name of an already
+        #: exported series (obs/serve.py's exporter fills them)
+        self._prom_names: dict = {}
+        self._prom_used: set = set()
 
     @contextlib.contextmanager
     def phase(self, name: str):
@@ -130,12 +175,14 @@ class MetricsRegistry:
             if value > self.gauges.get(name, float("-inf")):
                 self.gauges[name] = value
 
-    def observe(self, name: str, value: float) -> None:
-        """Add one observation to the named histogram (created lazily)."""
+    def observe(self, name: str, value: float, buckets=None) -> None:
+        """Add one observation to the named histogram (created lazily).
+        ``buckets`` (applied at creation) also keeps exact cumulative-bucket
+        counts for the Prometheus ``_bucket{le=...}`` export."""
         with self._lock:
             h = self.histograms.get(name)
             if h is None:
-                h = self.histograms[name] = Histogram()
+                h = self.histograms[name] = Histogram(buckets=buckets)
             h.observe(value)
 
     def summary(self) -> dict:

@@ -21,6 +21,11 @@ from __future__ import annotations
 
 PLAN_SCHEMA = "moxt-plan-v1"
 
+#: ``obs diff --gate``: prediction error growing by more than this many
+#: percentage points over the previous comparable run flags (JAX
+#: ``obs/plan.py:36``; read by :mod:`~map_oxidize_tpu_torch.obs.ledger`)
+PLAN_ERROR_GATE_POINTS = 50.0
+
 #: the provenance taxonomy: per-knob ``curve``/``memo``/``default``/
 #: ``pinned``, plus the plan-level ``platform_default`` a cold run records
 PROVENANCES = ("curve", "memo", "default", "pinned", "platform_default")

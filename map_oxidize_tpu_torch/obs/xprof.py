@@ -308,9 +308,12 @@ class DeviceSampler:
         line = (f"[stalled] no chunk completed in {elapsed:.1f}s "
                 f"(median {med:.2f}s, factor {self.stall_factor:g}); "
                 f"open spans: {open_s}")
-        if self.obs.heartbeat is not None:
-            self.obs.heartbeat._emit(line)
+        hb = self.obs.heartbeat
+        if hb is not None and not hb.silent:
+            hb._emit(line)
         else:
+            # no heartbeat, or a silent tracking-only one (the live
+            # plane's /status feed): the warning must still hit the log
             _log.warning("%s", line)
         self.obs.registry.count("heartbeat/stalls")
         return True

@@ -753,3 +753,101 @@ def test_auto_b_stream_fit_on_the_card_is_bit_equal_to_b1(cuda, tmp_path):
         0, n_chunks=41, chunk_device_bytes=1000 * 32 * 4,
         flops_per_chunk=4.0 * 1000 * 16 * 32)
     assert b == timings["dispatch_batch"] and info["hbm_cap"] >= 1
+
+
+# --- the resident job service on the card -----------------------------------
+
+
+@pytest.fixture(scope="module")
+def card_server(tmp_path_factory):
+    """One resident server of the port in this process, warmed on the
+    card, with a small blob file to serve k-means jobs on."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the server's jobs run on it")
+    import time
+
+    from map_oxidize_tpu_torch.config import ServeConfig
+    from map_oxidize_tpu_torch.serve.client import ServeClient
+    from map_oxidize_tpu_torch.serve.server import ResidentServer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tmp = tmp_path_factory.mktemp("card_serve")
+    rng = np.random.default_rng(9)
+    centres = rng.integers(-50, 50, (64, 32)).astype(np.float32) * 8
+    pts = (centres[rng.integers(0, 64, 1 << 16)]
+           + rng.integers(-2, 3, ((1 << 16), 32))).astype(np.float32)
+    path = str(tmp / "pts.npy")
+    np.save(path, pts)
+    srv = ResidentServer(ServeConfig(
+        port=0, workers=2, spool_dir=str(tmp / "spool"),
+        obs_sample_s=0.1).validate()).start()
+    c = ServeClient(srv.url, timeout_s=60)
+    deadline = time.monotonic() + 120
+    while "hbm/budget_bytes" not in c.status()["hbm"]:
+        assert time.monotonic() < deadline, "the warm-up never finished"
+        time.sleep(0.05)
+    yield srv, c, path, tmp
+    srv.shutdown()
+
+
+def _served_kmeans(c, path, out, **kw):
+    cfg = dict({"kmeans_k": 64, "kmeans_iters": 5}, **kw)
+    row = c.wait(c.submit("kmeans", path, config=cfg, output=out)["id"],
+                 timeout_s=300)
+    assert row["state"] == "done", row.get("reason")
+    return c.job(row["id"])
+
+
+def test_serve_warmup_sets_the_budget_to_the_card_memory(card_server):
+    _srv, c, _path, _tmp = card_server
+    total = sum(torch.cuda.get_device_properties(i).total_memory
+                for i in range(torch.cuda.device_count()))
+    assert c.status()["hbm"]["hbm/budget_bytes"] == total
+    assert c.jobs()["hbm"]["budget_bytes"] == total
+
+
+def test_served_kmeans_is_bit_equal_to_run_job(card_server):
+    _srv, c, path, tmp = card_server
+    out = str(tmp / "served.npy")
+    row = _served_kmeans(c, path, out)
+    r = run_job(JobConfig(input_path=path, output_path="", kmeans_k=64,
+                          kmeans_iters=5, metrics=False), "kmeans")
+    assert np.array_equal(np.load(out), r.centroids)
+    assert row["metrics"]["device"].startswith("cuda")
+
+
+def test_a_second_served_job_of_the_same_shape_compiles_nothing(
+        card_server):
+    _srv, c, path, tmp = card_server
+    _served_kmeans(c, path, str(tmp / "first.npy"), kmeans_iters=3)
+    row = _served_kmeans(c, path, str(tmp / "second.npy"), kmeans_iters=3)
+    assert row["compiles"] == 0
+    assert row["metrics"]["compile/total_compiles"] == 0
+
+
+def test_profile_capture_during_a_served_job_names_the_kernel(card_server):
+    """A ``POST /profile`` capture on the HTTP handler's thread, taken while
+    a worker thread's k-means fit runs, records the kernel (CUPTI traces
+    the whole process); the fit outlasts the capture's window."""
+    import json
+    import time
+
+    _srv, c, path, tmp = card_server
+    row = c.submit("kmeans", path, output=str(tmp / "captured.npy"),
+                   config={"kmeans_k": 64, "kmeans_iters": 100_000,
+                           "kmeans_precision": "bf16"})
+    while row["state"] in ("queued", "running") and row.get(
+            "phase") != "iterate":
+        time.sleep(0.02)
+        row = c.job(row["id"])
+    assert row["state"] == "running"
+    doc = c._request("/profile", {"duration_s": 2.0})
+    row = c.wait(row["id"], timeout_s=600)
+    assert row["state"] == "done"
+    assert c.job(row["id"])["finished_unix_s"] >= \
+        doc["t_unix_s"] + doc["duration_s"]
+    dev = doc["device"]
+    assert "error" not in dev and "skipped" not in dev
+    with open(dev["trace"]) as f:
+        events = json.load(f)["traceEvents"]
+    assert any("kmeans_assign_sum" in e.get("name", "") for e in events)

@@ -454,7 +454,10 @@ def test_a_cpu_job_initialises_no_cuda(tmp_path):
 FLAGS = ["--metrics-out", "--trace-out", "--trace-dir", "--crash-dir",
          "--progress", "--progress-interval", "--no-data-audit",
          "--chunk-mb", "--kmeans-fit-bytes", "--plan", "--calib-dir",
-         "--calib-min-samples", "--hbm-sample-interval", "--stall-factor"]
+         "--calib-min-samples", "--hbm-sample-interval", "--stall-factor",
+         "--ledger-dir", "--obs-port", "--obs-sample-interval",
+         "--obs-spool", "--slo-rules", "--incident-dir", "--profile-dir",
+         "--host-sample-hz", "--no-native"]
 
 
 @pytest.mark.parametrize("flag", FLAGS)
@@ -464,6 +467,32 @@ def test_cli_flag_has_the_jax_name_and_default(flag):
         return a.dest, a.default, type(a).__name__
 
     assert action(cli.build_parser()) == action(jax_build_parser())
+
+
+def test_cli_no_native_gives_the_jax_cli_s_bytes(tmp_path, monkeypatch):
+    """``--no-native`` with ``--mapper auto`` maps in Python and clears
+    ``use_native`` in both CLIs (JAX ``cli.py:338-340``); the two
+    ``final_result.txt`` files are byte-identical, and the flag's config
+    mapping is the JAX one."""
+    inp = tmp_path / "c.txt"
+    inp.write_bytes(_corpus())
+    monkeypatch.chdir(tmp_path)
+    args = ["wordcount", str(inp), "--no-native", "--num-chunks", "3",
+            "-q"]
+    assert cli.main(args + ["--backend", "cpu", "--output", "t.txt",
+                            "--metrics-out", "t.json"]) == 0
+    assert jax_cli_main(args + ["--num-shards", "1", "--output",
+                                "j.txt"]) == 0
+    assert (tmp_path / "t.txt").read_bytes() == \
+        (tmp_path / "j.txt").read_bytes()
+    for argv in (args, args + ["--mapper", "native"]):
+        mine = cli.config_from_args(cli.build_parser().parse_args(argv))
+        from map_oxidize_tpu.cli import config_from_args as jax_config
+
+        ref = jax_config(jax_build_parser().parse_args(argv))
+        assert (mine.mapper, mine.use_native) == (ref.mapper,
+                                                  ref.use_native)
+    assert (mine.mapper, mine.use_native) == ("native", False)
 
 
 def test_cli_kmeans_fit_bytes_reaches_stream_device_like_the_jax_cli(
