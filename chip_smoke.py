@@ -169,7 +169,38 @@ Phases (any failure exits non-zero, before the result line):
              (``kernels/<name>/launches``, from 0 at its start); a
              ``POST /shutdown`` drain: exit 0, ``obs_port.json`` removed,
              one ledger entry per done job.  Each job's submit-to-done
-             latency, queue wait and run wall.
+             latency, queue wait and run wall.  Before the drain, phase
+             14's fleet step;
+14. obs      the offline ``obs`` tooling on card documents: phase 4's
+             k-means (``highest``) three times and phase 11's device-map
+             word count twice, each through the port's CLI ``main`` in a
+             fresh process (``--backend cuda``, ``--ledger-dir``,
+             ``--calib-dir``, ``--metrics-out``; phase 12's measured peaks
+             in ``MOXT_PEAK_FLOPS`` / ``MOXT_PEAK_MEMBW``) that prints its
+             kernel launch counts, bit-equal to phase 4 / byte-identical
+             to phase 5; then ``python -m map_oxidize_tpu_torch obs ...``
+             as subprocesses, each timed: ``xprof`` (``kmeans/fit`` and
+             ``device_map/tokenize`` with achieved rates and MFU),
+             ``where`` (buckets + unattributed = wall), ``plan``,
+             ``data`` (on phase 5's native word count: the device map
+             keeps no audit, exit 2), ``critpath``, ``calib show``,
+             ``diff``, ``diff
+             --gate`` on a copy of the ledger with the last
+             ``time/iterate_s`` doubled (exit 3), ``trend`` plain and
+             ``--json``, ``flame`` on phase 13's capture bundle (naming an
+             attribution bucket) and ``xprof`` on phase 8's crash bundle.
+             The fleet step runs inside phase 13 before its drain: a
+             served bf16 k-means of 2,000 iterations and a one-shot card
+             k-means of 1,500 with its live plane (``--obs-port 0``)
+             under ``obs fleet --spool <the server's spool> --port-file
+             <the job's MOXT_OBS_PORT_FILE>`` (32 sweeps at 0.25 s,
+             archiving), whose ``/metrics`` carries both as labelled
+             targets, the server with its device-memory gauges, while
+             the server reports ``kernels/kmeans_assign_sum/launches``;
+             ``obs top --url`` renders the per-target table; after the
+             collector exits, ``obs top/where/trend/critpath --archive``
+             name the targets (``where`` and ``critpath`` the job: a
+             resident server's own bundle has no attribution).
 
 Then one JSON line with every kernel, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Inputs are made from fixed
@@ -2665,7 +2696,8 @@ def _drive_server(tmp: str, spool: str, proc, km: dict, wc: dict,
         f"{doc['host_samples']} host samples, running jobs "
         f"{doc.get('meta', {}).get('running_jobs')}, events naming "
         f"kmeans_assign_sum by category {hits}")
-    out["capture"] = {"kernels": hits, "host_samples": doc["host_samples"]}
+    out["capture"] = {"kernels": hits, "host_samples": doc["host_samples"],
+                      "bundle": os.path.dirname(dev_doc["dir"])}
 
     # a rejection past the card's memory
     rej = c.submit("wordcount", wc["path"], config={"key_capacity": 1 << 33})
@@ -2674,6 +2706,9 @@ def _drive_server(tmp: str, spool: str, proc, km: dict, wc: dict,
         raise AssertionError(f"the oversized job: {rej['state']} "
                              f"({rej['reason']})")
     log(f"oversized submission rejected: {rej['reason']}")
+
+    # phase 14's fleet step, while this server is up
+    out["fleet"] = drive_fleet(tmp, "cuda", spool, url, c, km)
 
     # the endpoints
     for path, keys in SERVE_KEYS.items():
@@ -2691,8 +2726,8 @@ def _drive_server(tmp: str, spool: str, proc, km: dict, wc: dict,
             raise AssertionError(f"/metrics lacks {needle!r}")
     launches = {n: int(prom.get(f"moxt_kernels_{n}_launches", 0))
                 for n in ("kmeans_assign_sum", "tokenize_compact")}
-    want = {"kmeans_assign_sum": 2 * KMEANS_ITERS + SERVE_CAPTURE_ITERS,
-            "tokenize_compact": dev["chunks"]}
+    want = {"kmeans_assign_sum": 2 * KMEANS_ITERS + SERVE_CAPTURE_ITERS
+            + FLEET_KM_ITERS, "tokenize_compact": dev["chunks"]}
     if launches != want:
         raise AssertionError(f"the server's kernel launches {launches} != "
                              f"{want}")
@@ -2713,12 +2748,357 @@ def _drive_server(tmp: str, spool: str, proc, km: dict, wc: dict,
     with open(os.path.join(spool, "ledger", "ledger.jsonl")) as f:
         entries = [json.loads(line) for line in f if line.strip()]
     done = int(prom["moxt_serve_jobs_done"])
-    if len(entries) != done or done != 5:
+    if len(entries) != done or done != 6:
         raise AssertionError(f"{len(entries)} ledger entries for {done} "
                              f"done jobs")
     log(f"POST /shutdown drained the server: exit 0, obs_port.json gone, "
         f"{len(entries)} ledger entries for {done} done jobs")
     return out
+
+
+# --- phase 14 ---------------------------------------------------------------
+
+#: phase 14's card jobs: resident k-means fits at phase 4's shape into one
+#: ledger and calibration store, device-map word counts into a second
+OBS_KM_RUNS = 3
+OBS_WC_RUNS = 2
+#: the served k-means the fleet collector watches (bf16, ~3 ms a served
+#: iteration) and the collector's sweeps, 0.25 s apart
+FLEET_KM_ITERS = 2000
+FLEET_SWEEPS = 32
+#: the one-shot card job with its live plane the collector also watches:
+#: phase 4's fit with enough iterations to outlast the sweeps (a live
+#: plane's heartbeat fetches the centroids every iteration)
+FLEET_JOB_ITERS = 1500
+#: a card job: the port's CLI ``main`` (what ``python -m
+#: map_oxidize_tpu_torch`` runs) in a fresh process, which then prints the
+#: hand kernels' launch counts of that process as its last line
+CARD_JOB = ("import json, sys\n"
+            "from map_oxidize_tpu_torch.cli import main\n"
+            "from map_oxidize_tpu_torch.ops import kernel_launches\n"
+            "rc = main(sys.argv[1:])\n"
+            "print(json.dumps(kernel_launches()), flush=True)\n"
+            "sys.exit(rc)\n")
+
+
+def port_env(**extra) -> dict:
+    root = os.path.dirname(os.path.abspath(__file__))
+    return dict(os.environ, PYTHONPATH=root, **extra)
+
+
+def card_job(name: str, argv: list, env: dict) -> dict:
+    """One card job through the CLI in its own process: its launch counts
+    (from 0, the process's own)."""
+    t = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", CARD_JOB, *argv], env=env,
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t
+    if res.returncode != 0:
+        raise AssertionError(f"card job {name}: exit {res.returncode}\n"
+                             f"{res.stderr[-3000:]}")
+    launches = json.loads(res.stdout.strip().splitlines()[-1])
+    log(f"card job {name}: exit 0 in {wall:.2f} s (process start "
+        f"included), launches {launches}")
+    return launches
+
+
+def obs_cli(walls: list, argv: list, rc: int = 0, env=None) -> str:
+    """``python -m map_oxidize_tpu_torch obs <argv>`` as a user runs it:
+    its exit code must be ``rc``; its wall is logged and kept."""
+    t = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "map_oxidize_tpu_torch", "obs", *argv],
+        env=env or port_env(), capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t
+    label = " ".join(os.path.basename(a) if os.sep in a else a
+                     for a in argv)
+    walls.append((label, wall))
+    log(f"obs {label}: exit {res.returncode} in {wall:.3f} s, "
+        f"{len(res.stdout.splitlines())} lines")
+    if res.returncode != rc:
+        raise AssertionError(f"obs {label}: exit {res.returncode}, "
+                             f"expected {rc}\n{res.stderr[-3000:]}")
+    return res.stdout
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def drive_fleet(tmp: str, backend: str, spool: str, url: str, c,
+                km: dict) -> dict:
+    """Phase 14's fleet half, a step of phase 13 before its drain: a
+    served bf16 k-means and a one-shot k-means card job with its live
+    plane run while ``obs fleet`` watches both (the server through its
+    spool, the job through ``MOXT_OBS_PORT_FILE``), archiving.  The
+    collector's ``/metrics`` carries both as labelled targets, the
+    server's with its device-memory gauges, and the server it found
+    publishes the kernel's launches; ``obs top`` renders the per-target
+    table; after the collector exits ``obs top/where/trend/critpath
+    --archive`` read the archive."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    walls: list = []
+    arch = os.path.join(tmp, "fleet_archive")
+    ports = os.path.join(tmp, "fleet_ports.txt")
+    label = url[len("http://"):]
+    o = os.path.join(tmp, "fleet_centroids.npy")
+    job_out = os.path.join(tmp, "fleet_job_centroids.npy")
+    job = subprocess.Popen(
+        [sys.executable, "-c", CARD_JOB, "kmeans", km["path"], "--backend",
+         backend, "--kmeans-k", str(KMEANS_K), "--kmeans-iters",
+         str(FLEET_JOB_ITERS), "--kmeans-precision", "highest",
+         "--obs-port", "0", "--obs-spool", "none", "--output", job_out,
+         "-q"], env=port_env(MOXT_OBS_PORT_FILE=ports),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    proc = None
+    try:
+        deadline = time.perf_counter() + 120
+        while not (os.path.exists(ports) and open(ports).read().strip()):
+            require(job.poll() is None, f"the fleet's card job exited "
+                                        f"{job.returncode} before serving")
+            require(time.perf_counter() < deadline,
+                    "the fleet's card job wrote no port line")
+            time.sleep(0.05)
+        with open(ports) as f:
+            job_label = f"127.0.0.1:{f.read().split()[1]}"
+        row = c.submit("kmeans", km["path"], output=o, config={
+            "kmeans_k": KMEANS_K, "kmeans_iters": FLEET_KM_ITERS,
+            "kmeans_precision": "bf16"})
+        while row["state"] in ("queued", "running") and row.get(
+                "phase") != "iterate":
+            time.sleep(0.02)
+            row = c.job(row["id"])
+        require(row["state"] == "running",
+                f"the fleet's served k-means ended before its fit was seen "
+                f"({row['state']}, {row.get('reason')})")
+        with open(os.path.join(tmp, "fleet.log"), "w") as flog:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "map_oxidize_tpu_torch", "obs",
+                 "fleet", "--spool", spool, "--port-file", ports,
+                 "--discover-dir", "none", "--archive-dir", arch,
+                 "--interval", "0.25", "--iterations", str(FLEET_SWEEPS)],
+                env=port_env(), stdout=subprocess.PIPE, stderr=flog,
+                text=True)
+        first = proc.stdout.readline()
+        m = re.search(r"collector on (http://\S+)", first)
+        require(m is not None, f"obs fleet printed {first!r}")
+        furl = m.group(1)
+        deadline = time.perf_counter() + 60
+        while True:
+            require(proc.poll() is None,
+                    f"obs fleet exited {proc.returncode} before it saw both "
+                    f"targets up, {label} with device memory")
+            with urllib.request.urlopen(furl + "/status", timeout=30) as r:
+                st = json.load(r)
+            rows = {t["target"]: t for t in st["targets"]}
+            mine, theirs = rows.get(label), rows.get(job_label)
+            if (mine and theirs and mine["state"] == theirs["state"] == "up"
+                    and mine["hbm_bytes"] > 0):
+                break
+            require(time.perf_counter() < deadline,
+                    f"the collector never saw both targets up: "
+                    f"{st['targets']}")
+            time.sleep(0.1)
+        prom = prom_values(urllib.request.urlopen(
+            furl + "/metrics", timeout=30).read().decode())
+        gauges = {t: {g: prom.get(f'moxt_fleet_target_{g}{{target="{t}"}}')
+                      for g in ("up", "hbm_bytes", "hbm_frac", "rows_per_sec",
+                                "jobs_running")}
+                  for t in (label, job_label)}
+        require(gauges[label]["up"] == 1 and gauges[job_label]["up"] == 1
+                and (gauges[label]["hbm_bytes"] or 0) > 0
+                and (gauges[label]["hbm_frac"] or 0) > 0,
+                f"the collector's /metrics: {gauges}")
+        target = prom_values(urllib.request.urlopen(
+            mine["url"] + "/metrics", timeout=30).read().decode())
+        km_launches = target.get("moxt_kernels_kmeans_assign_sum_launches")
+        require((km_launches or 0) > 0,
+                f"the server's kernels/kmeans_assign_sum/launches "
+                f"{km_launches}")
+        log(f"obs fleet on {furl}: {label} ({mine['kind']}, phase "
+            f"{mine['phase']}) and {job_label} ({theirs['kind']}, phase "
+            f"{theirs['phase']}) up; labelled gauges {gauges}; the server "
+            f"it found reports kernels/kmeans_assign_sum/launches "
+            f"{km_launches:.0f}")
+        top = obs_cli(walls, ["top", "--url", furl, "--iterations", "2",
+                              "--interval", "0.5", "--no-clear"])
+        require("moxt obs fleet —" in top and label in top
+                and job_label in top,
+                f"obs top rendered no per-target table:\n{top[:2000]}")
+        rc = proc.wait(timeout=120)
+        require(rc == 0, f"obs fleet exited {rc}")
+        stdout, stderr = job.communicate(timeout=600)
+        require(job.returncode == 0, f"the fleet's card job exited "
+                                     f"{job.returncode}\n{stderr[-3000:]}")
+        job_launches = json.loads(stdout.strip().splitlines()[-1])
+    finally:
+        for p in (proc, job):
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+        if proc is not None:
+            proc.stdout.close()
+    got = np.load(job_out)
+    require(got.shape == (KMEANS_K, KMEANS_D) and np.isfinite(got).all(),
+            "the fleet's card job's centroids are bad")
+    log(f"the fleet's card job: {FLEET_JOB_ITERS} iterations, launches "
+        f"{job_launches}")
+    row = c.wait(row["id"], timeout_s=600)
+    require(row["state"] == "done",
+            f"the fleet's served k-means: {row['state']} "
+            f"({row.get('reason')})")
+    got = np.load(o)
+    require(got.shape == (KMEANS_K, KMEANS_D) and np.isfinite(got).all(),
+            "the fleet's served k-means centroids are bad")
+    row = c.job(row["id"])
+    log(serve_job_line("kmeans bf16 (under the fleet)", row, row["metrics"]))
+    for argv, names in ((["top"], (label, job_label)),
+                        (["where"], (job_label,)),
+                        (["trend", "--all-series"], (label, job_label)),
+                        (["critpath"], (job_label,))):
+        out = obs_cli(walls, [*argv, "--archive", arch])
+        require(all(n in out for n in names),
+                f"obs {argv[0]} --archive does not name {names}:\n"
+                f"{out[:2000]}")
+    wall = time.perf_counter() - t0
+    log(f"phase 14, the fleet step (in phase 13's server) {wall:.1f} s")
+    return {"wall_s": wall, "walls": walls, "gauges": gauges,
+            "target_launches": km_launches, "job_launches": job_launches}
+
+
+def phase_obs(tmp: str, backend: str, km: dict, wc: dict, devmap: dict,
+              peaks: dict, serve: dict) -> dict:
+    """The offline ``obs`` tooling on card documents (module docstring,
+    phase 14): card jobs through the CLI, then every report as a
+    subprocess, each timed."""
+    t_phase = time.perf_counter()
+    d = os.path.join(tmp, "obs14")
+    os.makedirs(d)
+    env = port_env(MOXT_PEAK_FLOPS=repr(peaks["flops"]),
+                   MOXT_PEAK_MEMBW=repr(peaks["membw"]))
+    ledger_km, ledger_wc = (os.path.join(d, "ledger_km"),
+                            os.path.join(d, "ledger_wc"))
+    calib = os.path.join(d, "calib")
+    launches = {"kmeans_assign_sum": 0, "tokenize_compact": 0}
+    for i in range(OBS_KM_RUNS):
+        out = os.path.join(d, f"centroids_{i}.npy")
+        got = card_job(f"kmeans {i}", [
+            "kmeans", km["path"], "--backend", backend,
+            "--kmeans-k", str(KMEANS_K), "--kmeans-iters", str(KMEANS_ITERS),
+            "--kmeans-precision", "highest", "--ledger-dir", ledger_km,
+            "--calib-dir", calib, "--metrics-out",
+            os.path.join(d, f"km{i}.json"), "--output", out, "-q"], env)
+        for k in launches:
+            launches[k] += got[k]
+        require(np.array_equal(np.load(out), km["centroids"]["highest"]),
+                f"card job kmeans {i}: centroids differ from phase 4's")
+    for i in range(OBS_WC_RUNS):
+        out = os.path.join(d, f"final_result_{i}.txt")
+        got = card_job(f"wordcount device map {i}", [
+            "wordcount", wc["path"], "--backend", backend, "--mapper",
+            "device", "--chunk-mb", str(CHUNK_BYTES >> 20), "--ledger-dir",
+            ledger_wc, "--metrics-out", os.path.join(d, f"wc{i}.json"),
+            "--output", out, "-q"], env)
+        for k in launches:
+            launches[k] += got[k]
+        require(read(out) == read(wc["runs"]["native"]["out"]),
+                f"card job wordcount {i}: differs from phase 5's output")
+    want = {"kmeans_assign_sum": OBS_KM_RUNS * KMEANS_ITERS,
+            "tokenize_compact": OBS_WC_RUNS
+            * devmap["wordcount"]["launches"]["tokenize_compact"]}
+    require(launches == want, f"phase 14's card jobs launched {launches}, "
+                              f"expected {want}")
+    log(f"phase 14 card jobs: launches {launches}; k-means centroids "
+        f"bit-equal to phase 4's, word counts byte-identical to phase 5's")
+    # and the fleet step's one-shot card job (its own process's counts)
+    for k in launches:
+        launches[k] += serve["fleet"]["job_launches"][k]
+
+    walls: list = []
+    km_doc = os.path.join(d, f"km{OBS_KM_RUNS - 1}.json")
+    wc_doc = os.path.join(d, f"wc{OBS_WC_RUNS - 1}.json")
+    out = obs_cli(walls, ["xprof", km_doc])
+    require("kmeans/fit" in out and re.search(r"\(env[)+]", out),
+            f"obs xprof names no kmeans/fit against this run's peaks:\n"
+            f"{out}")
+    rows = {}
+    for name, doc, prog in (("kmeans", km_doc, "kmeans/fit"),
+                            ("device map", wc_doc, "device_map/tokenize")):
+        rep = json.loads(obs_cli(walls, ["xprof", doc, "--json"]))
+        r = rows[name] = rep["programs"][prog]
+        require(r.get("achieved_flops_per_s") or r.get(
+            "achieved_bytes_per_s"), f"{prog}: no achieved rate {r}")
+        log(f"obs xprof {name}: {prog} dispatches {r['dispatches']}, "
+            f"achieved {r.get('achieved_flops_per_s')} FLOP/s, "
+            f"{r.get('achieved_bytes_per_s')} B/s, MFU "
+            f"{r.get('mfu_pct')}%, bandwidth {r.get('membw_pct')}%, bound "
+            f"{r.get('bound')} against phase 12's peaks "
+            f"{rep['peaks']}")
+    out = obs_cli(walls, ["xprof", wc_doc])
+    require("device_map/tokenize" in out, "obs xprof names no "
+                                          "device_map/tokenize")
+    for doc in (km_doc, wc_doc):
+        at = json.loads(obs_cli(walls, ["where", doc, "--json"]))
+        total = (sum(b["ms"] for b in at["buckets"].values())
+                 + at["unattributed_ms"])
+        require(abs(total - at["wall_ms"]) <= 0.01 + 1e-4 * at["wall_ms"],
+                f"obs where: buckets + unattributed {total} != wall "
+                f"{at['wall_ms']}")
+        log(f"obs where {os.path.basename(doc)}: buckets + unattributed "
+            f"{total:.3f} ms = wall {at['wall_ms']:.3f} ms "
+            f"({at['unattributed_pct']}% unattributed)")
+        obs_cli(walls, ["where", doc])
+    obs_cli(walls, ["plan", km_doc])
+    # the device map keeps no data-plane audit (as in the JAX package):
+    # the audit of phase 5's native word count
+    obs_cli(walls, ["data", wc_doc], rc=2)
+    out = obs_cli(walls, ["data", os.path.join(tmp, "wc_metrics_auto.json")])
+    require("conservation" in out, f"obs data:\n{out[:2000]}")
+    obs_cli(walls, ["critpath", km_doc])
+    out = obs_cli(walls, ["calib", "show", calib])
+    require("kmeans/fit" in out, f"obs calib shows no kmeans/fit:\n{out}")
+    obs_cli(walls, ["diff", "--ledger-dir", ledger_km])
+    obs_cli(walls, ["diff", "--ledger-dir", ledger_wc])
+    slow = os.path.join(d, "ledger_slow")
+    os.makedirs(slow)
+    with open(os.path.join(ledger_km, "ledger.jsonl")) as f:
+        entries = [json.loads(line) for line in f if line.strip()]
+    entries[-1]["phases_s"]["iterate"] *= 2
+    entries[-1]["metrics"]["time/iterate_s"] *= 2
+    with open(os.path.join(slow, "ledger.jsonl"), "w") as f:
+        f.write("".join(json.dumps(e) + "\n" for e in entries))
+    out = obs_cli(walls, ["diff", "--ledger-dir", slow, "--gate"], rc=3)
+    require("phase iterate:" in out, f"obs diff --gate did not flag the "
+                                     f"slowed iterate phase:\n{out}")
+    out = obs_cli(walls, ["trend", "--ledger-dir", ledger_km])
+    require(out.startswith(f"trend: kmeans — {OBS_KM_RUNS} entries"),
+            f"obs trend:\n{out[:500]}")
+    doc = json.loads(obs_cli(walls, ["trend", "--ledger-dir", ledger_km,
+                                     "--json"]))
+    require(doc["n_entries"] == OBS_KM_RUNS, f"obs trend --json {doc}")
+    out = obs_cli(walls, ["flame", serve["capture"]["bundle"]])
+    from map_oxidize_tpu_torch.obs.attrib import BUCKETS
+
+    named = sorted({line.split()[0] for line in out.split(
+        "sampled share by attribution bucket", 1)[-1].splitlines()[1:]
+        if line.strip()} & set(BUCKETS))
+    require(named, f"obs flame names no attribution bucket:\n{out}")
+    out = obs_cli(walls, ["xprof", os.path.join(tmp, "crash")])
+    require(out.startswith("XLA program observatory"),
+            f"obs xprof on the crash bundle:\n{out}")
+    wall = time.perf_counter() - t_phase
+    walls += serve["fleet"]["walls"]
+    log(f"phase 14 reports: {len(walls)} obs subcommands, walls "
+        f"{min(w for _, w in walls):.3f}-{max(w for _, w in walls):.3f} s "
+        f"(sum {sum(w for _, w in walls):.2f} s); obs flame names buckets "
+        f"{named}")
+    log(f"phase 14 (obs) wall {wall:.1f} s, plus the fleet step "
+        f"{serve['fleet']['wall_s']:.1f} s inside phase 13")
+    return {"launches": launches, "wall_s": wall, "walls": walls,
+            "rows": rows}
 
 
 def main() -> int:
@@ -2759,17 +3139,20 @@ def main() -> int:
         devmap = phase_device_map(tmp, "cuda", wc, collect, wrappers)
         plan = phase_plan(tmp, "cuda", stream, km, km_resume, wrappers)
         serve = phase_serve(tmp, km, wc, devmap)
+        obs = phase_obs(tmp, "cuda", km, wc, devmap, plan["peaks"], serve)
     if km["launches"]["fused_assign_sum"] != 2 * KMEANS_ITERS:
         raise AssertionError(f"kmeans path launched the kernel "
                              f"{km['launches']} times, expected "
                              f"{2 * KMEANS_ITERS}")
     # the counted runs of both k-means paths: phase 4's, phase 7's and
-    # phase 12's, and the served jobs of phase 13 (the server process's
-    # own counts, from 0 at its start)
+    # phase 12's, the served jobs of phases 13 and 14 (the server
+    # process's own counts, from 0 at its start) and phase 14's card jobs
+    # (each process's own counts)
     launches = (km["launches"]["fused_assign_sum"]
                 + stream["launches"]["fused_assign_sum"]
                 + plan["launches"]["fused_assign_sum"]
-                + serve["launches"]["kmeans_assign_sum"])
+                + serve["launches"]["kmeans_assign_sum"]
+                + obs["launches"]["kmeans_assign_sum"])
     main_cfg = next(c for c in configs if c["k"] == KMEANS_K
                     and c["precision"] == "highest" and not c["weighted"])
     kernels = [{
@@ -2796,7 +3179,8 @@ def main() -> int:
         "replaces_note": "tokenize_hash (:85) + _compact_tokens (:124), "
                          "XLA programs, not a Pallas kernel",
         "launches": (devmap["wordcount"]["launches"]["tokenize_compact"]
-                     + serve["launches"]["tokenize_compact"]),
+                     + serve["launches"]["tokenize_compact"]
+                     + obs["launches"]["tokenize_compact"]),
         "max_abs_err": tok["max_abs_err"],
         "ms": tok["ms"],
         "plain_ms": tok["plain_ms"],
@@ -2838,7 +3222,9 @@ def main() -> int:
         f"{devmap['wall_s']:.1f} s; phase 12 auto B "
         f"{ {p: (r['cold']['dispatch']['batch'], r['warm']['dispatch']['batch']) for p, r in plan['runs'].items()} }"
         f" (cold, warm); served words/s {serve['rates']} (concurrent), "
-        f"phase 13 {serve['wall_s']:.1f} s; total "
+        f"phase 13 {serve['wall_s']:.1f} s (its fleet step "
+        f"{serve['fleet']['wall_s']:.1f} s); phase 14 "
+        f"{obs['wall_s']:.1f} s; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -13,8 +13,10 @@ Layer map (mirrors the JAX package):
 * ``runtime.engine`` — streaming device reduce engine
 * ``serve``          — the resident job service (``python -m
   map_oxidize_tpu_torch serve`` / ``submit``)
-* ``obs``            — per-job observability, the run ledger and the live
-  plane (``/metrics``, ``/status``, ``/series``, ``/alerts``, ``/jobs``)
+* ``obs``            — per-job observability, the run ledger, the live
+  plane (``/metrics``, ``/status``, ``/series``, ``/alerts``, ``/jobs``),
+  the fleet collector and the ``obs`` CLI (``python -m
+  map_oxidize_tpu_torch obs``)
 * ``api``            — Mapper / Reducer boundary
 * ``ops``            — hashing, sort + segment reduce, top-k, k-means kernel
 * ``io``             — splitter / writer

@@ -20,10 +20,13 @@
     python -m map_oxidize_tpu_torch serve --port 8321 --spool-dir spool
     python -m map_oxidize_tpu_torch submit --url http://127.0.0.1:8321 \\
         --wait wordcount /data/corpus.txt
+    python -m map_oxidize_tpu_torch obs xprof m.json
+    python -m map_oxidize_tpu_torch obs trend --ledger-dir ledger
 
 Flag names and defaults are the JAX package's CLI's; ``--backend`` takes
 ``cuda`` (the default, which needs a CUDA device) or ``cpu``.  ``serve``
-and ``submit`` are the resident job service's (:mod:`.serve.cli`).
+and ``submit`` are the resident job service's (:mod:`.serve.cli`), ``obs``
+the observability artifact tools' (:mod:`.obs.cli`).
 """
 
 from __future__ import annotations
@@ -333,8 +336,25 @@ def config_from_args(args: argparse.Namespace) -> JobConfig:
 
 
 def main(argv: list[str] | None = None) -> int:
+    try:
+        return _main(argv)
+    except BrokenPipeError:
+        # the reader closed the pipe early (``... | head``, the way the
+        # obs reports are read): it got what it wanted.  Point stdout at
+        # devnull so the interpreter's exit flush cannot raise again.
+        devnull = os.open(os.devnull, os.O_WRONLY)
+        os.dup2(devnull, sys.stdout.fileno())
+        return 0
+
+
+def _main(argv: list[str] | None = None) -> int:
     if argv is None:
         argv = sys.argv[1:]
+    if argv and argv[0] == "obs":
+        # the artifact tools: host-side file and HTTP work, no device
+        from map_oxidize_tpu_torch.obs.cli import obs_main
+
+        return obs_main(argv[1:])
     if argv and argv[0] == "serve":
         # the resident job server (serve/): a long-lived process, jobs
         # arrive over HTTP; none of the one-shot workload flags apply

@@ -7,13 +7,14 @@ fields of the multi-process and sharded paths the port has not got yet:
 ``exchange_collective`` (ROADMAP A7) and ``remote_stage_dir`` and
 ``remote_stage_timeout_s`` (A8).  ``backend`` names a torch device
 family: ``cuda`` (the default) or ``cpu``; nothing falls back from one to
-the other.  :class:`ServeConfig` is the resident job server's (JAX
-``config.py:505-593``).
+the other.  :class:`FleetConfig` is the fleet collector's (JAX
+``config.py:435-500``) and :class:`ServeConfig` the resident job server's
+(JAX ``config.py:505-593``), both field for field.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 #: workloads the port runs
 WORKLOADS = ("wordcount", "bigram", "invertedindex", "kmeans", "distinct",
@@ -313,6 +314,74 @@ class JobConfig:
         if self.kmeans_precision not in ("highest", "bf16"):
             raise ValueError(f"kmeans_precision must be highest|bf16, "
                              f"got {self.kmeans_precision!r}")
+        return self
+
+
+@dataclass
+class FleetConfig:
+    """Fleet observatory configuration (``python -m map_oxidize_tpu_torch
+    obs fleet``; JAX ``config.py:435``): the collector that polls any
+    number of obs endpoints (one-shot jobs, resident servers), merges their
+    telemetry into one fleet model, serves the fleet HTTP plane and
+    optionally archives the fleet series to disk
+    (:mod:`map_oxidize_tpu_torch.obs.fleet`)."""
+
+    #: explicit endpoints to watch ("http://host:port" or "host:port");
+    #: explicit targets never depart the model
+    targets: list[str] = field(default_factory=list)
+    #: a MOXT_OBS_PORT_FILE-format file ("<process> <port>" lines) to
+    #: derive 127.0.0.1 targets from
+    port_file: str = ""
+    #: resident-server spool directories: each one's ``obs_port.json``
+    #: (written by the server at start) names a target
+    spool_dirs: list[str] = field(default_factory=list)
+    #: well-known port-record spool to scan for live processes
+    #: (``moxt-obs-port-v1`` records published by every serving obs
+    #: server): "" = $MOXT_OBS_SPOOL / the per-user tempdir default,
+    #: "none" disables scanning
+    discover_dir: str = ""
+    #: the collector's own HTTP bind (fleet /metrics /status /alerts
+    #: /series /healthz); 0 = ephemeral (logged, and written to
+    #: MOXT_OBS_PORT_FILE as "fleet <port>")
+    host: str = "127.0.0.1"
+    port: int = 0
+    #: seconds between scrape sweeps over the target set
+    poll_interval_s: float = 1.0
+    #: a target unreachable (or refusing payloads) for this long is
+    #: marked stale — a fleet alert, never a crash
+    stale_after_s: float = 30.0
+    #: persistent fleet series archive (``moxt-archive-v1``): a bounded
+    #: ring of JSONL segments under this directory, plus the latest
+    #: fleet status/alerts/target snapshots for post-mortem reads
+    #: (``obs trend/top/where --archive``).  None disables
+    archive_dir: str | None = None
+    #: archive bounds: records per segment file, and segments kept (the
+    #: ring overwrites oldest-first)
+    archive_segment_records: int = 512
+    archive_max_segments: int = 16
+    #: fleet SLO rule set (same spelling as JobConfig.slo_rules); the
+    #: built-in defaults are obs.fleet.FLEET_RULES
+    slo_rules: str | None = None
+
+    def validate(self) -> "FleetConfig":
+        if not 0 <= self.port <= 65535:
+            raise ValueError("fleet port must be 0 (ephemeral) or a port")
+        if self.poll_interval_s <= 0:
+            raise ValueError("poll_interval_s must be positive")
+        if self.stale_after_s <= 0:
+            raise ValueError("stale_after_s must be positive")
+        if self.archive_segment_records < 1 or self.archive_max_segments < 2:
+            raise ValueError("archive needs >= 1 record per segment and "
+                             ">= 2 segments (the ring rotates into the "
+                             "next segment before pruning the oldest)")
+        if self.slo_rules:
+            from map_oxidize_tpu_torch.obs.fleet import FLEET_RULES
+            from map_oxidize_tpu_torch.obs.slo import load_rules
+
+            try:
+                load_rules(self.slo_rules, defaults=FLEET_RULES)
+            except (OSError, ValueError) as e:
+                raise ValueError(f"invalid fleet slo_rules: {e}") from e
         return self
 
 

@@ -32,10 +32,10 @@ from __future__ import annotations
 import json
 import math
 import os
-import sys
 import time
 
 from map_oxidize_tpu_torch.obs.metrics import format_bytes as _fmt_bytes
+from map_oxidize_tpu_torch.obs.metrics import loaded_torch
 from map_oxidize_tpu_torch.utils.logging import get_logger
 
 _log = get_logger(__name__)
@@ -114,7 +114,7 @@ def run_identity(n_processes: int = 1) -> dict:
     once a job resolved the CPU as its device (``backend='cpu'``), and
     ``"host"`` otherwise."""
     platform, count = "host", 0
-    torch = sys.modules.get("torch")
+    torch = loaded_torch()
     if torch is not None and torch.cuda.is_initialized():
         platform, count = "gpu", torch.cuda.device_count()
     elif _RESOLVED_CPU[0]:

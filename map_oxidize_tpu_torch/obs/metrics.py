@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import bisect
 import contextlib
+import sys
 import threading
 import time
 
@@ -258,6 +259,18 @@ def sample_host_memory(registry: MetricsRegistry) -> None:
     registry.gauge_max("mem/host_rss_peak_bytes", hwm)
 
 
+def loaded_torch():
+    """``torch`` if this process has imported it, else None: the live
+    plane never imports torch into a process without it (as the JAX
+    package reads ``sys.modules`` for jax).  An import in progress on
+    another thread is waited for, never read half-initialised."""
+    if "torch" not in sys.modules:
+        return None
+    import torch
+
+    return torch
+
+
 def sample_device_memory(registry: MetricsRegistry) -> None:
     """Record device-memory watermarks for every CUDA device (JAX
     ``obs/metrics.py:388``, there from ``device.memory_stats()``): the
@@ -266,11 +279,11 @@ def sample_device_memory(registry: MetricsRegistry) -> None:
     ``mem/device{i}_hbm_bytes`` and ``mem/device{i}_hbm_peak_bytes``.
 
     A no-op unless this process has already initialised CUDA: a job with
-    ``backend='cpu'`` must not pay (or fail) CUDA initialisation, as the
-    JAX version skips a process that never imported jax."""
-    import torch
-
-    if not torch.cuda.is_initialized():
+    ``backend='cpu'`` must not pay (or fail) CUDA initialisation, and a
+    process that never imported torch does not import it here (as the JAX
+    version skips a process that never imported jax)."""
+    torch = loaded_torch()
+    if torch is None or not torch.cuda.is_initialized():
         return
     for i in range(torch.cuda.device_count()):
         stats = torch.cuda.memory_stats(i)

@@ -72,8 +72,9 @@ _PROM_BAD = re.compile(r"[^a-zA-Z0-9_:]")
 
 
 def default_obs_spool() -> str | None:
-    """The well-known port-record spool the fleet collector (``obs
-    fleet``, ROADMAP A12c) scans when no targets are given:
+    """The well-known port-record spool the fleet collector
+    (:mod:`map_oxidize_tpu_torch.obs.fleet`) scans when no targets are
+    given:
     ``$MOXT_OBS_SPOOL`` if set (``none`` disables publishing), else a
     per-user directory under the system tempdir — stable across
     processes, so a 2-process Gloo run and the ``obs fleet`` watching it

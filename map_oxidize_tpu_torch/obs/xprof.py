@@ -22,6 +22,7 @@ import os
 import threading
 import time
 
+from map_oxidize_tpu_torch.obs.metrics import loaded_torch
 from map_oxidize_tpu_torch.utils.logging import get_logger
 
 _log = get_logger(__name__)
@@ -47,9 +48,8 @@ def device_peaks() -> dict:
     initialised (never initialising CUDA), and stays None otherwise."""
     peaks = {"flops": None, "membw": None, "source": "none"}
     try:
-        import torch
-
-        if torch.cuda.is_initialized():
+        torch = loaded_torch()
+        if torch is not None and torch.cuda.is_initialized():
             row = MEASURED_PEAKS.get(torch.cuda.get_device_name(
                 torch.cuda.current_device()))
             if row is not None:
@@ -161,8 +161,10 @@ def _fmt_rate(v, unit):
 
 def render_report(report: dict, histograms: dict | None = None) -> str:
     """Human-readable observatory report: the compile table, the
-    cost/utilization table and the dispatch-gap histogram summary."""
-    lines = ["program observatory"]
+    cost/utilization table and the dispatch-gap histogram summary.  The
+    title is the JAX package's, byte for byte, so ``obs xprof`` prints the
+    same report from either package."""
+    lines = ["XLA program observatory"]
     peaks = report.get("peaks", {})
     lines.append(
         f"  peaks: flops={_fmt_rate(peaks.get('flops'), 'FLOP/s')} "
@@ -248,10 +250,10 @@ class DeviceSampler:
     def sample_once(self) -> None:
         """One live-bytes reading per CUDA device (the caching allocator's
         ``allocated_bytes.all.current``).  A no-op until the job itself
-        has initialised CUDA (the sampler never does)."""
-        import torch
-
-        if not torch.cuda.is_initialized():
+        has initialised CUDA (the sampler never does, nor imports torch
+        into a process without it)."""
+        torch = loaded_torch()
+        if torch is None or not torch.cuda.is_initialized():
             return
         best = None
         for i in range(torch.cuda.device_count()):

@@ -851,3 +851,110 @@ def test_profile_capture_during_a_served_job_names_the_kernel(card_server):
     with open(dev["trace"]) as f:
         events = json.load(f)["traceEvents"]
     assert any("kmeans_assign_sum" in e.get("name", "") for e in events)
+
+
+# --- the offline obs tooling over card documents ----------------------------
+
+
+@pytest.fixture(scope="module")
+def card_documents(tmp_path_factory):
+    """Two k-means fits on the card into one ledger and calibration
+    store, each with a metrics document."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the documents come from card jobs")
+    tmp = tmp_path_factory.mktemp("card_obs")
+    rng = np.random.default_rng(12)
+    centres = rng.integers(-50, 50, (32, 16)).astype(np.float32) * 8
+    pts = (centres[rng.integers(0, 32, 1 << 15)]
+           + rng.integers(-2, 3, ((1 << 15), 16))).astype(np.float32)
+    path = str(tmp / "pts.npy")
+    np.save(path, pts)
+    for i in range(2):
+        run_job(JobConfig(input_path=path, output_path="", kmeans_k=32,
+                          kmeans_iters=4, metrics=False,
+                          ledger_dir=str(tmp / "ledger"),
+                          calib_dir=str(tmp / "calib"),
+                          metrics_out=str(tmp / f"m{i}.json")), "kmeans")
+    return tmp
+
+
+def _obs_subprocess(runs):
+    """Run ``obs`` subcommands in one fresh process; returns each one's
+    ``(rc, stdout)`` and whether torch (and so CUDA) was ever loaded."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    script = (
+        "import contextlib, io, json, sys\n"
+        "from map_oxidize_tpu_torch.cli import main\n"
+        "res = []\n"
+        f"for argv in {runs!r}:\n"
+        "    out = io.StringIO()\n"
+        "    with contextlib.redirect_stdout(out), \\\n"
+        "            contextlib.redirect_stderr(io.StringIO()):\n"
+        "        rc = main(['obs', *argv])\n"
+        "    res.append((rc, out.getvalue()))\n"
+        "print(json.dumps({'res': res, 'torch': 'torch' in sys.modules}))\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=root,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_obs_xprof_on_a_card_kmeans_document_names_the_fit(card_documents):
+    """``obs xprof`` on a card k-means document names ``kmeans/fit`` with
+    its achieved rate and MFU against the card's measured peaks."""
+    got = _obs_subprocess([["xprof", str(card_documents / "m1.json")]])
+    ((rc, out),) = got["res"]
+    assert rc == 0
+    assert "kmeans/fit" in out and "measured" in out
+
+
+def test_no_offline_obs_subcommand_initialises_cuda(card_documents):
+    d = card_documents
+    runs = [["xprof", f"{d}/m0.json"], ["where", f"{d}/m0.json"],
+            ["plan", f"{d}/m1.json"], ["critpath", f"{d}/m1.json"],
+            ["calib", f"{d}/calib"], ["diff", "--ledger-dir", f"{d}/ledger"],
+            ["trend", "--ledger-dir", f"{d}/ledger", "--json"]]
+    got = _obs_subprocess(runs)
+    assert [rc for rc, _ in got["res"]] == [0] * len(runs)
+    assert got["torch"] is False
+
+
+def test_a_collector_over_the_card_server_sees_its_kernel_launches(
+        card_server):
+    """The fleet collector discovers the card server through its spool,
+    carries it as a labelled target with its device-memory gauges, and the
+    target it found publishes the kernel's launches."""
+    import urllib.request
+
+    from map_oxidize_tpu_torch.config import FleetConfig
+    from map_oxidize_tpu_torch.obs.fleet import FleetCollector
+
+    srv, c, path, tmp = card_server
+    _served_kmeans(c, path, str(tmp / "fleet.npy"), kmeans_iters=3)
+    col = FleetCollector(FleetConfig(spool_dirs=[str(tmp / "spool")],
+                                     discover_dir="none").validate())
+    try:
+        doc = col.poll_once()
+        (row,) = doc["targets"]
+        assert row["kind"] == "serve" and row["state"] == "up"
+        assert row["hbm_bytes"] > 0 and row["hbm_frac"] > 0
+        text = col.metrics_text()
+        assert f'moxt_fleet_target_up{{target="{row["target"]}"}} 1' in text
+        assert f'moxt_fleet_target_hbm_bytes{{target="{row["target"]}"}}' \
+            in text
+        target = urllib.request.urlopen(row["url"] + "/metrics",
+                                        timeout=30).read().decode()
+        launches = [float(line.rpartition(" ")[2])
+                    for line in target.splitlines()
+                    if line.startswith("moxt_kernels_kmeans_assign_sum_"
+                                       "launches ")]
+        assert launches and launches[0] > 0
+    finally:
+        col.stop()

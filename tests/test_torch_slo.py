@@ -3,8 +3,8 @@ package's (``obs/slo.py``, ``obs/timeseries.py``, ``obs/serve.py``), on
 the CPU: the JAX suite ``tests/test_slo.py`` case by case, each driven
 through both packages with the same injected series on the same fake
 clock, and held to equal firing/resolved timelines, equal rule sets and
-equal Prometheus texts.  The JAX suite's three ``obs trend`` cases have
-no counterpart here: ``obs/trend.py`` is not ported yet (ROADMAP A12c).
+equal Prometheus texts.  The JAX suite's three ``obs trend`` cases are in
+``tests/test_torch_trend.py``.
 """
 
 import json
