@@ -202,6 +202,25 @@ Phases (any failure exits non-zero, before the result line):
              name the targets (``where`` and ``critpath`` the job: a
              resident server's own bundle has no attribution).
 
+15. sharded  the sharded engines (ROADMAP A7) on 8 virtual slots on
+             ``cuda:0``: phase 5's word count at S=8 over ``all_to_all``,
+             byte-identical to phase 5; its 32 MB prefix under
+             ``all_to_all`` and ``all_gather``, byte-identical; phase 4's
+             k-means at S=8 in both precisions, twice (counts equal to
+             phase 4's, centroids within 1e-5 * max|x|, the two runs
+             bit-equal, the kernel once per shard per iteration); one
+             ``stream_device`` iteration of phase 7's file at S=8; phase
+             10's sort at S=8 over the range splitters, byte-identical;
+             phase 11's device-map word count at S=8, byte-identical (one
+             ``tokenize_compact`` launch per shard per group); an S=8
+             word count of the prefix killed after 3 chunks and resumed;
+             ``obs calib probe --num-shards 8`` into a fresh store at the
+             payload bucket of a planned S=8 job, whose
+             ``plan/exchange_collective`` then reads ``curve``.  Each run
+             prints its wall, ``attrib/*`` split, ``shuffle/*`` bytes,
+             comm rows, the exchange's and the fold's device time (CUDA
+             events around each call) and both kernels' launches.
+
 Then one JSON line with every kernel, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Inputs are made from fixed
 seeds in a temporary directory, which is removed at the end.
@@ -1425,6 +1444,7 @@ def phase_stream(tmp: str, backend: str, wrappers, g) -> dict:
 
     # beside it: the device-resident fit of the same file
     pts = np.load(path)
+    out["max_abs"] = float(np.abs(pts).max())
     for precision in ("highest", "bf16"):
         r = run_job(cfg(precision, STREAM_ITERS, mapper="device"), "kmeans")
         ms = r.metrics["time/iter_s"] / STREAM_ITERS * 1e3
@@ -2101,6 +2121,7 @@ def phase_dataflow(tmp: str, backend: str, wrappers) -> dict:
         raise AssertionError(f"phase 10 launched {launches}: no hand kernel "
                              "is on the dataflow route")
     out["launches"] = launches
+    out["inputs"] = recs
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"phase 10 (dataflow) wall {out['wall_s']:.1f} s; launches "
         f"{launches}")
@@ -3100,6 +3121,367 @@ def phase_obs(tmp: str, backend: str, km: dict, wc: dict, devmap: dict,
     return {"launches": launches, "wall_s": wall, "walls": walls,
             "rows": rows}
 
+# --- phase 15 ---------------------------------------------------------------
+
+SHARDS = 8                # phase 15: virtual slots on cuda:0
+SHARD_PREFIX = 32 << 20   # the all_gather run, the kill and the probe job
+SHARD_KILL_CHUNK = 4 << 20
+SHARD_KILL_AFTER = 3
+
+
+def sharded_line(name: str, m: dict, launches: dict, ex: dict) -> str:
+    """One sharded job: wall, attribution, ``shuffle/*`` bytes, its comm
+    rows, the exchange's and the fold's device time (CUDA events around
+    each call) and both kernels' launches."""
+    shuffle = {k: v for k, v in m.items() if k.startswith("shuffle/")
+               and k != "shuffle/transport"}
+    comms = {k: v for k, v in m.items() if k.startswith("comms/")}
+    wall_ms = m["attrib/wall_ms"]
+    return (f"{name}: job {job_s(m):.2f} s, {m['records_in']} records, "
+            f"{m['records_in'] / job_s(m):.0f} /s; {attrib_line(m)}; "
+            f"{shuffle}; {comms}; exchange {ex['exchange_ms']:.1f} ms "
+            f"({100 * ex['exchange_ms'] / wall_ms:.2f}% of the wall) in "
+            f"{ex['exchanges']} calls, fold {ex['merge_ms']:.1f} ms "
+            f"({100 * ex['merge_ms'] / wall_ms:.2f}%); launches {launches}")
+
+
+class ExchangeTimer:
+    """CUDA events around every ``_exchange`` and ``shuffle/merge`` call
+    of the jobs run inside it (no synchronisation added; read at exit)."""
+
+    def __enter__(self):
+        import torch
+
+        import map_oxidize_tpu_torch.parallel.collect as co
+        import map_oxidize_tpu_torch.parallel.shuffle as sh
+
+        self.torch, self.sh, self.co = torch, sh, co
+        self.real_ex, self.real_merge = sh._exchange, sh._merge_step
+        self.ex, self.merge = [], []
+
+        def timed(store, fn):
+            def call(*a, **k):
+                ev = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(2)]
+                ev[0].record()
+                out = fn(*a, **k)
+                ev[1].record()
+                store.append(ev)
+                return out
+            return call
+
+        sh._exchange = co._exchange = timed(self.ex, self.real_ex)
+        sh.merge_step._fn = timed(self.merge, self.real_merge)
+        return self
+
+    def read(self) -> dict:
+        self.torch.cuda.synchronize()
+        out = {"exchanges": len(self.ex), "merges": len(self.merge),
+               "exchange_ms": sum(a.elapsed_time(b) for a, b in self.ex),
+               "merge_ms": sum(a.elapsed_time(b) for a, b in self.merge)}
+        self.ex.clear()
+        self.merge.clear()
+        return out
+
+    def __exit__(self, *exc):
+        self.sh._exchange = self.co._exchange = self.real_ex
+        self.sh.merge_step._fn = self.real_merge
+        return False
+
+
+def stream_shard_rows(stream: dict, S: int) -> dict:
+    """{rows: launches} of the S-slot stream over phase 7's file: its
+    chunk rounded up to a multiple of S, each chunk split row-wise into S
+    blocks, empty blocks of the tail chunk launching nothing
+    (``parallel/kmeans.py`` ``kmeans_fit_streamed``)."""
+    chunk = -(-stream["chunk_rows"] // S) * S
+    r = chunk // S
+    n_chunks = -(-STREAM_N // chunk)
+    tail = STREAM_N - (n_chunks - 1) * chunk
+    shapes = {r: (n_chunks - 1) * S}
+    for s in range(S):
+        rows = min(max(tail - s * r, 0), r)
+        if rows:
+            shapes[rows] = shapes.get(rows, 0) + 1
+    return shapes
+
+
+def check_stream_shards(stream: dict, S: int, job_centroids) -> None:
+    """One S-slot streamed iteration of phase 7's file against one
+    one-shard iteration from the same start: counts equal, centroids
+    within 1e-5 * max|x|; and the S-slot call bit-equal to the job's."""
+    from map_oxidize_tpu_torch.parallel.kmeans import kmeans_fit_streamed
+    from map_oxidize_tpu_torch.workloads.kmeans import (
+        kmeans_fit_streamed_device,
+    )
+
+    path = stream["path"]
+    init = np.load(path, mmap_mode="r")[:STREAM_K].copy()
+    one, many = [], []
+    c1 = kmeans_fit_streamed_device(path, init, iters=1,
+                                    chunk_rows=stream["chunk_rows"],
+                                    device="cuda", dispatch_batch=1,
+                                    partials=one)
+    cs = kmeans_fit_streamed(path, init, iters=1,
+                             chunk_rows=stream["chunk_rows"], num_shards=S,
+                             backend="cuda", dispatch_batch=1,
+                             partials=many)
+    require(cs.tobytes() == job_centroids.tobytes(),
+            f"the S={S} streamed call differs from its job")
+    require(np.array_equal(one[0][:, -1], many[0][:, -1]),
+            f"S={S} stream counts differ from one shard's in "
+            f"{int((one[0][:, -1] != many[0][:, -1]).sum())} centroids")
+    bound = 1e-5 * stream["max_abs"]
+    err = float(np.abs(cs - c1).max())
+    require(err <= bound, f"S={S} stream centroids off by {err}")
+    log(f"stream_device S={S} against one one-shard iteration: counts "
+        f"equal, centroids max |d| {err:.3g} (bound {bound:.3g}), the "
+        f"S={S} call bit-equal to its job")
+
+
+def phase_sharded(tmp: str, backend: str, km: dict, wc: dict, stream: dict,
+                  dataflow: dict, wrappers) -> dict:
+    """The sharded engines at S=8 on one card (module docstring, phase
+    15): each run against its one-shard phase, byte for byte (k-means:
+    counts equal, centroids within 1e-5 * max|x|, run to run bit-equal)."""
+    import torch
+
+    import map_oxidize_tpu_torch.runtime.driver as drv
+    from map_oxidize_tpu_torch.api import SumReducer
+    from map_oxidize_tpu_torch.config import JobConfig
+    from map_oxidize_tpu_torch.obs import calib as _calib
+    from map_oxidize_tpu_torch.parallel.mesh import shard_bounds
+    from map_oxidize_tpu_torch.runtime import run_job
+    from map_oxidize_tpu_torch.workloads.kmeans import assign_points
+    from map_oxidize_tpu_torch.workloads.wordcount import WordCountMapper
+
+    t_phase = time.perf_counter()
+    S = SHARDS
+    out: dict = {"launches": {w.__name__: 0 for w in wrappers}, "runs": {}}
+
+    def counted(name, cfg, workload, timer):
+        for w in wrappers:
+            w.launches = 0
+        t0 = time.perf_counter()
+        r = run_job(cfg, workload)
+        wall = time.perf_counter() - t0
+        launches = {w.__name__: w.launches for w in wrappers}
+        for k, v in launches.items():
+            out["launches"][k] += v
+        m = r.metrics
+        ex = timer.read()
+        # the timer wraps private names: a drifted one would read 0
+        require(ex["exchanges"] == m.get("shuffle/exchanges", 0),
+                f"{name}: {ex['exchanges']} exchanges timed, "
+                f"{m.get('shuffle/exchanges', 0)} counted")
+        if workload in ("wordcount", "sort"):
+            require(ex["exchanges"] > 0, f"{name}: no exchange timed")
+        require(ex["merges"] == (ex["exchanges"] if workload == "wordcount"
+                                 else 0),
+                f"{name}: {ex['merges']} fold merges timed")
+        log(sharded_line(name, m, launches, ex) + f"; run_job {wall:.2f} s")
+        out["runs"][name] = {"metrics": m, "launches": launches,
+                             "wall_s": wall, **ex}
+        return r
+
+    native = wc["runs"]["native"]
+    prefix = prefix_file(wc["path"], os.path.join(tmp, "shard_prefix.txt"),
+                         SHARD_PREFIX)
+    with ExchangeTimer() as timer:
+        # phase 5's word count at S=8 (all_to_all), byte-identical
+        o = os.path.join(tmp, "final_result_s8.txt")
+        r = counted("wordcount S=8 all_to_all", JobConfig(
+            input_path=wc["path"], output_path=o, backend=backend,
+            chunk_bytes=CHUNK_BYTES, top_k=10, metrics=False, num_shards=S,
+            exchange_collective="all_to_all"), "wordcount", timer)
+        require(read(o) == read(native["out"]),
+                "S=8 word count differs from phase 5's")
+        nm = native["metrics"]
+        m = r.metrics
+        out["wc_ratio"] = ((m["records_in"] / job_s(m))
+                           / (nm["records_in"] / job_s(nm)))
+        log(f"S=8 word count byte-identical to phase 5: "
+            f"{out['wc_ratio']:.3f}x phase 5's words/s")
+        # the 32 MB prefix under both wire programs
+        pre = {}
+        for method in ("all_to_all", "all_gather"):
+            o = os.path.join(tmp, f"final_result_s8_{method}.txt")
+            counted(f"wordcount S=8 {method} (32 MB)", JobConfig(
+                input_path=prefix, output_path=o, backend=backend,
+                chunk_bytes=SHARD_KILL_CHUNK, metrics=False, num_shards=S,
+                exchange_collective=method), "wordcount", timer)
+            pre[method] = read(o)
+        require(pre["all_to_all"] == pre["all_gather"],
+                "all_gather and all_to_all wrote different bytes")
+        log("32 MB prefix: all_gather byte-identical to all_to_all")
+
+        # phase 4's k-means at S=8, both precisions, twice
+        pts = np.load(km["path"], mmap_mode="r")
+        scale = float(np.abs(pts).max())
+        out["km_ratio"] = {}
+        for precision in ("highest", "bf16"):
+            cs = []
+            for rep in range(2):
+                r = counted(f"kmeans {precision} S=8 #{rep + 1}", JobConfig(
+                    input_path=km["path"], output_path="", backend=backend,
+                    kmeans_k=KMEANS_K, kmeans_iters=KMEANS_ITERS,
+                    kmeans_precision=precision, metrics=False, num_shards=S,
+                    mapper="device"), "kmeans", timer)
+                cs.append(r.centroids)
+                require(r.metrics["kmeans_shards"] == S,
+                        "k-means ran on another shard count")
+                require(backend != "cuda"
+                        or out["runs"][f"kmeans {precision} S=8 #{rep + 1}"]
+                        ["launches"]["fused_assign_sum"]
+                        == S * KMEANS_ITERS,
+                        "k-means launched the kernel other than once per "
+                        "shard per iteration")
+            require(cs[0].tobytes() == cs[1].tobytes(),
+                    f"two S=8 {precision} fits differ")
+            want = km["centroids"][precision]
+            err = float(np.abs(cs[0] - want).max())
+            require(err <= 1e-5 * scale,
+                    f"S=8 {precision} centroids off by {err}")
+            src = (pts if precision == "highest"
+                   else round_bf16(np.array(pts)))
+            counts = [np.bincount(assign_points(np.asarray(src), c),
+                                  minlength=KMEANS_K)
+                      for c in (cs[0], want)]
+            require((counts[0] == counts[1]).all(),
+                    f"S=8 {precision} counts differ from phase 4's")
+            ms = (out["runs"][f"kmeans {precision} S=8 #1"]["metrics"]
+                  ["time/iter_s"] / KMEANS_ITERS * 1e3)
+            out["km_ratio"][precision] = ms / km["ms_per_iter"][precision]
+            log(f"kmeans {precision} S=8: {ms:.3f} ms/iter, "
+                f"{out['km_ratio'][precision]:.3f}x phase 4's "
+                f"{km['ms_per_iter'][precision]:.3f}; counts equal, "
+                f"max |d| {err:.3g} (bound {1e-5 * scale:.3g}), run to "
+                f"run bit-equal")
+        del pts
+
+        # one stream_device iteration of phase 7's file at S=8
+        r = counted("stream_device highest S=8 (1 iteration)", JobConfig(
+            input_path=stream["path"], output_path="", backend=backend,
+            kmeans_k=STREAM_K, kmeans_iters=1, metrics=False,
+            num_shards=S, dispatch_batch=1), "kmeans", timer)
+        m = r.metrics
+        require(m["kmeans_mode"] == "stream_device"
+                and m["kmeans_shards"] == S, "the stream did not shard")
+        out["stream_ms"] = m["time/feed_s"] * 1e3
+        shapes = stream_shard_rows(stream, S)
+        require(backend != "cuda"
+                or out["runs"]["stream_device highest S=8 (1 iteration)"]
+                ["launches"]["fused_assign_sum"] == sum(shapes.values()),
+                "the S=8 stream launched the kernel other than once per "
+                "non-empty shard per chunk")
+        log(f"stream_device S=8: 1 iteration in {out['stream_ms']:.1f} ms "
+            f"(phase 7 one-shard {stream['runs']['highest']['ms_per_iter']:.1f}"
+            f" ms/iter); per-shard chunk rows {shapes}")
+        check_stream_shards(stream, S, r.centroids)
+
+        # phase 10's sort at S=8 over range_dest, byte-identical
+        o = os.path.join(tmp, "sort_s8.out")
+        r = counted("sort S=8", JobConfig(
+            input_path=dataflow["inputs"]["sort"], output_path=o,
+            backend=backend, metrics=False, num_shards=S), "sort", timer)
+        require(read(o) == read(dataflow["sort"]["host"]["out"]),
+                "S=8 sort differs from phase 10's")
+        require(r.metrics["sort/splitters"] == S - 1, "no range splitters")
+        log("S=8 sort byte-identical to phase 10")
+
+        # phase 11's device-map word count at S=8, byte-identical
+        o = os.path.join(tmp, "final_result_device_s8.txt")
+        r = counted("device-map wordcount S=8", JobConfig(
+            input_path=wc["path"], output_path=o, backend=backend,
+            mapper="device", chunk_bytes=CHUNK_BYTES, metrics=False,
+            num_shards=S), "wordcount", timer)
+        require(read(o) == read(native["out"]),
+                "S=8 device map differs from phase 5's")
+        groups = -(-r.metrics["chunks"] // S)
+        require(backend != "cuda"
+                or out["runs"]["device-map wordcount S=8"]["launches"]
+                ["tokenize_compact"] == S * groups,
+                "tokenize_compact not once per shard per group")
+        log(f"S=8 device map byte-identical to phase 5 "
+            f"({r.metrics['chunks']} chunks in {groups} groups)")
+
+    # the kernel at the per-shard shapes of the sharded fits above, against
+    # its plain version
+    g = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    resident = {hi - lo for lo, hi in shard_bounds(KMEANS_N, S) if hi > lo}
+    out["configs"] = []
+    for rows, k in ([(n, KMEANS_K) for n in sorted(resident)]
+                    + [(n, STREAM_K) for n in sorted(shapes)]):
+        for precision in ("highest", "bf16"):
+            c = check_assign_sum(rows, KMEANS_D, k, precision, False, g)
+            c["shard_shape"] = True
+            out["configs"].append(c)
+            log(f"kmeans_assign_sum per shard n={rows} k={k} "
+                f"{precision:7s}: kernel {c['ms']:.4f} ms, plain "
+                f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+                f"({c['bound_by']}), max|dsum| {c['max_abs_err']:.3g}")
+    torch.cuda.empty_cache()
+
+    # an S=8 word count killed after 3 chunks, resumed
+    class DyingMapper(WordCountMapper):
+        mapped = 0
+
+        def map_file(self, *a, **k):
+            def gen(it):
+                for item in it:
+                    if self.mapped == SHARD_KILL_AFTER:
+                        raise KeyboardInterrupt("simulated kill")
+                    self.mapped += 1
+                    yield item
+            return gen(super().map_file(*a, **k))
+
+    ck = os.path.join(tmp, "shard_checkpoint")
+    o = os.path.join(tmp, "final_result_s8_resumed.txt")
+    cfg = JobConfig(input_path=prefix, output_path=o, backend=backend,
+                    chunk_bytes=SHARD_KILL_CHUNK, checkpoint_dir=ck,
+                    metrics=False, num_shards=S)
+    try:
+        drv.run_wordcount_job(cfg, DyingMapper(), SumReducer())
+        raise AssertionError("the killed S=8 word count ran to its end")
+    except KeyboardInterrupt:
+        pass
+    r = run_job(cfg, "wordcount")
+    require(r.metrics.get("checkpoint/chunks_replayed") == SHARD_KILL_AFTER,
+            "the S=8 resume replayed another prefix")
+    require(read(o) == pre["all_to_all"], "the resumed S=8 word count "
+            "differs from the 32 MB prefix's")
+    log(f"S=8 word count killed after {SHARD_KILL_AFTER} chunks and "
+        f"resumed: byte-identical, {SHARD_KILL_AFTER} chunks replayed")
+
+    # obs calib probe --num-shards 8 into a fresh store at the payload
+    # bucket of the next job's exchange; its plan then reads the curve
+    store = os.path.join(tmp, "probe_calib")
+    cap, row_bytes = _calib.exchange_shape(S, JobConfig.batch_size)
+    bucket = _calib.shape_bucket(S * S * cap * (8 + row_bytes))
+    t0 = time.perf_counter()
+    text = subprocess.run(
+        [sys.executable, "-m", "map_oxidize_tpu_torch", "obs", "calib",
+         "probe", store, "--num-shards", str(S), "--backend", backend,
+         "--buckets", bucket], capture_output=True, text=True, timeout=300,
+        env=port_env())
+    require(text.returncode == 0, f"obs calib probe: {text.stderr[-2000:]}")
+    log(f"obs calib probe ({time.perf_counter() - t0:.1f} s):\n"
+        + text.stdout.rstrip())
+    r = run_job(JobConfig(input_path=prefix, output_path="",
+                          backend=backend, chunk_bytes=SHARD_KILL_CHUNK,
+                          metrics=False, num_shards=S, calib_dir=store),
+                "wordcount")
+    prov = r.metrics.get("plan/exchange_collective_provenance")
+    require(prov == "curve", f"the planned job's exchange_collective "
+            f"reads {prov!r}, not the probe's curve")
+    log(f"planned S=8 job after the probe: plan/exchange_collective "
+        f"{r.metrics['plan/exchange_collective']} ({prov}) at {bucket}")
+    out["probe_bucket"] = bucket
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 15 (sharded) wall {out['wall_s']:.1f} s; launches "
+        f"{out['launches']}")
+    return out
+
 
 def main() -> int:
     import torch
@@ -3140,6 +3522,8 @@ def main() -> int:
         plan = phase_plan(tmp, "cuda", stream, km, km_resume, wrappers)
         serve = phase_serve(tmp, km, wc, devmap)
         obs = phase_obs(tmp, "cuda", km, wc, devmap, plan["peaks"], serve)
+        sharded = phase_sharded(tmp, "cuda", km, wc, stream, dataflow,
+                                wrappers)
     if km["launches"]["fused_assign_sum"] != 2 * KMEANS_ITERS:
         raise AssertionError(f"kmeans path launched the kernel "
                              f"{km['launches']} times, expected "
@@ -3152,7 +3536,8 @@ def main() -> int:
                 + stream["launches"]["fused_assign_sum"]
                 + plan["launches"]["fused_assign_sum"]
                 + serve["launches"]["kmeans_assign_sum"]
-                + obs["launches"]["kmeans_assign_sum"])
+                + obs["launches"]["kmeans_assign_sum"]
+                + sharded["launches"]["fused_assign_sum"])
     main_cfg = next(c for c in configs if c["k"] == KMEANS_K
                     and c["precision"] == "highest" and not c["weighted"])
     kernels = [{
@@ -3170,7 +3555,7 @@ def main() -> int:
         "checked_against_plain": True,
         "resources": {k: v for k, v in resources.items()
                       if not k.startswith("tokenize_compact")},
-        "configs": configs + stream["configs"],
+        "configs": configs + stream["configs"] + sharded["configs"],
     }, {
         "name": "tokenize_compact",
         "route": "cuda",
@@ -3180,7 +3565,8 @@ def main() -> int:
                          "XLA programs, not a Pallas kernel",
         "launches": (devmap["wordcount"]["launches"]["tokenize_compact"]
                      + serve["launches"]["tokenize_compact"]
-                     + obs["launches"]["tokenize_compact"]),
+                     + obs["launches"]["tokenize_compact"]
+                     + sharded["launches"]["tokenize_compact"]),
         "max_abs_err": tok["max_abs_err"],
         "ms": tok["ms"],
         "plain_ms": tok["plain_ms"],
@@ -3224,7 +3610,10 @@ def main() -> int:
         f" (cold, warm); served words/s {serve['rates']} (concurrent), "
         f"phase 13 {serve['wall_s']:.1f} s (its fleet step "
         f"{serve['fleet']['wall_s']:.1f} s); phase 14 "
-        f"{obs['wall_s']:.1f} s; total "
+        f"{obs['wall_s']:.1f} s; phase 15 S=8 word count "
+        f"{sharded['wc_ratio']:.3f}x phase 5, k-means ms/iter "
+        f"{ {p: round(v, 3) for p, v in sharded['km_ratio'].items()} }x "
+        f"phase 4, {sharded['wall_s']:.1f} s; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

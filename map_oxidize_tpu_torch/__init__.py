@@ -11,6 +11,9 @@ Layer map (mirrors the JAX package):
 
 * ``runtime.driver`` — job drivers: word count, device-resident k-means
 * ``runtime.engine`` — streaming device reduce engine
+* ``parallel``       — the sharded engines on a mesh of device slots in one
+  process (``num_shards > 1``): the exchange, the sharded fold, collect
+  and k-means
 * ``serve``          — the resident job service (``python -m
   map_oxidize_tpu_torch serve`` / ``submit``)
 * ``obs``            — per-job observability, the run ledger, the live

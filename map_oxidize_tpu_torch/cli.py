@@ -97,6 +97,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--key-capacity", type=int, default=1 << 22,
                    help="max distinct keys on device")
     p.add_argument("--backend", choices=["cuda", "cpu"], default="cuda")
+    p.add_argument("--num-shards", type=int, default=0,
+                   help="device mesh shards (0 = all local devices, 1 = "
+                        "single; more than the devices deals virtual "
+                        "slots over them)")
     p.add_argument("--tokenizer", choices=["ascii", "unicode"],
                    default="ascii")
     p.add_argument("--mapper", choices=["auto", "device", "native", "python"],
@@ -270,6 +274,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "attribution into <dir>/calib.json (merged "
                         "atomically across runs); the next run's planner "
                         "and auto dispatch batch read it")
+    p.add_argument("--exchange-collective",
+                   choices=["auto", "all_to_all", "all_gather"],
+                   default="auto",
+                   help="shuffle exchange wire program: auto (default) "
+                        "lets the planner pick from the calibration "
+                        "store's measured curves (monolithic all_to_all "
+                        "vs the decomposed all_gather+slice resharding; "
+                        "falls back to all_to_all with a named reason on "
+                        "a cold store); explicit values pin.  Outputs "
+                        "are byte-identical either way")
     p.add_argument("--calib-min-samples", type=int, default=3,
                    help="chooser evidence floor: sampled latencies "
                         "required in the exact payload bucket before a "
@@ -332,6 +346,8 @@ def config_from_args(args: argparse.Namespace) -> JobConfig:
         plan=args.plan,
         calib_dir=args.calib_dir,
         calib_min_samples=args.calib_min_samples,
+        exchange_collective=args.exchange_collective,
+        num_shards=args.num_shards,
     ).validate()
 
 

@@ -2,10 +2,12 @@
 
 :class:`JobConfig` has every field of the JAX package's (JAX
 ``config.py:32-365``), with its defaults and validation, except the
-fields of the multi-process and sharded paths the port has not got yet:
-``dist_coordinator``, ``dist_num_processes``, ``dist_process_id`` and
-``exchange_collective`` (ROADMAP A7) and ``remote_stage_dir`` and
-``remote_stage_timeout_s`` (A8).  ``backend`` names a torch device
+fields of the multi-process paths the port has not got yet:
+``dist_coordinator``, ``dist_num_processes``, ``dist_process_id``,
+``remote_stage_dir`` and ``remote_stage_timeout_s`` (ROADMAP A8).
+``num_shards`` > 1 runs the sharded engines on a mesh of device slots in
+one process (:mod:`map_oxidize_tpu_torch.parallel`); 0 is the backend's
+real pool.  ``backend`` names a torch device
 family: ``cuda`` (the default) or ``cpu``; nothing falls back from one to
 the other.  :class:`FleetConfig` is the fleet collector's (JAX
 ``config.py:435-500``) and :class:`ServeConfig` the resident job server's
@@ -216,6 +218,13 @@ class JobConfig:
     #: and records the plan (per-knob value + provenance, and a predicted
     #: wall scored at finish as ``plan/model_error_pct``); 'off' skips it
     plan: str = "auto"
+    #: the sharded exchange's wire program: 'auto' lets the planner's
+    #: collective chooser pick from the calibration store's measured
+    #: curves between the monolithic 'all_to_all' and the decomposed
+    #: 'all_gather' + slice, falling back to all_to_all with a named
+    #: reason on a cold, out-of-range or thin store.  Explicit values
+    #: pin.  Outputs are byte-identical either way
+    exchange_collective: str = "auto"
     #: the collective chooser's evidence floor: sampled latencies
     #: required in the exact payload bucket before a curve may steer it
     calib_min_samples: int = 3
@@ -223,6 +232,12 @@ class JobConfig:
     def validate(self) -> "JobConfig":
         if self.plan not in ("auto", "off"):
             raise ValueError(f"plan must be auto|off, got {self.plan!r}")
+        if self.exchange_collective not in ("auto", "all_to_all",
+                                            "all_gather"):
+            raise ValueError(
+                "exchange_collective must be one of "
+                "auto|all_to_all|all_gather, "
+                f"got {self.exchange_collective!r}")
         if self.calib_min_samples < 1:
             raise ValueError(
                 "calib_min_samples must be >= 1 sampled latencies")

@@ -380,7 +380,9 @@ class Obs:
             return
         try:
             ident = _calib.run_identity(self.n_processes)
-            touched = self.calib.accumulate_run(ident, [], xprof_report)
+            touched = self.calib.accumulate_run(
+                ident, self.registry.comms_table(), xprof_report,
+                source="job")
             if workload and workload != "serve":
                 touched += self.calib.accumulate_workload(
                     ident, workload, corpus_bytes, attrib_doc)
@@ -462,6 +464,9 @@ class Obs:
                 # the full plan rides the entry; the flat plan/* gauges
                 # are already in the summary the gate compares
                 extra["plan"] = self.plan
+            comms = self.registry.comms_table()
+            if comms:
+                extra["comms"] = comms
             if data_doc is not None:
                 extra["data"] = dataplane_ledger_section(data_doc)
             if self.alerts is not None and (self.alerts.fired_total

@@ -3,8 +3,8 @@ tools.  A copy of the JAX package's ``obs/cli.py``: the same twelve
 subcommands with the same flags, defaults and ``dest``s
 (``build_obs_parser`` :101), and on the same documents, ledgers, stores,
 bundles and archives the same stdout bytes and exit codes.  All of it is
-host-side file and HTTP work: no subcommand imports torch or touches the
-card.
+host-side file and HTTP work: no subcommand but ``calib probe`` imports
+torch or touches the card.
 
 * ``obs xprof`` / ``obs data`` / ``obs plan`` — the launch ledger's
   program report (compiles, dispatches, achieved rates against the
@@ -25,18 +25,20 @@ card.
 * ``obs flame`` — a deep capture's host stacks joined against the
   attribution buckets;
 * ``obs calib`` — ``show`` (also the bare legacy form ``obs calib
-  <store>``) and ``coverage`` over a calibration store;
+  <store>``) and ``coverage`` over a calibration store, and ``probe``
+  (:mod:`map_oxidize_tpu_torch.obs.probe`), which runs the collective
+  microbenchmarks on a mesh: the one subcommand that imports torch;
 * ``obs fleet`` — the fleet collector (:mod:`map_oxidize_tpu_torch.obs.
   fleet`) and its HTTP plane, optionally archiving the fleet series;
 * ``obs top`` — a live view of a job's, a resident server's or a fleet
   collector's ``/status`` (plain ANSI redraw), or ``--archive``'s last
   frame.
 
-Three parts wait for the multi-process port and say so: ``obs merge``
-(ROADMAP A8, ``obs/merge.py``), ``obs calib probe`` (A7, ``obs/probe.py``)
-and ``obs critpath`` over trace shards, a shard document or a merged
-Chrome trace (A8, the shard half of ``obs/critpath.py``).  Each exits 2
-with one line on stderr naming its item.
+Two parts wait for the multi-process port and say so: ``obs merge``
+(ROADMAP A8, ``obs/merge.py``) and ``obs critpath`` over trace shards, a
+shard document or a merged Chrome trace (A8, the shard half of
+``obs/critpath.py``).  Each exits 2 with one line on stderr naming its
+item.
 """
 
 from __future__ import annotations
@@ -255,8 +257,8 @@ def build_obs_parser() -> argparse.ArgumentParser:
         "probe", help="deterministic collective microbenchmarks: sweep "
                       "the framework's exchange/psum/top-k programs "
                       "across pow2 payload buckets on the current mesh "
-                      "and merge the rows in with source=probe (not "
-                      "ported yet: ROADMAP A7)")
+                      "and merge the rows in with source=probe (the ONE "
+                      "obs subcommand that imports torch)")
     cbp.add_argument("store", help="the --calib-dir directory to merge "
                                    "into (created if missing)")
     cbp.add_argument("--num-shards", type=int, default=8,
@@ -270,7 +272,8 @@ def build_obs_parser() -> argparse.ArgumentParser:
                      help="timed repetitions per cell (default 5 — "
                           "above the chooser's min-samples floor)")
     cbp.add_argument("--backend", default="auto",
-                     help="device pool to probe (default auto)")
+                     help="device pool to probe ('cuda'/'cpu'; default "
+                          "auto: the cards when the host has one)")
     cbp.add_argument("--json", action="store_true",
                      help="emit the probe summary document")
     cbc = cbs.add_parser(
@@ -413,7 +416,7 @@ SHARD_SCHEMA = "moxt-obs-shard-v1"
 
 
 class NotPorted(ValueError):
-    """A source or subcommand of the multi-process port (ROADMAP A7/A8)."""
+    """A source or subcommand of the multi-process port (ROADMAP A8)."""
 
 
 def _not_ported(what: str, item: str) -> int:
@@ -724,8 +727,27 @@ def _calib(args) -> int:
 
 
 def _calib_probe(args) -> int:
-    # the collective microbenchmarks run on a mesh of devices
-    return _not_ported("obs calib probe", "A7: obs/probe.py")
+    import json
+
+    from map_oxidize_tpu_torch.obs import probe as _probe
+    from map_oxidize_tpu_torch.obs.calib import CalibMismatch
+
+    kw = {}
+    if args.buckets:
+        kw["buckets"] = tuple(args.buckets)
+    if args.reps:
+        kw["reps"] = int(args.reps)
+    try:
+        summary = _probe.run_probe(args.store, num_shards=args.num_shards,
+                                   backend=args.backend, **kw)
+    except CalibMismatch as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if args.json:
+        print(json.dumps(summary, indent=1, sort_keys=True))
+        return 0
+    print(_probe.render_probe(summary))
+    return 0
 
 
 def _calib_coverage(args) -> int:

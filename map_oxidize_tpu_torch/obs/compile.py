@@ -482,6 +482,92 @@ def _cost_stream_step(block, c, acc, chunk_rows, **_statics):
                                   + 2 * _nbytes(acc))
 
 
+def _sum_bytes(ts) -> int:
+    return sum(_nbytes(t) for t in ts)
+
+
+def _cost_shuffle_merge(mesh, acc_keys, acc_vals, ovf, b_keys, b_vals,
+                        *, cap, **_statics):
+    S = len(acc_keys)
+    c = acc_keys[0].shape[0]
+    width = int(math.prod(acc_vals[0].shape[1:]))
+    b = b_keys[0].shape[0]
+    rows = c + S * cap
+    flops = S * (2 * _sort_ops(b) + 4.0 * b * width + _sort_ops(rows)
+                 + 4.0 * rows * width)
+    acc = _sum_bytes(acc_keys) + _sum_bytes(acc_vals)
+    sent = S * S * cap * (8 + acc_vals[0].element_size() * width)
+    return flops, float(2 * acc + _sum_bytes(b_keys) + _sum_bytes(b_vals)
+                        + 2 * sent)
+
+
+def _cost_shuffle_top_k(mesh, acc_keys, acc_vals, *, k_local, k_final):
+    S = len(acc_keys)
+    c = acc_keys[0].shape[0]
+    return (S * (_sort_ops(c) + c) + 2 * _sort_ops(S * k_local),
+            float(_sum_bytes(acc_keys) + _sum_bytes(acc_vals)
+                  + 2 * S * S * k_local * 12 + k_final * 12))
+
+
+def _cost_shuffle_grow(mesh, acc_keys, acc_vals, pad, combine="sum"):
+    moved = _sum_bytes(acc_keys) + _sum_bytes(acc_vals)
+    return None, float(2 * moved + len(acc_keys) * pad * 12)
+
+
+def _cost_init_acc(mesh, capacity, value_shape, value_dtype,
+                   combine="sum"):
+    width = int(math.prod(value_shape)) if value_shape else 1
+    return None, float(mesh.size * capacity * (8 + 4 * width))
+
+
+def _cost_route_append(mesh, buf_keys, buf_docs, cursor, keys, docs, *,
+                       cap, **_statics):
+    S = len(keys)
+    b = keys[0].shape[0]
+    rows = S * cap
+    return (S * (_sort_ops(b) + _sort_ops(rows) + 4.0 * b),
+            float(_sum_bytes(keys) + _sum_bytes(docs) + 2 * S * rows * 16))
+
+
+def _cost_collect_grow(mesh, buf_keys, buf_docs, pad):
+    moved = _sum_bytes(buf_keys) + _sum_bytes(buf_docs)
+    return None, float(2 * moved + 2 * len(buf_keys) * pad * 8)
+
+
+def _cost_sort_sharded(mesh, buf_keys, buf_docs):
+    n = sum(t.shape[0] for t in buf_keys)
+    return (2.0 * _sort_ops(n),
+            float(2 * (_sum_bytes(buf_keys) + _sum_bytes(buf_docs))))
+
+
+def _cost_fit_sharded(mesh, p, c, k, loop_iters, precision="highest"):
+    n = sum(t.shape[0] for t in p)
+    d = c[0].shape[1]
+    return (4.0 * n * k * d * loop_iters,
+            float(loop_iters * _sum_bytes(p) + 2 * _nbytes(c[0])))
+
+
+def _cost_stream_step_sharded(mesh, blocks, c, acc, per_shard,
+                              **_statics):
+    n = sum(t.shape[0] for t in blocks)
+    d = c[0].shape[1]
+    k = c[0].shape[0]
+    return 4.0 * n * k * d, float(_sum_bytes(blocks) + _nbytes(c[0])
+                                  + 2 * _nbytes(acc))
+
+
+def _cost_tokenize_group(chunks, *, max_tokens, out_keys, fetch_keys,
+                         ngram=1):
+    per = _cost_tokenize(chunks[0], max_tokens, out_keys, fetch_keys)
+    return per[0] * len(chunks), per[1] * len(chunks)
+
+
+def _cost_stream_step_any(*args, **kw):
+    if isinstance(args[0], (list, tuple)) or hasattr(args[0], "devices"):
+        return _cost_stream_step_sharded(*args, **kw)
+    return _cost_stream_step(*args, **kw)
+
+
 #: program name -> ``(args, kw) -> (flops, bytes)`` of ONE dispatch from
 #: its arguments' shapes.  What each row counts:
 #:
@@ -506,7 +592,13 @@ def _cost_stream_step(block, c, acc, chunk_rows, **_statics):
 #: * ``kmeans/step``, ``kmeans/stream_step``: 4 n k d (the score product
 #:   and the one-hot sums); bytes = the points read once, the centroids
 #:   read and written (the stream step: its ``(k, d+1)`` partial too);
-#: * ``kmeans/fit``: ``iters`` steps; the points are re-read every one.
+#: * ``kmeans/fit``: ``iters`` steps; the points are re-read every one;
+#: * the sharded programs (``shuffle/*``, ``collect/route_append``,
+#:   ``collect/grow``, ``collect/sort_sharded``, ``kmeans/fit_sharded``,
+#:   the sharded ``kmeans/stream_step``, ``device_map/tokenize_group``):
+#:   the same counts summed over the shards; the exchanges also move the
+#:   ``[S, S, cap]`` send buffers once out and once in;
+#:   ``shuffle/init_acc`` and the grows are fills and copies, no FLOPs.
 COSTS = {
     "engine/merge": _cost_merge,
     "engine/merge_packed": _cost_merge_packed,
@@ -519,7 +611,16 @@ COSTS = {
     "device_map/prefix_pack": _cost_prefix_pack,
     "kmeans/step": _cost_kmeans_step,
     "kmeans/fit": _cost_kmeans_fit,
-    "kmeans/stream_step": _cost_stream_step,
+    "kmeans/stream_step": _cost_stream_step_any,
+    "shuffle/merge": _cost_shuffle_merge,
+    "shuffle/top_k": _cost_shuffle_top_k,
+    "shuffle/grow": _cost_shuffle_grow,
+    "shuffle/init_acc": _cost_init_acc,
+    "collect/route_append": _cost_route_append,
+    "collect/grow": _cost_collect_grow,
+    "collect/sort_sharded": _cost_sort_sharded,
+    "kmeans/fit_sharded": _cost_fit_sharded,
+    "device_map/tokenize_group": _cost_tokenize_group,
 }
 
 

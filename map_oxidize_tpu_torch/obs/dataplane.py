@@ -190,6 +190,8 @@ class DataPlaneAudit:
         self._regs = np.zeros(self.S << hll_p, np.int32)
         self._hot: "dict[int, int]" = {}
         self._hot_resolved: "dict[int, bytes]" = {}
+        #: post-exchange rows per shard the sharded collect delivered
+        self.observed_rows: "np.ndarray | None" = None
         self.checks = 0
         self.violations: "list[str]" = []
 
@@ -282,6 +284,15 @@ class DataPlaneAudit:
         counts sum exactly)."""
         self._pairs("reduce_out", "disjoint", keys, docs, skew=False,
                     uniq=True)
+
+    def record_observed_rows(self, rows) -> None:
+        """Post-exchange rows per shard the device transport actually
+        delivered (the sharded collect's finalize): the measured twin of
+        the in-side hash histogram."""
+        rows = np.asarray(rows, np.int64)
+        if rows.shape[0] == self.S:
+            prev = self.observed_rows
+            self.observed_rows = rows if prev is None else prev + rows
 
     def set_records_in(self, records: int) -> None:
         self.records_in = int(records)
@@ -467,6 +478,9 @@ class DataPlaneAudit:
                 "ratio_per_partition": ratio_pp,
             },
         }
+        if self.observed_rows is not None:
+            doc["skew"]["observed_rows_per_partition"] = [
+                int(r) for r in self.observed_rows]
         return doc
 
     def publish(self, registry) -> None:

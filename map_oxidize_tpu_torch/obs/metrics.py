@@ -15,8 +15,9 @@ as the same job of the JAX package:
 
 The device-memory watermarks read ``torch.cuda.memory_stats`` under the JAX
 package's ``mem/device{i}_hbm_*`` names.  The comms observatory
-(``comm`` / ``comms_table``) and ``sample_collective_wall`` belong to the
-sharded engines and are not ported yet.
+(``comm`` / ``comms_table``, JAX ``obs/metrics.py:216``, ``:246``) holds
+the rows the sharded engines record per collective, and
+:func:`sample_collective_wall` their sampled latencies.
 
 All mutating entry points take one lock; the hot paths record at chunk or
 flush cadence, where contention is negligible.
@@ -142,6 +143,9 @@ class MetricsRegistry:
         self.gauges: dict[str, float] = {}
         self.histograms: dict[str, Histogram] = {}
         self._lock = threading.Lock()
+        #: comms observatory rows: (collective, program, shape) ->
+        #: {count, bytes, latency histogram}
+        self._comms: dict[tuple, dict] = {}
         #: sticky Prometheus export-name assignments for this registry's
         #: lifetime ((kind, name) -> moxt_* name, plus the taken set): a
         #: key created later must never take the name of an already
@@ -186,6 +190,49 @@ class MetricsRegistry:
                 h = self.histograms[name] = Histogram(buckets=buckets)
             h.observe(value)
 
+    # --- comms observatory ------------------------------------------------
+
+    def comm(self, collective: str, program: str, nbytes: float,
+             shape=None, latency_ms: float | None = None) -> None:
+        """Record one collective invocation: ``collective`` is the
+        primitive (``all_to_all`` / ``psum`` / ``all_gather``), ``program``
+        the device program it runs in, ``nbytes`` the global payload it
+        moved (the host-side accounting identity), ``shape`` the per-shard
+        buffer shape, ``latency_ms`` the sampled wall where the site
+        measures one.  Accumulates the per-(collective, program, shape)
+        table of the metrics document's ``comms`` section and the flat
+        ``comms/<collective>/<program>/{bytes,calls}`` counters."""
+        key = (collective, program, _shape_str(shape))
+        with self._lock:
+            row = self._comms.get(key)
+            if row is None:
+                row = self._comms[key] = {
+                    "count": 0, "bytes": 0.0, "latency": Histogram(1024)}
+            row["count"] += 1
+            row["bytes"] += nbytes
+            if latency_ms is not None:
+                row["latency"].observe(latency_ms)
+            for name, delta in (
+                    (f"comms/{collective}/{program}/bytes", nbytes),
+                    (f"comms/{collective}/{program}/calls", 1)):
+                self.counters[name] = self.counters.get(name, 0) + delta
+
+    def comms_table(self) -> list[dict]:
+        """The per-(collective, program, shape) rows, by bytes
+        descending."""
+        rows = []
+        with self._lock:
+            for (collective, program, shape), r in self._comms.items():
+                lat = (r["latency"].summary() if r["latency"].count
+                       else None)
+                rows.append({
+                    "collective": collective, "program": program,
+                    "shape": shape, "count": r["count"],
+                    "bytes": int(r["bytes"]), "latency_ms": lat,
+                })
+        rows.sort(key=lambda row: -row["bytes"])
+        return rows
+
     def summary(self) -> dict:
         """The flat dict: phase wall-clocks, counters, gauges, the derived
         throughput (records over ``map+reduce`` + ``finalize``, JAX
@@ -210,15 +257,56 @@ class MetricsRegistry:
 
     def to_dict(self) -> dict:
         """The structured export (the ``metrics_out`` document's registry
-        sections): phases, counters, gauges and full histogram summaries."""
+        sections): phases, counters, gauges, full histogram summaries and
+        the comms table (when a collective ran)."""
         with self._lock:
-            return {
+            out = {
                 "phases_s": {k: round(v, 6) for k, v in self.phases.items()},
                 "counters": dict(self.counters),
                 "gauges": dict(self.gauges),
                 "histograms": {k: h.summary()
                                for k, h in self.histograms.items()},
             }
+        comms = self.comms_table()
+        if comms:
+            out["comms"] = comms
+        return out
+
+
+def sample_collective_wall(holder, attr: str, t0: float,
+                           target) -> float | None:
+    """The sampling rule of the asynchronous collective sites (JAX
+    ``obs/metrics.py:306``): on the 1st and then every ``SAMPLE_EVERY``-th
+    invocation (counted per ``holder`` in ``attr``, the launch ledger's
+    cadence), wait for ``target`` (a tensor, or a list of per-shard
+    tensors) and return the wall since ``t0`` in ms; None otherwise."""
+    n = getattr(holder, attr, 0) + 1
+    setattr(holder, attr, n)
+    from map_oxidize_tpu_torch.obs.compile import SAMPLE_EVERY
+
+    if n != 1 and n % SAMPLE_EVERY != 0:
+        return None
+    import torch
+
+    for t in (target if isinstance(target, (list, tuple)) else [target]):
+        if t.device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(t.device))
+            ev.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _shape_str(shape) -> str:
+    """Stable string key for a comms row's buffer shape: a tuple, an
+    already-formatted string, or None (shapeless)."""
+    if shape is None:
+        return "-"
+    if isinstance(shape, str):
+        return shape
+    try:
+        return "x".join(str(int(d)) for d in shape)
+    except TypeError:
+        return str(shape)
 
 
 def format_bytes(n) -> str:

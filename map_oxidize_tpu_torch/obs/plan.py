@@ -12,9 +12,8 @@ copy of the JAX package's ``obs/plan.py`` (``publish`` :44, ``finalize``
   actual| / actual wall;
 * :func:`render` is the human-readable report.
 
-The port has no comms observatory (one device), so ``finalize`` scores no
-exchange-collective decision: there is no measured exchange to score it
-against.
+``finalize`` also scores the exchange-collective decision against the
+sampled exchange walls of the comms table, where a sharded engine ran.
 """
 
 from __future__ import annotations
@@ -82,6 +81,21 @@ def finalize(obs, doc: dict, attrib_doc: dict | None) -> dict:
         doc["model_error_pct"] = round(err, 2)
         obs.registry.set("plan/model_error_pct", doc["model_error_pct"])
         obs.registry.set("plan/actual_wall_ms", wall)
+    # score the exchange-collective decision: the chooser predicted a
+    # per-exchange latency from the store curve; the run measured the
+    # real one (the sampled collective walls of the comms table)
+    ex = doc.get("exchange")
+    if ex and ex.get("method"):
+        rows = [r for r in obs.registry.comms_table()
+                if r.get("collective") == ex["method"]
+                and r.get("latency_ms")]
+        if rows:
+            best = max(rows, key=lambda r: r["latency_ms"]["count"])
+            ex["actual_ms_per_exchange"] = round(
+                best["latency_ms"]["mean"], 4)
+            ev = (ex.get("evidence") or {}).get(ex["method"])
+            if isinstance(ev, dict) and ev.get("predicted_ms") is not None:
+                ex["predicted_ms_per_exchange"] = ev["predicted_ms"]
     return doc
 
 

@@ -14,7 +14,7 @@ per job (0 = ephemeral, the bound port is logged as ``[obs] serving
 * ``GET /status``  — one JSON document: current phase, rows/sec and ETA
   from the heartbeat, the per-program compile/roofline table computed live
   from the launch ledger, device-memory watermarks, the live wall
-  attribution, open span stacks and the (empty) comms table;
+  attribution, open span stacks and the comms table;
 * ``GET /series``  — the time-series ring
   (:mod:`map_oxidize_tpu_torch.obs.timeseries`) as aligned value lists;
 * ``GET /alerts``  — the SLO plane (:mod:`map_oxidize_tpu_torch.obs.slo`):
@@ -253,8 +253,7 @@ def prometheus_text(registry, extra_labels: dict | None = None) -> str:
 def build_status(obs, config, workload: str | None = None) -> dict:
     """The ``/status`` JSON document, computed live from the job's obs
     bundle (the JAX key set).  ``comms`` is the table of collective rows
-    the sharded engines record; the port runs none yet (ROADMAP A7), so
-    the key is kept and the list is empty."""
+    the sharded engines record (empty for a one-shard job)."""
     now = time.time()
     elapsed = max(now - obs.tracer.wall_start, 1e-9)
     workload = workload if workload is not None else getattr(
@@ -307,10 +306,8 @@ def build_status(obs, config, workload: str | None = None) -> dict:
 
             doc["shuffle"] = dict(spill, transport=transport,
                                   transports=list(TRANSPORTS))
-    # the comms table: rows of the collectives a sharded engine runs; the
-    # port has no sharded engine yet, so the key is kept and the table is
-    # empty
-    doc["comms"] = []
+    # the comms table: rows of the collectives a sharded engine runs
+    doc["comms"] = obs.registry.comms_table()
     # live wall attribution: the same decomposition the obs where CLI
     # renders post-hoc, computed against the running overlay.  The
     # resident SERVER's own bundle is skipped — it idles between jobs,

@@ -88,10 +88,14 @@ def _run_job(config: JobConfig, workload: str, on_obs=None):
     if mode == "device":
         from map_oxidize_tpu_torch.runtime.device_map import (
             run_device_wordcount_job,
+            run_sharded_device_job,
         )
+        from map_oxidize_tpu_torch.runtime.driver import effective_num_shards
 
-        return run_device_wordcount_job(
-            config, 2 if workload == "bigram" else 1, on_obs=on_obs)
+        ngram = 2 if workload == "bigram" else 1
+        if effective_num_shards(config) > 1:
+            return run_sharded_device_job(config, ngram, on_obs=on_obs)
+        return run_device_wordcount_job(config, ngram, on_obs=on_obs)
     from map_oxidize_tpu_torch.runtime.driver import run_wordcount_job
 
     use_native = mode == "native"

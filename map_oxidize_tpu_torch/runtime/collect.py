@@ -89,6 +89,9 @@ class CollectEngine:
     #: shared scheme — see runtime/spill.py)
     SPILL_BUCKETS_BITS = 8
 
+    #: shards: one (the sharded engines set the mesh's)
+    S = 1
+
     def __init__(self, config: JobConfig, device=None,
                  max_rows: int = 1 << 27, sort_mode: str | None = None,
                  transport: str | None = None, pair_order: str = "stable"):

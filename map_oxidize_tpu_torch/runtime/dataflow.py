@@ -1,5 +1,5 @@
-"""Dataflow workload drivers on one device: total-order sort, hash
-equi-join and sessionize (the port of the JAX package's
+"""Dataflow workload drivers: total-order sort, hash equi-join and
+sessionize (the port of the JAX package's
 ``runtime/dataflow.py``: ``device_wait_window`` :72, ``host_sort_window``
 :102, ``_make_engine`` :122, ``_feed_records`` :145, ``_finalize_grouped``
 :185, ``run_sort_job`` :236, ``run_join_job`` :342,
@@ -25,7 +25,12 @@ reduce:
 ``collect_sort`` places the one sort: ``host`` (the ``auto`` default) is
 numpy's lexsort; ``device`` packs the pairs into blocks on the card and
 sorts them there (``runtime/collect.py`` ``sort_pairs``), with one fetch.
-The sharded engines (``num_shards > 1``) raise, naming ROADMAP A7.
+With ``num_shards > 1`` the engine is the sharded collect
+(:class:`~map_oxidize_tpu_torch.parallel.collect.ShardedCollectEngine`):
+the sort routes by RANGE over ``compute_splitters``' sampled quantiles,
+so the per-shard sorted runs concatenate in the global order, and join
+and sessionize route by key hash (JAX ``runtime/dataflow.py:130-133``,
+``:251-260``).
 
 Attribution: the sample phase counts as host produce; the card sort's
 finalize (launch, sort and its one fetch) lands in ``device_compute``;
@@ -110,18 +115,27 @@ def host_sort_window(obs):
         reg.count("attrib/host_sort_ms", max(dt_ms - io_ms, 0.0))
 
 
-def _make_engine(config: JobConfig):
-    """The dataflow engine: the pair collect with the full unsigned (key,
+def _make_engine(config: JobConfig, splitters=None):
+    """The dataflow engines: the pair collect with the full unsigned (key,
     doc) lexsort discipline (``pair_order='lex'`` — payload order is part
-    of these workloads' oracle).  ``num_shards > 1`` raises."""
+    of these workloads' oracle), sharded over the mesh with ``num_shards >
+    1``: range-partitioned when ``splitters`` pin one (the sort),
+    hash-partitioned otherwise."""
     from map_oxidize_tpu_torch.runtime.collect import CollectEngine
     from map_oxidize_tpu_torch.runtime.driver import (
-        _require_single_device,
         collect_engine_kw,
+        effective_num_shards,
     )
     from map_oxidize_tpu_torch.runtime.engine import pick_device
 
-    _require_single_device(config)
+    if effective_num_shards(config) > 1:
+        from map_oxidize_tpu_torch.parallel.collect import (
+            ShardedCollectEngine,
+        )
+
+        return ShardedCollectEngine(config, splitters=splitters,
+                                    pair_order="lex",
+                                    **collect_engine_kw(config))
     engine = CollectEngine(config, pair_order="lex",
                            **collect_engine_kw(config))
     if engine.device is None:
@@ -132,8 +146,9 @@ def _make_engine(config: JobConfig):
 
 
 def _finalize_sorted(obs: Obs, engine):
-    """The resident engine's sorted ``(keys, docs)``: the card sort's
-    finalize is device time, the host lexsort is host time."""
+    """The resident engine's sorted ``(keys, docs)``: the card sort's (and
+    the sharded sort's) finalize is device time, the host lexsort is host
+    time."""
     window = (device_wait_window if engine.sort_mode == "device"
               else host_sort_window)
     with window(obs):
@@ -233,17 +248,25 @@ def run_sort_job(config: JobConfig, on_obs=None) -> SortResult:
 
 
 def _run_sort_body(config: JobConfig, obs: Obs) -> SortResult:
+    from map_oxidize_tpu_torch.runtime.driver import effective_num_shards
     from map_oxidize_tpu_torch.workloads.sort import (
+        compute_splitters,
         load_records,
+        sample_keys,
         write_sorted_records,
     )
 
     metrics = obs.registry
+    n_shards = effective_num_shards(config)
     with obs.phase("sample"):
-        # one device: no range splitters; the record count is the
-        # conservation check's input
         _keys, _payloads, n_total = load_records(config.input_path)
-    engine = _make_engine(config)
+        splitters = None
+        if n_shards > 1:
+            splitters = compute_splitters(
+                sample_keys(config.input_path, config.sort_sample),
+                n_shards)
+            metrics.set("sort/splitters", int(splitters.shape[0]))
+    engine = _make_engine(config, splitters=splitters)
     engine.obs = obs
     metrics.set("shuffle/transport", engine.transport)
 
@@ -281,7 +304,8 @@ def _run_sort_body(config: JobConfig, obs: Obs) -> SortResult:
     metrics.set("chunks", n_chunks)
     metrics.set("device_rows_fed", engine.rows_fed)
     summary, trace = obs.finish(config, "sort")
-    result = SortResult(n_rows=rows_out, n_shards=1, splitters=None,
+    result = SortResult(n_rows=rows_out, n_shards=n_shards,
+                        splitters=splitters,
                         spilled_rows=int(engine.spilled_rows),
                         metrics=summary, trace=trace)
     if config.metrics:

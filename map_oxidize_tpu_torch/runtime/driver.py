@@ -1,9 +1,11 @@
-"""Job drivers of the port, on one device: word count and bigram (through
-the fold or the collect reduce), the inverted index, distinct, and k-means
-in its three single-device modes (device-resident, streamed through the
-device, host-assign stream).
+"""Job drivers of the port: word count and bigram (through the fold or the
+collect reduce), the inverted index, distinct, and k-means in its three
+modes (device-resident, streamed through the device, host-assign stream),
+on one device or, with ``num_shards > 1``, on the sharded engines of
+:mod:`map_oxidize_tpu_torch.parallel` (a mesh of device slots in one
+process; :func:`effective_num_shards`).
 
-Cut down from the JAX package's driver to the single-device engines.  The
+The port of the JAX package's ``runtime/driver.py``.  The
 map runs in a bounded prefetch thread (:mod:`~map_oxidize_tpu_torch.
 runtime.pipeline`): the native C++ mmap scan, or the Python map through the
 worker pool of :mod:`~map_oxidize_tpu_torch.runtime.executor`.  The
@@ -20,7 +22,7 @@ iteration (:mod:`~map_oxidize_tpu_torch.runtime.checkpoint`); a re-run
 resumes.  Every job records into one ``Obs`` bundle
 (:mod:`map_oxidize_tpu_torch.obs`): phases, counters, the wall
 attribution, the data-plane audit, and the flight recorder around the
-body.  The sharded engines raise ``NotImplementedError``.
+body.
 """
 
 from __future__ import annotations
@@ -79,11 +81,26 @@ class JobResult:
         return format_top_words(self.top, k)
 
 
-def _require_single_device(config: JobConfig) -> None:
-    if config.num_shards > 1:
-        raise NotImplementedError(
-            "sharded engines over torch.distributed are not ported yet "
-            "(ROADMAP A7: sharded engines); use num_shards=1")
+def effective_num_shards(config: JobConfig) -> int:
+    """``num_shards`` with 0 resolved to the backend's real pool (JAX
+    ``runtime/driver.py:51``): every CUDA card, or the one CPU device; 1
+    when the pool is empty, so a ``cuda`` job without a card reaches the
+    one-device path and its named error.  The one answer every caller
+    that must agree with the engine built reads."""
+    from map_oxidize_tpu_torch.parallel.mesh import real_pool
+
+    n = config.num_shards
+    if n == 0:
+        n = max(len(real_pool(config.backend)), 1)
+    return n
+
+
+def solved_exchange(config: JobConfig, obs: Obs) -> str:
+    """The planner's ``exchange_collective`` knob (a pin is echoed
+    verbatim) as a concrete wire program, with the ``all_to_all`` default
+    when no plan resolved one (JAX ``runtime/driver.py:85``)."""
+    method = obs.knob("exchange_collective", config.exchange_collective)
+    return "all_to_all" if method in (None, "", "auto") else str(method)
 
 
 def collect_engine_kw(config: JobConfig) -> dict:
@@ -108,22 +125,28 @@ def solved_transport(config: JobConfig, obs: Obs) -> str:
 
 def make_engine(config: JobConfig, reducer, value_shape=(),
                 value_dtype=np.int32, wide_keys: bool = False,
-                transport: str | None = None):
-    """Pick the single-device engine (JAX ``runtime/driver.py:95-133``):
+                transport: str | None = None,
+                exchange_method: str = "all_to_all"):
+    """Pick the engine (JAX ``runtime/driver.py:95-133``): the shard count
+    selects one device or the sharded fold over the mesh, and
     ``reduce_mode`` (or the mapper's ``wide_keys`` declaration under
     'auto') selects the streaming device fold or the host collect-reduce
-    for wide key spaces; vector values always fold.  ``num_shards`` > 1
-    raises."""
-    _require_single_device(config)
+    for wide key spaces (one device only: the sharded engine
+    hash-partitions the key space, so each shard stays narrow); vector
+    values always fold."""
+    n = effective_num_shards(config)
     mode = config.reduce_mode
     if mode == "auto":
-        mode = ("collect" if wide_keys and tuple(value_shape) == ()
-                else "fold")
+        mode = ("collect" if wide_keys and n <= 1
+                and tuple(value_shape) == () else "fold")
     elif mode == "collect" and tuple(value_shape) != ():
         _log.info("reduce_mode='collect' takes scalar values only; the "
                   "vector-valued reduce uses the fold engine")
         mode = "fold"
-    if mode == "collect":
+    if mode == "collect" and n > 1:
+        _log.info("reduce_mode='collect' is single-device; the %d-shard "
+                  "mesh engine hash-partitions instead", n)
+    elif mode == "collect":
         from map_oxidize_tpu_torch.runtime.host_reduce import (
             HostCollectReduceEngine,
         )
@@ -133,8 +156,14 @@ def make_engine(config: JobConfig, reducer, value_shape=(),
                                        value_dtype=value_dtype,
                                        transport=transport,
                                        **collect_engine_kw(config))
-    return DeviceReduceEngine(config, reducer, value_shape=value_shape,
-                              value_dtype=value_dtype)
+    if n <= 1:
+        return DeviceReduceEngine(config, reducer, value_shape=value_shape,
+                                  value_dtype=value_dtype)
+    from map_oxidize_tpu_torch.parallel.engine import ShardedReduceEngine
+
+    return ShardedReduceEngine(config, reducer, value_shape=value_shape,
+                               value_dtype=value_dtype,
+                               exchange_method=exchange_method)
 
 
 class LazyCounts(Mapping):
@@ -307,7 +336,8 @@ def _run_wordcount_body(config: JobConfig, obs: Obs, mapper: Mapper,
     engine = make_engine(config, reducer, value_shape=mapper.value_shape,
                          value_dtype=mapper.value_dtype,
                          wide_keys=getattr(mapper, "wide_keys", False),
-                         transport=transport)
+                         transport=transport,
+                         exchange_method=solved_exchange(config, obs))
     engine.obs = obs
     collect = isinstance(engine, HostCollectReduceEngine)
     if collect:
@@ -320,11 +350,11 @@ def _run_wordcount_body(config: JobConfig, obs: Obs, mapper: Mapper,
     do_combine = (config.push_combine != "off"
                   and (config.push_combine == "on" or push_mode)
                   and reducer.combine in COMBINABLE)
-    # the data-plane audit over virtual hash partitions (one device):
-    # conservation, skew, reduction
+    # the data-plane audit over the engine's hash partitions (virtual ones
+    # on one device): conservation, skew, reduction
     dp = obs.ensure_dataplane(
-        1, conserves=(reducer.combine == "sum"
-                      and getattr(mapper, "conserves_counts", True)))
+        engine.S, conserves=(reducer.combine == "sum"
+                             and getattr(mapper, "conserves_counts", True)))
 
     # hash-only map (JAX runtime/driver.py:351-372): with the host collect
     # the map needs neither per-chunk combining nor key strings (the one
@@ -532,21 +562,34 @@ def _run_inverted_index_body(config: JobConfig, obs: Obs
     )
 
     metrics = obs.registry
-    _require_single_device(config)
     mapper = make_inverted_index(config.tokenizer, config.use_native)
     transport = solved_transport(config, obs)
     push_mode = transport == "pipelined"
-    engine = CollectEngine(config, transport=transport,
-                           **collect_engine_kw(config))
-    if engine.device is None:
-        # a host sort touches no device, but the job still runs on the
-        # backend it asked for: a missing card raises here too
-        pick_device(config.backend)
+    if effective_num_shards(config) > 1:
+        from map_oxidize_tpu_torch.parallel.collect import (
+            ShardedCollectEngine,
+        )
+
+        if config.collect_sort != "auto":
+            _log.info("collect_sort=%r applies to the single-device "
+                      "engine only; the sharded path sorts per shard on "
+                      "the device", config.collect_sort)
+        engine = ShardedCollectEngine(
+            config, transport=transport,
+            exchange_method=solved_exchange(config, obs),
+            **collect_engine_kw(config))
+    else:
+        engine = CollectEngine(config, transport=transport,
+                               **collect_engine_kw(config))
+        if engine.device is None:
+            # a host sort touches no device, but the job still runs on
+            # the backend it asked for: a missing card raises here too
+            pick_device(config.backend)
     engine.obs = obs
     metrics.set("shuffle/transport", engine.transport)
-    # data-plane audit: (term, doc) pairs must cross the collect (and any
-    # spill round-trip) as an unchanged multiset
-    dp = obs.ensure_dataplane(1)
+    # data-plane audit: (term, doc) pairs must cross the collect shuffle
+    # (and any spill round-trip) as an unchanged multiset
+    dp = obs.ensure_dataplane(engine.S)
     dictionary = HashDictionary()
     records_in = 0
     n_chunks = 0
@@ -622,7 +665,8 @@ def _run_inverted_index_body(config: JobConfig, obs: Obs
             # (engine.finalize_csr); the device sort keeps the
             # sorted-pairs path
             csr = None
-            if (engine.sort_mode == "host" and config.use_native
+            if (engine.sort_mode == "host"
+                    and config.use_native
                     and len(dictionary) <= max(engine.rows_fed // 8, 1)):
                 d = dictionary.materialized()
                 uniq = np.sort(np.fromiter(d.keys(), np.uint64,
@@ -772,9 +816,6 @@ def _run_kmeans_body(config: JobConfig, obs: Obs,
     from map_oxidize_tpu_torch.api import SumReducer
     from map_oxidize_tpu_torch.workloads import kmeans as km
 
-    if config.num_shards > 1:
-        raise NotImplementedError(
-            "sharded k-means is not ported yet (ROADMAP A7: sharded engines)")
     metrics = obs.registry
     pts = np.load(config.input_path, mmap_mode="r")
     if pts.ndim != 2:
@@ -818,8 +859,13 @@ def _run_kmeans_body(config: JobConfig, obs: Obs,
                 mode = stored
     else:
         mode = "stream"
+    # the device fits split the points (or each streamed chunk) over the
+    # mesh: the shard count changes the float accumulation order, so it is
+    # checkpoint identity (JAX runtime/driver.py:908-914)
+    n_shards = (effective_num_shards(config)
+                if mode in ("device", "stream_device") else 1)
     metrics.set("kmeans_mode", mode)
-    metrics.set("kmeans_shards", 1)
+    metrics.set("kmeans_shards", n_shards)
 
     # --- checkpoint/resume: the iteration boundary is k-means's natural
     # materialization barrier (centroids fully summarize progress)
@@ -829,7 +875,8 @@ def _run_kmeans_body(config: JobConfig, obs: Obs,
         store = CheckpointStore(
             config.checkpoint_dir,
             CheckpointStore.job_meta(config, "kmeans", extra={
-                **identity, "kmeans_mode": mode, "kmeans_shards": 1}))
+                **identity, "kmeans_mode": mode,
+                "kmeans_shards": n_shards}))
         snap = store.load_snapshot()
         if snap is not None:
             state, _d, start_iter, _n, _x = snap
@@ -861,10 +908,21 @@ def _run_kmeans_body(config: JobConfig, obs: Obs,
                          start_iter, config.kmeans_iters)
         elif remaining > 0 and mode == "device":
             timings: dict = {}
-            centroids = km.kmeans_fit_device(
-                pts, centroids, iters=remaining,
-                device=pick_device(config.backend), on_iter=on_iter,
-                timings=timings, precision=config.kmeans_precision)
+            if n_shards > 1:
+                from map_oxidize_tpu_torch.parallel.kmeans import (
+                    kmeans_fit_sharded,
+                )
+
+                centroids = kmeans_fit_sharded(
+                    pts, centroids, iters=remaining,
+                    num_shards=config.num_shards, backend=config.backend,
+                    on_iter=on_iter, timings=timings,
+                    precision=config.kmeans_precision)
+            else:
+                centroids = km.kmeans_fit_device(
+                    pts, centroids, iters=remaining,
+                    device=pick_device(config.backend), on_iter=on_iter,
+                    timings=timings, precision=config.kmeans_precision)
             for tk, tv in timings.items():
                 metrics.set(f"time/{tk}", round(tv, 4))
         elif remaining > 0 and mode == "stream_device":
@@ -873,14 +931,26 @@ def _run_kmeans_body(config: JobConfig, obs: Obs,
             chunk_rows = max(1, config.chunk_bytes
                              // (4 * (int(d) + 2 * config.kmeans_k)))
             timings = {}
-            centroids = km.kmeans_fit_streamed_device(
-                config.input_path, centroids, iters=remaining,
-                chunk_rows=chunk_rows, device=pick_device(config.backend),
-                precision=config.kmeans_precision, timings=timings,
-                on_iter=on_iter,
-                pipeline_depth=obs.knob("pipeline_depth",
-                                        config.pipeline_depth),
-                dispatch_batch=config.dispatch_batch)
+            kw = dict(iters=remaining, chunk_rows=chunk_rows,
+                      precision=config.kmeans_precision, timings=timings,
+                      on_iter=on_iter,
+                      pipeline_depth=obs.knob("pipeline_depth",
+                                              config.pipeline_depth),
+                      dispatch_batch=config.dispatch_batch)
+            if n_shards > 1:
+                # streaming x sharding: each chunk splits over the mesh
+                from map_oxidize_tpu_torch.parallel.kmeans import (
+                    kmeans_fit_streamed,
+                )
+
+                centroids = kmeans_fit_streamed(
+                    config.input_path, centroids,
+                    num_shards=config.num_shards, backend=config.backend,
+                    **kw)
+            else:
+                centroids = km.kmeans_fit_streamed_device(
+                    config.input_path, centroids,
+                    device=pick_device(config.backend), **kw)
             # B and its inputs are already the dispatch/* gauges
             metrics.set("time/feed_s", round(timings["feed_s"], 4))
             if "overlap_ratio" in timings:
@@ -976,16 +1046,27 @@ def _run_distinct_body(config: JobConfig, obs: Obs) -> DistinctResult:
         write_distinct_output,
     )
 
+    from map_oxidize_tpu_torch.api import MaxReducer
+
     metrics = obs.registry
-    _require_single_device(config)
-    # the fold is host-side, but the job runs on the backend it asked
-    # for: a missing card raises here too
-    pick_device(config.backend)
     p = config.hll_precision
     m = 1 << p
     use_native = _rt.resolve_mapper(config, "distinct") == "native"
     mapper = DistinctMapper(config.tokenizer, use_native, p)
+    # one shard: the (bucket, max-rank) rows fold straight into a dense
+    # host register array.  The sharded engine keeps the device fold
+    # (JAX runtime/driver.py:1181-1186)
+    engine = None
     host_regs = np.zeros(m, np.int32)
+    if effective_num_shards(config) > 1:
+        engine = make_engine(config, MaxReducer(), value_shape=(),
+                             value_dtype=np.int32)
+        engine.obs = obs
+        engine.hint_total_keys(m)
+    else:
+        # the fold is host-side, but the job runs on the backend it
+        # asked for: a missing card raises here too
+        pick_device(config.backend)
     records_in = 0
     n_chunks = 0
 
@@ -994,10 +1075,14 @@ def _run_distinct_body(config: JobConfig, obs: Obs) -> DistinctResult:
         records_in += out.records_in
         n_chunks += 1
         t0 = time.perf_counter()
-        # lo is flatnonzero output — unique per chunk, so fancy-index max
-        # is exact
-        idx = out.lo.astype(np.int64)
-        host_regs[idx] = np.maximum(host_regs[idx], out.values)
+        if engine is not None:
+            with obs.feed_span(rows=len(out)):
+                engine.feed(out)
+        else:
+            # lo is flatnonzero output — unique per chunk, so fancy-index
+            # max is exact
+            idx = out.lo.astype(np.int64)
+            host_regs[idx] = np.maximum(host_regs[idx], out.values)
         metrics.observe("feed_block_ms", (time.perf_counter() - t0) * 1e3)
         if obs.heartbeat is not None:
             obs.heartbeat.update(rows=out.records_in, bytes_done=next_off)
@@ -1050,7 +1135,13 @@ def _run_distinct_body(config: JobConfig, obs: Obs) -> DistinctResult:
                     ckpt.save(gidx, out, offsets.get(gidx, -1))
 
     with obs.phase("finalize"):
-        regs = host_regs
+        if engine is not None:
+            hi, lo, vals, _n = engine.finalize()
+            live = hi != np.uint32(SENTINEL)  # the engine pads with it
+            regs = np.zeros(m, np.int32)
+            regs[lo[live].astype(np.int64)] = vals[live]
+        else:
+            regs = host_regs
         estimate = hll_estimate(regs)
 
     with obs.phase("write"):

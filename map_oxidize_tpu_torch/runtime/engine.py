@@ -130,6 +130,9 @@ class StreamingEngineBase(abc.ABC):
     NOT an error; only actual drops are).
     """
 
+    #: shards: one (the sharded engine sets the mesh's)
+    S = 1
+
     feed_batch: int
     capacity: int
     max_capacity: int

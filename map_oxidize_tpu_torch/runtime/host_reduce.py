@@ -47,6 +47,9 @@ class HostCollectReduceEngine:
     #: shared scheme — see runtime/spill.py for the partition rationale).
     SPILL_BUCKETS_BITS = 8
 
+    #: shards: one (the sharded engines set the mesh's)
+    S = 1
+
     def __init__(self, config: JobConfig, reducer: Reducer,
                  value_shape: tuple = (), value_dtype=np.int32,
                  max_rows: int = 1 << 28, transport: str | None = None):

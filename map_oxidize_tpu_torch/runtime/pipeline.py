@@ -337,19 +337,25 @@ class StagingRing:
     def stage(self, seq: int, src: np.ndarray) -> int:
         """Fill slot ``seq % slots`` with the rows of ``src`` and, on CUDA,
         start their copy to the device.  Returns the slot."""
+        return self.stage_parts(seq, [src])
+
+    def stage_parts(self, seq: int, parts) -> int:
+        """:meth:`stage` of the rows of several host arrays, one after
+        another (a shard's slices of the chunks of a block)."""
         slot = seq % self.slots
         if seq >= self.slots and self._released_seq[slot] != seq - self.slots:
             raise RuntimeError(
                 f"staging ring overrun: block {seq} would refill slot {slot} "
                 f"before block {seq - self.slots} was released")
-        m = src.shape[0]
         if self.cuda:
             self._released[slot].synchronize()
         host = self._host[slot]
-        if self._f32 is None:
-            np.copyto(host.numpy()[:m], src)
-        else:
-            np.copyto(self._f32[:m], src)
+        fill = host.numpy() if self._f32 is None else self._f32
+        m = 0
+        for src in parts:
+            np.copyto(fill[m:m + src.shape[0]], src)
+            m += src.shape[0]
+        if self._f32 is not None:
             host[:m].copy_(torch.from_numpy(self._f32[:m]))
         if self.cuda:
             with torch.cuda.stream(self._copy_stream):

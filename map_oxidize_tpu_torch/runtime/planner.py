@@ -23,9 +23,9 @@ predicted wall; a warm run predicts the wall from the store's workload
 curve, in the attribution's bucket names, and ``obs/plan.py`` scores it
 at finish.  The planner never mutates the config: solved values apply
 through ``Obs.knob()`` (pipeline depth, shuffle transport) and through
-the dispatch resolver's own reading of the same curve (B).  The port has
-no exchange yet (one device), so ``exchange_collective`` records the
-chooser's decision at one shard: its default, ``all_to_all``.
+the dispatch resolver's own reading of the same curve (B).  The
+``exchange_collective`` decision applies to the sharded engines
+(``num_shards > 1``; ``runtime/driver.py`` ``solved_exchange``).
 """
 
 from __future__ import annotations
@@ -340,11 +340,13 @@ def build_plan(config, workload: str, calib_prior=None,
 
     # exchange_collective — the store-driven collective choice at this
     # job's payload bucket, refusing onto the default with a named reason
-    # on cold, thin or extrapolated evidence.  The port runs one shard
-    # (the sharded engines are ROADMAP A7), so nothing applies it yet;
-    # the coverage plane rides along: which (collective, bucket) cells
-    # this job needs vs has
-    n_shards = max(int(getattr(config, "num_shards", 0) or 0), 1)
+    # on cold, thin or extrapolated evidence; applied through Obs.knob at
+    # every sharded engine's construction (runtime.driver.
+    # solved_exchange).  The coverage plane rides along: which
+    # (collective, bucket) cells this job needs vs has
+    n_shards = int(getattr(config, "num_shards", 0) or 0)
+    if n_shards <= 0:
+        n_shards = int(ident.get("device_count") or 0) or 1
     cap_rows, row_bytes = _calib.exchange_shape(
         n_shards, int(getattr(config, "batch_size", 1) or 1),
         collect=workload in _COLLECT_WORKLOADS)

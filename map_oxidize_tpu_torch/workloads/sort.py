@@ -9,7 +9,9 @@ the rows go through the pair collect with the full unsigned (key,
 payload) order (:class:`~map_oxidize_tpu_torch.runtime.collect.
 CollectEngine` with ``pair_order='lex'``), sorted on the host or on the
 card, and are written in that order.  The range splitters serve the
-sharded sort (ROADMAP A7/A8); on one device they are not computed.
+sharded sort (:class:`~map_oxidize_tpu_torch.parallel.collect.
+ShardedCollectEngine`, ``num_shards > 1``); on one device they are not
+computed.
 
 Record model: fixed-width binary (u64 key, u64 payload) rows — a
 ``.npy`` array of shape ``(n, 2)`` (column 0 the key) or ``(n,)``

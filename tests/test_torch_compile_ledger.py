@@ -223,12 +223,35 @@ def test_stall_detector_matches_jax():
 
 
 def test_every_program_declares_a_cost():
-    """The programs the JAX package observes on one device each have a
-    cost row; all but the copy ``engine/grow_concat`` count FLOPs."""
+    """The programs the JAX package observes, on one device and on the
+    mesh, each have a cost row; all but the copies and fills
+    (``engine/grow_concat``, ``shuffle/grow``, ``shuffle/init_acc``,
+    ``collect/grow``) count FLOPs."""
     import torch
+
+    from map_oxidize_tpu_torch.parallel.mesh import make_mesh
 
     a = torch.zeros(64, dtype=torch.int64)
     v = torch.zeros(64, dtype=torch.int32)
+    m = make_mesh(2, "cpu")
+    a2, v2 = [a, a], [v, v]
+    sharded = {
+        "shuffle/merge": ((m, a2, v2, [a[0]] * 2, a2, v2),
+                          {"cap": 8, "combine": "sum"}),
+        "shuffle/top_k": ((m, a2, v2), {"k_local": 8, "k_final": 16}),
+        "shuffle/grow": ((m, a2, v2, 16, "sum"), {}),
+        "shuffle/init_acc": ((m, 64, (), "int32", "sum"), {}),
+        "collect/route_append": ((m, a2, a2, [a[0]] * 2, a2, a2),
+                                 {"cap": 8, "splitters": None,
+                                  "method": "all_to_all"}),
+        "collect/grow": ((m, a2, a2, 16), {}),
+        "collect/sort_sharded": ((m, a2, a2), {}),
+        "kmeans/fit_sharded": ((m, [torch.zeros(50, 3)] * 2,
+                                [torch.zeros(4, 3)] * 2, 4, 5), {}),
+        "device_map/tokenize_group": (
+            ([torch.zeros(256, dtype=torch.uint8)] * 2,),
+            {"max_tokens": 129, "out_keys": 128, "fetch_keys": 16}),
+    }
     args = {
         "engine/merge": (a, v, a[0], a[:16], v[:16]),
         "engine/merge_packed": (a, v, a[0], torch.zeros((3, 16),
@@ -247,8 +270,16 @@ def test_every_program_declares_a_cost():
         "kmeans/stream_step": (torch.zeros(100, 3), torch.zeros(4, 3),
                                torch.zeros(4, 4), 50),
     }
-    assert set(args) == set(led.COSTS)
-    for name, a_ in args.items():
-        flops, nbytes = led._cost_of(name, a_, {})
-        assert nbytes > 0
-        assert (flops is None) == (name == "engine/grow_concat")
+    assert set(args) | set(sharded) == set(led.COSTS)
+    copies = {"engine/grow_concat", "shuffle/grow", "shuffle/init_acc",
+              "collect/grow"}
+    calls = {name: (a_, {}) for name, a_ in args.items()}
+    calls.update(sharded)
+    # the sharded stream step shares its name with the one-device step
+    calls["kmeans/stream_step (sharded)"] = (
+        (m, [torch.zeros(50, 3)] * 2, [torch.zeros(4, 3)] * 2,
+         torch.zeros(4, 4), 25), {})
+    for name, (a_, kw) in calls.items():
+        flops, nbytes = led._cost_of(name.split(" ")[0], a_, kw)
+        assert nbytes > 0, name
+        assert (flops is None) == (name in copies), name

@@ -958,3 +958,85 @@ def test_a_collector_over_the_card_server_sees_its_kernel_launches(
         assert launches and launches[0] > 0
     finally:
         col.stop()
+
+
+# --- the sharded engines: 8 virtual slots on the card ---------------------
+
+
+def _blob_points(path, n=40_000, d=16, k=8, seed=0):
+    rng = np.random.default_rng(seed)
+    centres = rng.normal(0, 30, size=(k, d))
+    pts = (centres[rng.integers(0, k, size=n)]
+           + rng.normal(0, 0.5, (n, d))).astype(np.float32)
+    pts[:k] = centres
+    np.save(path, pts)
+    return pts
+
+
+def test_sharded_wordcount_on_the_card_equals_one_shard(cuda, tmp_path):
+    """An 8-shard word count on one card (8 virtual slots on cuda:0) writes
+    the one-shard run's bytes under both exchange wire programs, through
+    the native and the device map (one tokenize launch per shard per
+    group)."""
+    from map_oxidize_tpu_torch.ops.device_tokenize import tokenize_compact
+
+    rng = np.random.default_rng(1)
+    words = [b"w%dq" % i for i in range(3000)]
+    z = rng.zipf(1.2, size=(20_000, 10)) % len(words)
+    inp = tmp_path / "c.txt"
+    inp.write_bytes(b"\n".join(b" ".join(words[j] for j in row)
+                               for row in z) + b"\n")
+    kw = dict(input_path=str(inp), chunk_bytes=1 << 16, batch_size=1 << 14)
+    outs = {}
+    for tag, extra in (("one", dict(num_shards=1)),
+                       ("a2a", dict(num_shards=8)),
+                       ("ag", dict(num_shards=8,
+                                   exchange_collective="all_gather")),
+                       ("dev", dict(num_shards=8, mapper="device",
+                                    device_chunk_keys=1 << 14))):
+        out = tmp_path / f"{tag}.txt"
+        before = tokenize_compact.launches
+        r = run_job(JobConfig(output_path=str(out), **kw, **extra),
+                    "wordcount")
+        outs[tag] = out.read_bytes()
+        if extra.get("num_shards", 1) > 1:
+            assert r.metrics["accumulator_device"] == "cuda:0"
+            assert r.metrics["shuffle/exchanges"] >= 1
+        if tag == "dev":
+            groups = -(-r.metrics["chunks"] // 8)
+            assert tokenize_compact.launches - before == 8 * groups
+    assert outs["a2a"] == outs["one"]
+    assert outs["ag"] == outs["one"]
+    assert outs["dev"] == outs["one"]
+
+
+@pytest.mark.parametrize("mode", ["device", "stream_device"])
+def test_sharded_kmeans_on_the_card_matches_one_shard(cuda, tmp_path, mode):
+    """An 8-shard k-means on one card: the kernel runs once per shard per
+    iteration (or per chunk), the counts equal the one-shard fit's, the
+    centroids agree within 1e-5 * max|x|, and a second 8-shard run is
+    bit-equal (the psum adds the shard partials in shard order)."""
+    from map_oxidize_tpu_torch.workloads.kmeans import assign_points
+
+    path = tmp_path / "pts.npy"
+    pts = _blob_points(path)
+    kw = dict(input_path=str(path), output_path="", kmeans_k=8,
+              kmeans_iters=5)
+    kw.update(dict(mapper="device") if mode == "device" else
+              dict(kmeans_device_fit_bytes=64, chunk_bytes=1 << 18))
+    one = run_job(JobConfig(num_shards=1, **kw), "kmeans")
+    before = fused_assign_sum.launches
+    a = run_job(JobConfig(num_shards=8, **kw), "kmeans")
+    launches = fused_assign_sum.launches - before
+    b = run_job(JobConfig(num_shards=8, **kw), "kmeans")
+    assert a.metrics["kmeans_shards"] == 8
+    if mode == "device":
+        assert launches == 8 * 5
+    else:
+        assert launches >= 8 * 5
+    assert a.centroids.tobytes() == b.centroids.tobytes()
+    np.testing.assert_array_equal(
+        np.bincount(assign_points(pts, a.centroids), minlength=8),
+        np.bincount(assign_points(pts, one.centroids), minlength=8))
+    np.testing.assert_allclose(a.centroids, one.centroids, rtol=0,
+                               atol=1e-5 * float(np.abs(pts).max()))

@@ -118,20 +118,27 @@ def test_the_dataflow_jobs_demand_the_card(monkeypatch, tmp_path, workload,
 @pytest.mark.parametrize("num_shards", [2, 8])
 def test_sharded_runs_raise_naming_the_roadmap_item(tmp_path, workload,
                                                     num_shards):
+    """Every workload at ``num_shards > 1`` runs on the sharded engines
+    (ROADMAP A7) on the CPU and writes its one-shard bytes."""
     inp = tmp_path / "c.txt"
-    inp.write_bytes(b"a b a\n")
+    inp.write_bytes(b"a b a\nc a b d\n" * 50)
     recs = tmp_path / "r.npy"
-    np.save(recs, np.array([[3, 1], [1, 2]], np.uint64))
+    np.save(recs, np.array([[3, 1], [1, 2], [3, 0], [7, 5]], np.uint64))
     runs = [(wl, inp, {}) for wl in (workload, "invertedindex", "distinct")]
     runs.append((workload, inp, {"mapper": "device"}))
     runs += [("sort", recs, {}), ("join", recs, {"join_input_path":
                                                  str(recs)}),
              ("sessionize", recs, {})]
-    for wl, path, kw in runs:
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            run_job(JobConfig(input_path=str(path), output_path="",
-                              backend="cpu", num_shards=num_shards, **kw),
-                    wl)
+    for i, (wl, path, kw) in enumerate(runs):
+        outs = []
+        for S in (1, num_shards):
+            out = tmp_path / f"{i}_{S}.out"
+            r = run_job(JobConfig(input_path=str(path),
+                                  output_path=str(out), backend="cpu",
+                                  num_shards=S, **kw), wl)
+            assert r.metrics["records_in"] > 0
+            outs.append(out.read_bytes())
+        assert outs[0] == outs[1], (wl, kw)
 
 
 @pytest.mark.parametrize("workload", ["wordcount", "bigram"])

@@ -457,7 +457,8 @@ FLAGS = ["--metrics-out", "--trace-out", "--trace-dir", "--crash-dir",
          "--calib-min-samples", "--hbm-sample-interval", "--stall-factor",
          "--ledger-dir", "--obs-port", "--obs-sample-interval",
          "--obs-spool", "--slo-rules", "--incident-dir", "--profile-dir",
-         "--host-sample-hz", "--no-native"]
+         "--host-sample-hz", "--no-native", "--num-shards",
+         "--exchange-collective"]
 
 
 @pytest.mark.parametrize("flag", FLAGS)

@@ -342,7 +342,6 @@ def test_flame_over_a_capture_bundle(docs, pkg):
 
 @pytest.mark.parametrize("argv,item", [
     (["merge", "TRACE"], "ROADMAP A8"),
-    (["calib", "probe", "STORE"], "ROADMAP A7"),
     (["critpath", "TRACE"], "ROADMAP A8"),
     (["critpath", "TRACE.proc0"], "ROADMAP A8"),
     (["critpath", "MERGED"], "ROADMAP A8"),
@@ -361,6 +360,54 @@ def test_multi_process_parts_exit_2_naming_their_item(tmp_path, argv, item):
     assert rc == 2 and out == ""
     assert len(err.splitlines()) == 1 and item in err
     assert not (tmp_path / "calib").exists()
+
+
+def test_calib_probe_round_trip_fills_a_selectable_curve(tmp_path):
+    """``obs calib probe`` sweeps both exchange wire programs, the psum
+    and the top-k gather on an 8-slot CPU mesh, merges the rows with
+    ``source=probe``, and one probe is evidence enough for the chooser
+    (JAX ``tests/test_calib_probe.py:290``); the report and the JSON
+    summary have the JAX package's shape."""
+    from map_oxidize_tpu.obs.probe import render_probe as jax_render
+    from map_oxidize_tpu_torch.obs import calib
+    from map_oxidize_tpu_torch.obs.probe import render_probe
+    from map_oxidize_tpu_torch.runtime.planner import choose_collective
+
+    store_dir = tmp_path / "calib"
+    rc, out, err = _run(port_main, ["calib", "probe", str(store_dir),
+                                    "--num-shards", "8", "--backend", "cpu",
+                                    "--buckets", "16KB", "32KB", "--reps",
+                                    "3", "--json"])
+    assert rc == 0, err
+    summary = json.loads(out)
+    assert summary["schema"] == "moxt-calib-probe-v1"
+    assert summary["num_shards"] == 8 and summary["rows_merged"] > 0
+    assert summary["identity"]["platform"] == "cpu"
+    progs = {(c["collective"], c["program"]) for c in summary["cells"]}
+    assert progs == {("all_to_all", "shuffle/merge"),
+                     ("all_gather", "shuffle/merge"),
+                     ("psum", "shuffle/merge"),
+                     ("all_gather", "shuffle/top_k")}
+    assert render_probe(summary) == jax_render(summary)
+    rc, text, _ = _run(port_main, ["calib", "probe", str(tmp_path / "c2"),
+                                   "--num-shards", "8", "--backend", "cpu",
+                                   "--buckets", "16KB", "--reps", "3"])
+    assert rc == 0 and text.startswith("calibration probe: ")
+    assert text.splitlines()[1] == jax_render(summary).splitlines()[1]
+    store = calib.CalibStore.load(str(store_dir))
+    assert store.doc["runs"] == 1
+    assert all(r["source"] == "probe" for r in store.doc["comms"].values())
+    ident = summary["identity"]
+    cell = next(c for c in summary["cells"]
+                if c["program"] == "shuffle/merge")
+    cap = cell["payload_bytes"] // (8 * 8 * (8 + 4))
+    d = choose_collective(store, ident, 8, cap, 4)
+    assert d["provenance"] == "curve", d["reason"]
+    assert d["evidence"][d["method"]]["by_source"].get("probe", 0) >= 3
+    rep = calib.coverage_report(
+        store, ident, [{"collective": c, "bucket": d["bucket"]}
+                       for c in ("all_to_all", "all_gather")])
+    assert rep["coverage_pct"] == 100.0
 
 
 # --- no jax, no torch ---------------------------------------------------------------

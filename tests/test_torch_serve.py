@@ -39,10 +39,10 @@ from map_oxidize_tpu_torch.serve.scheduler import (
 )
 
 #: JobConfig fields of the JAX package the port has not got yet: the
-#: sharded exchange (ROADMAP A7) and the multi-process drivers (A8)
+#: multi-process drivers (ROADMAP A8)
 JAX_ONLY_FIELDS = {"dist_coordinator", "dist_num_processes",
-                   "dist_process_id", "exchange_collective",
-                   "remote_stage_dir", "remote_stage_timeout_s"}
+                   "dist_process_id", "remote_stage_dir",
+                   "remote_stage_timeout_s"}
 
 
 def _write_corpus(path, lines=200, words=None):
@@ -283,7 +283,7 @@ def test_submit_validation_errors(tmp_path):
         for name in ("metrics_out", "dist_coordinator", "obs_port"):
             with pytest.raises(ValueError, match="reserved"):
                 sched.submit("wordcount", corpus, overrides={name: "x"})
-        for name in ("nope", "exchange_collective", "remote_stage_dir"):
+        for name in ("nope", "remote_stage_timeout_s", "remote_stage_dir"):
             with pytest.raises(ValueError, match="unknown config"):
                 sched.submit("wordcount", corpus, overrides={name: "x"})
         with pytest.raises(ValueError):
@@ -610,8 +610,9 @@ def test_live_job_rows_carry_the_compile_overlay(tmp_path):
 
 def test_a_cuda_job_on_a_host_without_a_card_fails_named(servers, clients):
     """``backend='cuda'`` (the default) on a host with no card fails in the
-    driver, and its row names the error: nothing re-runs on the CPU.  So
-    does ``num_shards > 1``, naming the unported sharded engines."""
+    driver, and its row names the error: nothing re-runs on the CPU.  A
+    served ``num_shards=2`` word count on the CPU runs on the sharded
+    engine and writes ``run_job``'s bytes."""
     _srvs, tmp = servers
     c = clients["port"]
     corpus = _write_corpus(tmp / "nocard.txt", lines=5)
@@ -620,10 +621,19 @@ def test_a_cuda_job_on_a_host_without_a_card_fails_named(servers, clients):
     assert row["state"] == "failed"
     assert "no CUDA device" in row["reason"]
     assert os.listdir(row["artifacts"]["crash_dir"])
-    row = c.wait(c.submit("wordcount", corpus, config=dict(
+    out = str(tmp / "sharded_served.txt")
+    row = c.wait(c.submit("wordcount", corpus, output=out, config=dict(
         OVERRIDES["port"], num_shards=2))["id"], timeout_s=60)
-    assert row["state"] == "failed"
-    assert "NotImplementedError" in row["reason"] and "A7" in row["reason"]
+    assert row["state"] == "done", row.get("reason")
+    want = tmp / "sharded_direct.txt"
+    from map_oxidize_tpu_torch.runtime import run_job
+
+    r = run_job(JobConfig(input_path=corpus, output_path=str(want),
+                          **dict(OVERRIDES["port"], num_shards=2)),
+                "wordcount")
+    assert r.metrics["shuffle/exchanges"] >= 1
+    with open(out, "rb") as f:
+        assert f.read() == want.read_bytes()
 
 
 def test_jobs_table_renders_in_the_jax_panel(servers, clients):
@@ -658,7 +668,7 @@ def test_http_submit_validation(servers, clients):
         c.submit("wordcount", str(tmp / "warm.txt"), config={"obs_port": 5})
     with pytest.raises(ServeError, match="unknown config"):
         c.submit("wordcount", str(tmp / "warm.txt"),
-                 config={"exchange_collective": "auto"})
+                 config={"remote_stage_dir": "x"})
     with pytest.raises(ServeError, match="unknown job"):
         c.cancel("job-9999")
     rejected = c.submit("wordcount", str(tmp / "nope.txt"))
