@@ -62,15 +62,16 @@ Phases (any failure exits non-zero, before the result line):
 7. stream    the streamed k-means: seeded blobs, n=2^24, d=64, k=512 (a
              4 GiB ``.npy``), ``run_job`` with ``mapper='auto'`` and no fit
              budget set, which must route to ``stream_device``, with B
-             pinned to 1; 3 iterations in each precision (the pinned
+             pinned to 1; 2 iterations in each precision (3 before
+             phase 16 joined the script; the pinned
              reference of phase 12), launch counts reset just before
              and read just after (one launch per chunk per iteration),
              ms/iter, host-to-device bytes and GB/s, ``feed_wait_s`` and
              ``overlap_ratio``, the ``attrib/*`` buckets and
              ``device/compute_ms``, the ``iterate`` phase agreeing with the
              ms/iter within 10%; three stager schedules in turns (depth
-             2 with B=1 as counted, the serial depth 1, and B=8; 2
-             iterations each, two rounds), bit-equal, with their ms/iter;
+             2 with B=1 as counted, the serial depth 1, and B=8; one
+             iteration each, two rounds), bit-equal, with their ms/iter;
              the kernel against its plain version at the chunk shapes; a
              ``torch.profiler`` window over one iteration (device busy,
              kernel and copy shares, the kernel's device time per chunk
@@ -93,11 +94,11 @@ Phases (any failure exits non-zero, before the result line):
              error; then the ``trace_dir`` fit once more, its trace's
              contents logged;
 9. collect   the collect route on phase 5's corpus: bigram on its first
-             32 MB through ``mapper='auto'`` (the host collect, hash-only,
+             16 MB through ``mapper='auto'`` (the host collect, hash-only,
              strings by the native rescan) and ``reduce_mode='fold'`` on
              the card (``key_capacity`` above the distinct count), the two
-             ``final_result.txt`` byte-identical; the inverted index on the
-             whole corpus with the host sort (``auto``), the card sort (the
+             ``final_result.txt`` byte-identical; the inverted index on
+             its first 128 MB with the host sort (``auto``), the card sort (the
              pairs on the card, one sort timed alone with CUDA events,
              then three warm sorts of the same block) and a forced
              demotion to disk buckets, the three postings files
@@ -114,7 +115,7 @@ Phases (any failure exits non-zero, before the result line):
              the host sort, the card sort and a forced demotion to disk
              buckets (``collect_max_rows`` at a third of the rows,
              ``hybrid``), the three outputs byte-identical and equal to
-             ``sort_model``; join of 2^23 x 2^23 rows over 2^23 keys with
+             ``sort_model``; join of 2^22 x 2^22 rows over 2^22 keys with
              both sorts, equal to ``join_model``; sessionize of 2^24 events
              over 2^20 keys (gap 3600) with the card sort, equal to
              ``sessionize_model``.  For each run rows/s over the job, its
@@ -126,7 +127,7 @@ Phases (any failure exits non-zero, before the result line):
              ``final_result.txt`` byte-identical to phase 5's native run,
              words/s, ``attrib/*`` and a ``torch.profiler`` window over a
              3-chunk prefix (device busy share, the host-to-device copies'
-             GB/s); bigram with ``mapper='device'`` on phase 9's 32 MB
+             GB/s); bigram with ``mapper='device'`` on phase 9's 16 MB
              prefix as one chunk (``device_chunk_keys`` reckoned from phase
              9's distinct bigrams), byte-identical to the native bigram at
              the same chunking; a device-map word count in 8 MiB chunks
@@ -220,6 +221,27 @@ Phases (any failure exits non-zero, before the result line):
              prints its wall, ``attrib/*`` split, ``shuffle/*`` bytes,
              comm rows, the exchange's and the fold's device time (CUDA
              events around each call) and both kernels' launches.
+16. dist     the multi-process drivers (ROADMAP A8) on one card: each run
+             starts two CLI processes (``python -m map_oxidize_tpu_torch
+             ... --num-shards 8 --dist-coordinator 127.0.0.1:<free port>
+             --dist-processes 2 --dist-process-id i``, through a wrapper
+             that prints the process's kernel launches, Gloo bytes and
+             peak device memory), each with 4 virtual slots on
+             ``cuda:0``, the spawn retried once on a fresh port: phase
+             5's word count (the two ``.part`` files, concatenated and
+             sorted, byte-identical to phase 5's ``final_result.txt``;
+             the printed top-k phase 5's); phase 4's k-means in both
+             precisions (counts equal to phase 15's S=8 fit, centroids
+             within 1e-5 * max|x|, the two processes bit-equal, 10 x 4
+             ``kmeans_assign_sum`` launches each); phase 10's sort (the
+             parts, process-major, byte-identical to its card sort); the
+             remote-staged word count of the 32 MB prefix with process 1
+             SIGKILLed after its first committed manifest (process 0
+             claims and recovers it; the parts equal phase 15's bytes);
+             ``obs merge`` and ``obs critpath`` over the word count's
+             trace shards.  Each job's wall, words/s or rows/s beside
+             phase 15's, the ``comms`` bytes and each process's peak
+             device memory.
 
 Then one JSON line with every kernel, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Inputs are made from fixed
@@ -254,19 +276,20 @@ CHUNK_BYTES = 32 << 20  # JobConfig's default: 8 chunks of the corpus
 VOCAB = 1_000_000
 WC_KILL_AFTER = 3       # chunks mapped before the simulated kill
 KMEANS_KILL_AFTER = 4   # iterations run before the simulated kill
-STREAM_N, STREAM_K, STREAM_ITERS = 1 << 24, 512, 3
+STREAM_N, STREAM_K, STREAM_ITERS = 1 << 24, 512, 2
 OBS_N = 1 << 16         # the small fit of phase 8
-SCHEDULE_ITERS = 2      # iterations per run of the stager schedules
+SCHEDULE_ITERS = 1      # iterations per run of the stager schedules
 HOST_N, HOST_K = 1 << 20, 64               # the host-assign stream
 RESUME_N, RESUME_ITERS, RESUME_KILL_AFTER = 1 << 22, 5, 2
-BIGRAM_BYTES = 32 << 20   # the prefix both bigram runs of phase 9 take
+BIGRAM_BYTES = 16 << 20   # the prefix both bigram runs of phase 9 take
 BIGRAM_CHUNK = 8 << 20
+II_BYTES = 128 << 20        # the prefix of phase 9's three index runs
 II_MODEL_BYTES = 16 << 20  # the prefix held to inverted_index_model
 DISTINCT_PY_BYTES = 4 << 20  # the prefix the Python HLL map takes
 II_KILL_AFTER = 3
 TOKENIZE_REPEATS = 20     # launches on one chunk that must agree
 SORT_N = 1 << 25          # phase 10: records of the sort (512 MiB)
-JOIN_N, JOIN_KEYS = 1 << 23, 1 << 23
+JOIN_N, JOIN_KEYS = 1 << 22, 1 << 22
 SESS_N, SESS_KEYS, SESS_GAP = 1 << 24, 1 << 20, 3600
 SESS_SPAN = 86400         # timestamps over one day: ~16 events per key
 DEVMAP_SNAP_CHUNK = 8 << 20  # phase 11's killed run: 32 chunks, snapshots
@@ -1054,7 +1077,7 @@ def phase_wordcount(tmp: str, backend: str, path: str, wrappers) -> dict:
         f"(map+reduce {on['time/map+reduce_s']:.2f} s against "
         f"{m['time/map+reduce_s']:.2f} s)")
     runs["native_no_audit"] = {"metrics": m, "out": out}
-    return {"path": path, "runs": runs}
+    return {"path": path, "runs": runs, "top": want_top}
 
 
 def check_wordcount_documents(name: str, m: dict, m_out: str,
@@ -1801,6 +1824,8 @@ def phase_collect(tmp: str, backend: str, wc: dict, wrappers) -> dict:
 
     runs = [("host", {}), ("device", {"collect_sort": "device"}),
             ("demoted", {"shuffle_transport": "hybrid"})]
+    ii_path = prefix_file(path, os.path.join(tmp, "ii_corpus.txt"),
+                          II_BYTES)
     for name, kw in runs:
         o = os.path.join(tmp, f"postings_{name}.txt")
         if name == "demoted":
@@ -1808,7 +1833,7 @@ def phase_collect(tmp: str, backend: str, wc: dict, wrappers) -> dict:
                 "metrics"]["pairs"] // 3
         collect_mod.sort_pairs = timed_sort
         try:
-            r = run_job(JobConfig(input_path=path, output_path=o,
+            r = run_job(JobConfig(input_path=ii_path, output_path=o,
                                   backend=backend, chunk_bytes=CHUNK_BYTES,
                                   metrics=False, **kw), "invertedindex")
         finally:
@@ -3313,6 +3338,9 @@ def phase_sharded(tmp: str, backend: str, km: dict, wc: dict, stream: dict,
             pre[method] = read(o)
         require(pre["all_to_all"] == pre["all_gather"],
                 "all_gather and all_to_all wrote different bytes")
+        out["prefix"] = prefix
+        out["prefix_out"] = os.path.join(tmp,
+                                         "final_result_s8_all_to_all.txt")
         log("32 MB prefix: all_gather byte-identical to all_to_all")
 
         # phase 4's k-means at S=8, both precisions, twice
@@ -3338,6 +3366,7 @@ def phase_sharded(tmp: str, backend: str, km: dict, wc: dict, stream: dict,
                         "shard per iteration")
             require(cs[0].tobytes() == cs[1].tobytes(),
                     f"two S=8 {precision} fits differ")
+            out.setdefault("km_centroids", {})[precision] = cs[0]
             want = km["centroids"][precision]
             err = float(np.abs(cs[0] - want).max())
             require(err <= 1e-5 * scale,
@@ -3483,6 +3512,282 @@ def phase_sharded(tmp: str, backend: str, km: dict, wc: dict, stream: dict,
     return out
 
 
+DIST_PROCS = 2            # phase 16: processes, each with SHARDS/2 slots
+DIST_TIMEOUT_S = 600      # per process of one job
+REMOTE_TIMEOUT_S = 5.0    # the stage wait before a peer is declared dead
+REMOTE_KILL_AFTER = 1     # process 1's committed chunks before its SIGKILL
+
+#: one process of a multi-process job through the port's CLI ``main``; its
+#: last stdout line: the process's kernel launches, the bytes it sent over
+#: Gloo, its peak device memory and, for k-means, its centroids
+DIST_JOB = ("import json, os, signal, sys\n"
+            "import torch\n"
+            "from map_oxidize_tpu_torch.cli import main\n"
+            "from map_oxidize_tpu_torch.ops import kernel_launches\n"
+            "from map_oxidize_tpu_torch.parallel import distributed as D\n"
+            "from map_oxidize_tpu_torch.parallel.mesh import WIRE\n"
+            "got = {}\n"
+            "_run = D.run_distributed_job\n"
+            "def run(config, workload):\n"
+            "    got['r'] = _run(config, workload)\n"
+            "    return got['r']\n"
+            "D.run_distributed_job = run\n"
+            "kill = int(os.environ.get('MOXT_SMOKE_KILL_AFTER', '0'))\n"
+            "if kill and '--dist-process-id' in sys.argv and sys.argv[\n"
+            "        sys.argv.index('--dist-process-id') + 1] == '1':\n"
+            "    # a real SIGKILL mid-stage, after `kill` committed chunks\n"
+            "    from map_oxidize_tpu_torch.shuffle import remote as rm\n"
+            "    orig, n = rm.RemoteStage.append_chunk, [0]\n"
+            "    def bomb(self, *a, **k):\n"
+            "        orig(self, *a, **k)\n"
+            "        n[0] += 1\n"
+            "        if n[0] >= kill:\n"
+            "            os.kill(os.getpid(), signal.SIGKILL)\n"
+            "    rm.RemoteStage.append_chunk = bomb\n"
+            "rc = main(sys.argv[1:])\n"
+            "r = got.get('r')\n"
+            "c = getattr(r, 'centroids', None)\n"
+            "print(json.dumps({'launches': kernel_launches(),\n"
+            "    'wire_bytes': WIRE['bytes'], 'wire_calls': WIRE['calls'],\n"
+            "    'peak_bytes': torch.cuda.max_memory_allocated()\n"
+            "        if torch.cuda.is_initialized() else 0,\n"
+            "    'centroids': None if c is None else c.tobytes().hex()}),\n"
+            "    flush=True)\n"
+            "sys.exit(rc)\n")
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def dist_job(name: str, argv: list, env=None, expect=(0, 0)):
+    """One multi-process job: ``DIST_PROCS`` processes of ``DIST_JOB``
+    with ``argv`` plus the dist flags, the spawn retried once on a fresh
+    port.  Returns (per-process reports, per-process stdout, wall)."""
+    for attempt in range(2):
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", DIST_JOB, *argv, "--dist-coordinator",
+             f"127.0.0.1:{port}", "--dist-processes", str(DIST_PROCS),
+             "--dist-process-id", str(i)], env=env or port_env(),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for i in range(DIST_PROCS)]
+        outs = []
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=DIST_TIMEOUT_S))
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                outs.append(p.communicate())
+        wall = time.perf_counter() - t0
+        rcs = tuple(p.returncode for p in procs)
+        if rcs == tuple(expect):
+            break
+        log(f"{name}: exit codes {rcs} (attempt {attempt + 1}); stderr "
+            f"tails: {[e[-1500:] for _o, e in outs]}")
+        require(attempt == 0, f"{name}: exit codes {rcs}, expected {expect}")
+    reports, stdouts = [], []
+    for (o, _e), rc in zip(outs, rcs):
+        lines = o.strip().splitlines()
+        reports.append(json.loads(lines[-1]) if rc == 0 else {})
+        stdouts.append("\n".join(lines[:-1]) if rc == 0 else o)
+    return reports, stdouts, wall
+
+
+def dist_line(name: str, docs: list, reports: list, wall: float,
+              rate_unit: str) -> str:
+    """One multi-process job: its wall, its rate over the slowest
+    process's job time, the comms bytes and each process's Gloo bytes,
+    launches and peak device memory."""
+    recs = sum(d["gauges"].get("records_in", 0) for d in docs)
+    job = max(d["gauges"]["attrib/wall_ms"] for d in docs) / 1e3
+    comms = {k: v for k, v in docs[0]["counters"].items()
+             if k.startswith("comms/") and k.endswith("/bytes")}
+    return (f"{name}: wall {wall:.2f} s (process start included), job "
+            f"{job:.2f} s, {recs / job:.0f} {rate_unit}; comms bytes "
+            f"(process 0) {comms}; per process: Gloo bytes sent "
+            f"{[r.get('wire_bytes') for r in reports]}, launches "
+            f"{[r.get('launches') for r in reports]}, peak device memory "
+            f"{[r.get('peak_bytes') for r in reports]}")
+
+
+def phase_distributed(tmp: str, backend: str, km: dict, wc: dict,
+                      dataflow: dict, sharded: dict) -> dict:
+    """The multi-process drivers on one card (module docstring, phase
+    16): every job against its one-process phase, byte for byte (k-means:
+    counts equal, centroids within 1e-5 * max|x|, the processes
+    bit-equal)."""
+    from map_oxidize_tpu_torch.workloads.kmeans import assign_points
+
+    t_phase = time.perf_counter()
+    P, S = DIST_PROCS, SHARDS
+    out: dict = {"launches": {"kmeans_assign_sum": 0,
+                              "tokenize_compact": 0}, "rates": {}}
+
+    def docs_of(m_out: str) -> list:
+        return [json.load(open(f"{m_out}.proc{i}")) for i in range(P)]
+
+    def count(reports):
+        for r in reports:
+            for k, v in r["launches"].items():
+                out["launches"][k] += v
+
+    # --- phase 5's word count -----------------------------------------
+    o = os.path.join(tmp, "dist_wc.txt")
+    m_out = os.path.join(tmp, "dist_wc_metrics.json")
+    t_out = os.path.join(tmp, "dist_wc_trace.json")
+    reports, stdouts, wall = dist_job("wordcount P=2", [
+        "wordcount", wc["path"], "--num-shards", str(S), "--output", o,
+        "--top-k", "10", "--backend", backend, "--metrics-out", m_out,
+        "--trace-out", t_out, "-q"])
+    count(reports)
+    rows = []
+    for i in range(P):
+        rows.extend(read(f"{o}.part{i}of{P}").splitlines(keepends=True))
+    require(b"".join(sorted(rows)) == read(wc["runs"]["native"]["out"]),
+            "the 2-process word count's parts differ from phase 5's "
+            "final_result.txt")
+    del rows
+    want = "\n".join(f"{w.decode()}: {c}" for w, c in wc["top"])
+    for i, text in enumerate(stdouts):
+        require(text.strip().endswith(want), f"process {i} printed another "
+                f"top-10:\n{text[-800:]}")
+    docs = docs_of(m_out)
+    log(dist_line("wordcount P=2 x 4 slots", docs, reports, wall,
+                  "words/s"))
+    m8 = sharded["runs"]["wordcount S=8 all_to_all"]["metrics"]
+    rate = (sum(d["gauges"]["records_in"] for d in docs)
+            / (max(d["gauges"]["attrib/wall_ms"] for d in docs) / 1e3))
+    out["rates"]["wordcount"] = rate
+    out["wc_ratio"] = rate / (m8["records_in"] / job_s(m8))
+    log(f"P=2 word count byte-identical to phase 5, the same top-10 on "
+        f"both processes; {out['wc_ratio']:.3f}x phase 15's S=8 words/s; "
+        f"attrib (process 0): "
+        f"{attrib_line({**docs[0]['counters'], **docs[0]['gauges']})}")
+
+    # --- phase 4's k-means at S=8 over 2 processes ---------------------
+    pts = np.load(km["path"], mmap_mode="r")
+    scale = float(np.abs(pts).max())
+    out["km"] = {}
+    for precision in ("highest", "bf16"):
+        m_out = os.path.join(tmp, f"dist_km_{precision}.json")
+        reports, _so, wall = dist_job(f"kmeans {precision} P=2", [
+            "kmeans", km["path"], "--num-shards", str(S), "--output", "",
+            "--kmeans-k", str(KMEANS_K), "--kmeans-iters",
+            str(KMEANS_ITERS), "--kmeans-precision", precision,
+            "--backend", backend, "--metrics-out", m_out, "-q"])
+        count(reports)
+        cs = [np.frombuffer(bytes.fromhex(r["centroids"]),
+                            np.float32).reshape(KMEANS_K, -1)
+              for r in reports]
+        require(cs[0].tobytes() == cs[1].tobytes(),
+                f"the two processes' {precision} centroids differ")
+        for i, r in enumerate(reports):
+            require(backend != "cuda" or r["launches"]["kmeans_assign_sum"]
+                    == S // P * KMEANS_ITERS,
+                    f"process {i} launched kmeans_assign_sum "
+                    f"{r['launches']['kmeans_assign_sum']} times, expected "
+                    f"{S // P * KMEANS_ITERS}")
+        want = sharded["km_centroids"][precision]
+        err = float(np.abs(cs[0] - want).max())
+        require(err <= 1e-5 * scale, f"P=2 {precision} centroids off "
+                f"phase 15's by {err}")
+        src = pts if precision == "highest" else round_bf16(np.array(pts))
+        counts = [np.bincount(assign_points(np.asarray(src), c),
+                              minlength=KMEANS_K) for c in (cs[0], want)]
+        require((counts[0] == counts[1]).all(),
+                f"P=2 {precision} counts differ from phase 15's")
+        docs = docs_of(m_out)
+        ms = max(d["phases_s"]["iterate"] for d in docs) / KMEANS_ITERS * 1e3
+        out["km"][precision] = {"ms_per_iter": ms, "max_err": err,
+                                "bit_equal": cs[0].tobytes()
+                                == want.tobytes()}
+        log(dist_line(f"kmeans {precision} P=2 x 4 slots", docs, reports,
+                      wall, "points x iterations/s"))
+        log(f"P=2 kmeans {precision}: {ms:.3f} ms/iter against phase "
+            f"15's S=8 "
+            f"{sharded['runs'][f'kmeans {precision} S=8 #1']['metrics']['time/iter_s'] / KMEANS_ITERS * 1e3:.3f}"
+            f"; counts equal, max |d| {err:.3g} (bound {1e-5 * scale:.3g}),"
+            f" processes bit-equal, bit-equal to phase 15: "
+            f"{out['km'][precision]['bit_equal']}; {S // P * KMEANS_ITERS} "
+            f"launches per process")
+    del pts
+
+    # --- phase 10's sort ----------------------------------------------
+    o = os.path.join(tmp, "dist_sort.out")
+    m_out = os.path.join(tmp, "dist_sort.json")
+    reports, _so, wall = dist_job("sort P=2", [
+        "sort", dataflow["inputs"]["sort"], "--num-shards", str(S),
+        "--output", o, "--backend", backend, "--metrics-out", m_out, "-q"])
+    count(reports)
+    want = read(dataflow["sort"]["device"]["out"])
+    got = b"".join(read(f"{o}.part{i}of{P}") for i in range(P))
+    require(got == want, "the 2-process sort's parts, process-major, "
+            "differ from phase 10's card sort")
+    del got, want
+    docs = docs_of(m_out)
+    log(dist_line("sort P=2 x 4 slots", docs, reports, wall, "rows/s"))
+    m8 = sharded["runs"]["sort S=8"]["metrics"]
+    rate = (sum(d["gauges"]["records_in"] for d in docs)
+            / (max(d["gauges"]["attrib/wall_ms"] for d in docs) / 1e3))
+    out["rates"]["sort"] = rate
+    log(f"P=2 sort byte-identical to phase 10 (process-major); "
+        f"{rate / (m8['records_in'] / job_s(m8)):.3f}x phase 15's S=8 "
+        f"rows/s")
+
+    # --- the remote-staged word count, process 1 killed ----------------
+    o = os.path.join(tmp, "dist_remote.txt")
+    stage = os.path.join(tmp, "dist_remote.stage")
+    reports, _so, wall = dist_job("remote-staged wordcount", [
+        "wordcount", sharded["prefix"], "--num-shards", str(S), "--output",
+        o, "--chunk-mb", str(SHARD_KILL_CHUNK >> 20), "--backend", backend,
+        "--shuffle-transport", "remote", "--remote-stage-dir", stage,
+        "--remote-stage-timeout", str(REMOTE_TIMEOUT_S), "-q"],
+        env=port_env(MOXT_SMOKE_KILL_AFTER=str(REMOTE_KILL_AFTER)),
+        expect=(0, -9))
+    rows = []
+    for i in range(P):
+        rows.extend(read(f"{o}.part{i}of{P}").splitlines(keepends=True))
+    require(b"".join(sorted(rows)) == read(sharded["prefix_out"]),
+            "the recovered remote-staged word count differs from the "
+            "one-process bytes")
+    require(os.path.exists(os.path.join(stage, "claim.proc1")),
+            "process 0 never claimed the killed process 1")
+    rec = json.load(open(os.path.join(stage, "manifest.proc1.rec.json")))
+    dead = json.load(open(os.path.join(stage, "manifest.proc1.json")))
+    require(rec["final"] and rec["staged_by"] == 0
+            and len(dead["chunks_done"]) == REMOTE_KILL_AFTER,
+            "the recovery manifest does not cover the killed process")
+    log(f"remote-staged word count of the 32 MB prefix: process 1 "
+        f"SIGKILLed after {REMOTE_KILL_AFTER} committed chunk, process 0 "
+        f"claimed it and re-mapped chunks {rec['chunks_done']}; the parts "
+        f"byte-identical to the one-process run; wall {wall:.2f} s "
+        f"(the {REMOTE_TIMEOUT_S:.0f} s stage wait included)")
+
+    # --- obs merge and obs critpath over the word count's shards -------
+    for argv in (["merge", t_out], ["critpath", t_out]):
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "map_oxidize_tpu_torch", "obs", *argv],
+            capture_output=True, text=True, timeout=300, env=port_env())
+        require(res.returncode == 0, f"obs {argv[0]}: exit "
+                f"{res.returncode}: {res.stderr[-1500:]}")
+        log(f"obs {argv[0]} over the P=2 shards: exit 0 in "
+            f"{time.perf_counter() - t0:.2f} s:\n" + res.stdout.rstrip())
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 16 (distributed) wall {out['wall_s']:.1f} s; children's "
+        f"launches {out['launches']}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3524,6 +3829,7 @@ def main() -> int:
         obs = phase_obs(tmp, "cuda", km, wc, devmap, plan["peaks"], serve)
         sharded = phase_sharded(tmp, "cuda", km, wc, stream, dataflow,
                                 wrappers)
+        dist = phase_distributed(tmp, "cuda", km, wc, dataflow, sharded)
     if km["launches"]["fused_assign_sum"] != 2 * KMEANS_ITERS:
         raise AssertionError(f"kmeans path launched the kernel "
                              f"{km['launches']} times, expected "
@@ -3537,7 +3843,8 @@ def main() -> int:
                 + plan["launches"]["fused_assign_sum"]
                 + serve["launches"]["kmeans_assign_sum"]
                 + obs["launches"]["kmeans_assign_sum"]
-                + sharded["launches"]["fused_assign_sum"])
+                + sharded["launches"]["fused_assign_sum"]
+                + dist["launches"]["kmeans_assign_sum"])
     main_cfg = next(c for c in configs if c["k"] == KMEANS_K
                     and c["precision"] == "highest" and not c["weighted"])
     kernels = [{
@@ -3613,7 +3920,10 @@ def main() -> int:
         f"{obs['wall_s']:.1f} s; phase 15 S=8 word count "
         f"{sharded['wc_ratio']:.3f}x phase 5, k-means ms/iter "
         f"{ {p: round(v, 3) for p, v in sharded['km_ratio'].items()} }x "
-        f"phase 4, {sharded['wall_s']:.1f} s; total "
+        f"phase 4, {sharded['wall_s']:.1f} s; phase 16 P=2 word count "
+        f"{dist['wc_ratio']:.3f}x phase 15's S=8, k-means ms/iter "
+        f"{ {p: round(v['ms_per_iter'], 3) for p, v in dist['km'].items()} }"
+        f", {dist['wall_s']:.1f} s; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -22,6 +22,9 @@
         --wait wordcount /data/corpus.txt
     python -m map_oxidize_tpu_torch obs xprof m.json
     python -m map_oxidize_tpu_torch obs trend --ledger-dir ledger
+    python -m map_oxidize_tpu_torch wordcount corpus.txt --num-shards 8 \\
+        --dist-coordinator 127.0.0.1:29500 --dist-processes 2 \\
+        --dist-process-id 0          # and id 1 in a second process
 
 Flag names and defaults are the JAX package's CLI's; ``--backend`` takes
 ``cuda`` (the default, which needs a CUDA device) or ``cpu``.  ``serve``
@@ -146,6 +149,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "rows (sum/min/max reducers) before the feed. "
                         "auto = on when the transport resolves to "
                         "pipelined; outputs are byte-identical either way")
+    p.add_argument("--remote-stage-dir", default="",
+                   help="remote transport: shared-filesystem stage "
+                        "directory every process can reach (default: "
+                        "<output>.stage)")
+    p.add_argument("--remote-stage-timeout", type=float, default=60.0,
+                   help="remote transport: seconds to wait for peers' "
+                        "final stage manifests before declaring them "
+                        "dead and taking over their partitions")
     p.add_argument("--join-input", default="",
                    help="join: the RIGHT/probe record corpus (.npy of "
                         "(u64 key, u64 payload) rows, payloads < 2^63; "
@@ -178,6 +189,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="kmeans mapper=auto device-fit budget in bytes; "
                         "past it the job streams through the device "
                         "(0 = probe the device's memory)")
+    p.add_argument("--dist-coordinator", default="",
+                   help="multi-process: rendezvous address host:port (same "
+                        "on every process); enables the Gloo process "
+                        "group")
+    p.add_argument("--dist-processes", type=int, default=0,
+                   help="multi-process: total process count")
+    p.add_argument("--dist-process-id", type=int, default=-1,
+                   help="multi-process: this process's id (0-based)")
     p.add_argument("--checkpoint-dir", default=None,
                    help="directory for resumable map-output checkpoints "
                         "(kmeans: per-iteration snapshots; a SUCCESSFUL "
@@ -315,6 +334,8 @@ def config_from_args(args: argparse.Namespace) -> JobConfig:
         collect_max_rows=args.collect_max_rows,
         shuffle_transport=args.shuffle_transport,
         push_combine=args.push_combine,
+        remote_stage_dir=args.remote_stage_dir,
+        remote_stage_timeout_s=args.remote_stage_timeout,
         rescan_full=args.rescan_full,
         hll_precision=args.hll_precision,
         join_input_path=args.join_input,
@@ -324,6 +345,9 @@ def config_from_args(args: argparse.Namespace) -> JobConfig:
         kmeans_iters=args.kmeans_iters,
         kmeans_precision=args.kmeans_precision,
         kmeans_device_fit_bytes=args.kmeans_fit_bytes,
+        dist_coordinator=args.dist_coordinator,
+        dist_num_processes=args.dist_processes,
+        dist_process_id=args.dist_process_id,
         checkpoint_dir=args.checkpoint_dir,
         keep_intermediates=args.keep_intermediates,
         trace_dir=args.trace_dir,
@@ -403,10 +427,59 @@ def _main(argv: list[str] | None = None) -> int:
         _log.warning("--keep-intermediates has no effect without "
                      "--checkpoint-dir (there are no intermediates: map "
                      "outputs stay on device)")
+    if config.dist_coordinator:
+        return _run_distributed(config, args.workload)
     from map_oxidize_tpu_torch.runtime import run_job
 
     result = run_job(config, args.workload)
     print(result.top_report(config.top_k))
+    return 0
+
+
+def _run_distributed(config: JobConfig, workload: str) -> int:
+    """One process of a multi-process job (``--dist-coordinator``): the
+    job over the process group, then what the JAX package's CLI prints
+    for it; the group is shut down after the last collective."""
+    from map_oxidize_tpu_torch.parallel.distributed import (
+        partition_output_path,
+        run_distributed_job,
+        shutdown_distributed,
+    )
+
+    r = run_distributed_job(config, workload)
+    shutdown_distributed()
+    P = config.dist_num_processes
+    part = (partition_output_path(config.output_path,
+                                  config.dist_process_id, P)
+            if config.output_path else None)
+    if workload in ("sort", "join", "sessionize"):
+        print(r.top_report(config.top_k) + f" ({P} processes)")
+        if part:
+            _log.info(
+                "process %d wrote its partition to %s (the %d parts "
+                "concatenate%s)", config.dist_process_id, part, P,
+                ", process-major, into the globally sorted artifact"
+                if workload == "sort" else " disjointly")
+        return 0
+    if workload == "kmeans":
+        c = r.centroids
+        print(f"k-means: {c.shape[0]} centroids, dim {c.shape[1]}, "
+              f"{config.kmeans_iters} iterations ({P} processes)")
+        return 0
+    if part and workload != "distinct":
+        _log.info(
+            "process %d wrote its hash partition to %s (concatenate the "
+            "%d parts and sort for the single-file artifact)",
+            config.dist_process_id, part, P)
+    if workload == "distinct":
+        print(f"distinct tokens ~ {r.estimate:,.0f} ({P} processes)")
+        return 0
+    unit = "docs" if workload == "invertedindex" else ""
+    print(f"Top {config.top_k} keys ({r.n_keys} distinct):")
+    for h, word, c in r.top:
+        name = (word.decode("utf-8", "replace") if word is not None
+                else f"{h:#018x}")
+        print(f"{name}: {c}{' ' + unit if unit else ''}")
     return 0
 
 

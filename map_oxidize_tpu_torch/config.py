@@ -1,15 +1,14 @@
 """Job and server configuration of the port.
 
 :class:`JobConfig` has every field of the JAX package's (JAX
-``config.py:32-365``), with its defaults and validation, except the
-fields of the multi-process paths the port has not got yet:
-``dist_coordinator``, ``dist_num_processes``, ``dist_process_id``,
-``remote_stage_dir`` and ``remote_stage_timeout_s`` (ROADMAP A8).
+``config.py:32-365``), with its defaults and validation.
 ``num_shards`` > 1 runs the sharded engines on a mesh of device slots in
 one process (:mod:`map_oxidize_tpu_torch.parallel`); 0 is the backend's
-real pool.  ``backend`` names a torch device
-family: ``cuda`` (the default) or ``cpu``; nothing falls back from one to
-the other.  :class:`FleetConfig` is the fleet collector's (JAX
+real pool.  ``dist_coordinator`` with ``dist_num_processes`` and
+``dist_process_id`` runs the job over several processes under a Gloo
+process group (:mod:`map_oxidize_tpu_torch.parallel.distributed`).
+``backend`` names a torch device family: ``cuda`` (the default) or
+``cpu``; nothing falls back from one to the other.  :class:`FleetConfig` is the fleet collector's (JAX
 ``config.py:435-500``) and :class:`ServeConfig` the resident job server's
 (JAX ``config.py:505-593``), both field for field.
 """
@@ -133,6 +132,13 @@ class JobConfig:
     #: sum/min/max, 'on' forces it for any eligible reducer, 'off'
     #: disables it; outputs are byte-identical either way
     push_combine: str = "auto"
+    #: remote transport: the shared-filesystem stage directory every
+    #: process of the job can reach.  Empty = ``<output_path>.stage``
+    remote_stage_dir: str = ""
+    #: remote transport: how long a process waits for its peers' final
+    #: stage manifests before declaring them dead and taking over their
+    #: partitions from the staged objects
+    remote_stage_timeout_s: float = 60.0
     #: k-means device-fit budget in bytes for mapper='auto'; 0 = half the
     #: device's memory
     kmeans_device_fit_bytes: int = 0
@@ -213,6 +219,13 @@ class JobConfig:
     #: topology) program and workload rows, loaded at job start and
     #: merged at finish; None disables
     calib_dir: str | None = None
+    #: multi-process: the rendezvous address ("host:port") of the Gloo
+    #: process group; empty = the single-process path.  With it set,
+    #: dist_num_processes and dist_process_id select this process's slot,
+    #: and the mesh's S slots are dealt S/P to each process
+    dist_coordinator: str = ""
+    dist_num_processes: int = 0
+    dist_process_id: int = -1
     #: job planner (runtime/planner.py + obs/plan.py): 'auto' solves the
     #: tunable knobs from the calibration store's curves before the run
     #: and records the plan (per-knob value + provenance, and a predicted
@@ -241,6 +254,9 @@ class JobConfig:
         if self.calib_min_samples < 1:
             raise ValueError(
                 "calib_min_samples must be >= 1 sampled latencies")
+        if self.remote_stage_timeout_s <= 0:
+            raise ValueError(
+                "remote_stage_timeout_s must be positive seconds")
         if self.hbm_sample_s < 0:
             raise ValueError("hbm_sample_s must be >= 0 (0 = off)")
         if self.stall_warn_factor < 0:
@@ -248,6 +264,12 @@ class JobConfig:
         if self.obs_port < -1 or self.obs_port > 65535:
             raise ValueError(
                 "obs_port must be -1 (off), 0 (ephemeral), or a port")
+        if (self.obs_port > 0 and self.dist_num_processes > 1
+                and self.obs_port + self.dist_num_processes - 1 > 65535):
+            raise ValueError(
+                f"obs_port {self.obs_port} + the per-process offset for "
+                f"{self.dist_num_processes} processes exceeds 65535; "
+                "use a lower port or 0 (ephemeral)")
         if self.obs_sample_s < 0:
             raise ValueError("obs_sample_s must be >= 0 (0 = off)")
         if not 0 < self.host_sample_hz <= 1000:
@@ -307,6 +329,12 @@ class JobConfig:
             raise ValueError(
                 f"hll_precision must be in [{HLL_P_MIN}, {HLL_P_MAX}], "
                 f"got {self.hll_precision}")
+        if self.dist_coordinator and (
+                self.dist_num_processes < 2 or self.dist_process_id < 0
+                or self.dist_process_id >= self.dist_num_processes):
+            raise ValueError(
+                "distributed mode needs dist_num_processes >= 2 and "
+                "0 <= dist_process_id < dist_num_processes")
         if self.num_shards < 0:
             raise ValueError("num_shards must be >= 0")
         if self.num_chunks <= 0 and self.chunk_bytes <= 0:

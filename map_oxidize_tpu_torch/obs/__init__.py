@@ -122,7 +122,7 @@ class Obs:
     tracer: Tracer
     heartbeat: Heartbeat | None = None
     #: this process's slot and the job's process count (stamped into every
-    #: document; 0 / 1 for the single-process drivers of the port)
+    #: document; 0 / 1 for the single-process drivers)
     process: int = 0
     n_processes: int = 1
     #: the phase currently open (``phase``) and the workload recorded
@@ -164,7 +164,8 @@ class Obs:
     _setup_stamped: bool = False
 
     @classmethod
-    def from_config(cls, config) -> "Obs":
+    def from_config(cls, config, process: int = 0,
+                    n_processes: int = 1) -> "Obs":
         """Build the bundle a job's config asks for (JAX ``Obs.from_config``
         :194): the launch-ledger window opens; the device sampler starts
         when asked for or when the live plane runs; the time series, the
@@ -172,7 +173,12 @@ class Obs:
         ``obs_port``; and ``calib_dir``'s store loads (recording
         ``calib/store_runs``, or ``calib/load_refused`` when it refuses).
         ``trace_out='-'`` collects the trace for ``result.trace`` without
-        writing a file."""
+        writing a file.
+
+        Multi-process jobs pass their slot: progress lines are prefixed
+        with the process id and printed by process 0 only (the processes
+        advance in lockstep; ``MOXT_PROGRESS_ALL_PROCS=1`` prints every
+        process's)."""
         live = config.obs_port >= 0 or config.obs_sample_s > 0
         sample_s = config.obs_sample_s
         if live and sample_s <= 0:
@@ -188,13 +194,22 @@ class Obs:
             # for /status even when progress lines are off: a silent
             # heartbeat tracks the same and emits nothing
             silent = not config.progress
+            emit = None
+            if n_processes > 1 and not silent:
+                if process != 0 and not os.environ.get(
+                        "MOXT_PROGRESS_ALL_PROCS"):
+                    silent = True  # lockstep: P copies of a line are noise
+                else:
+                    emit = (lambda line, _p=process:
+                            _log.info("[proc %d] %s", _p, line))
             hb = Heartbeat(total_bytes=total,
                            interval_s=config.progress_interval_s,
-                           emit=(lambda line: None) if silent else None)
+                           emit=(lambda line: None) if silent else emit)
             hb.silent = silent
         obs = cls(registry=MetricsRegistry(),
                   tracer=Tracer(enabled=bool(config.trace_out)),
-                  heartbeat=hb, dataplane_enabled=bool(config.data_audit))
+                  heartbeat=hb, process=process, n_processes=n_processes,
+                  dataplane_enabled=bool(config.data_audit))
         obs.xprof_base = _compile.LEDGER.activate(obs)
         hbm_s = config.hbm_sample_s
         if live and hbm_s <= 0:

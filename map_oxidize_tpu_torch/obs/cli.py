@@ -14,9 +14,12 @@ torch or touches the card.
 * ``obs where`` — the wall-clock attribution (buckets plus the
   unattributed remainder) from a document, a bundle, a live ``--url`` or
   an ``--archive``;
-* ``obs critpath`` — the one-process critical path from a document (its
-  stored section, else the attribution timeline), a bundle or an
-  ``--archive``;
+* ``obs merge`` — a multi-process job's ``<trace>.proc<i>`` shards into
+  one Chrome trace and a skew report (:mod:`map_oxidize_tpu_torch.obs.
+  merge`);
+* ``obs critpath`` — the critical path from trace shards, a shard
+  document, a merged Chrome trace, a document (its stored section, else
+  the attribution timeline), a bundle or an ``--archive``;
 * ``obs diff`` — two run-ledger entries, per-phase and per-counter, with
   ``--gate`` (exit 3 on a regression past the threshold) and
   ``--crash-dir``;
@@ -33,12 +36,6 @@ torch or touches the card.
 * ``obs top`` — a live view of a job's, a resident server's or a fleet
   collector's ``/status`` (plain ANSI redraw), or ``--archive``'s last
   frame.
-
-Two parts wait for the multi-process port and say so: ``obs merge``
-(ROADMAP A8, ``obs/merge.py``) and ``obs critpath`` over trace shards, a
-shard document or a merged Chrome trace (A8, the shard half of
-``obs/critpath.py``).  Each exits 2 with one line on stderr naming its
-item.
 """
 
 from __future__ import annotations
@@ -410,51 +407,43 @@ def obs_main(argv: list[str]) -> int:
     return _diff(args)
 
 
-#: the shard-document schema of the multi-process trace (JAX
-#: ``obs/merge.py:36``), recognised only to refuse it
-SHARD_SCHEMA = "moxt-obs-shard-v1"
-
-
-class NotPorted(ValueError):
-    """A source or subcommand of the multi-process port (ROADMAP A8)."""
-
-
-def _not_ported(what: str, item: str) -> int:
-    print(f"error: {what} is not ported yet (ROADMAP {item})",
-          file=sys.stderr)
-    return 2
-
-
-def _has_shards(trace_out: str) -> bool:
-    """Whether ``<trace_out>.proc<i>`` shards lie beside the path (JAX
-    ``obs/merge.py`` ``find_shards`` :114)."""
-    return any(p.rsplit(".proc", 1)[1].isdigit()
-               for p in glob.glob(glob.escape(trace_out) + ".proc*"))
-
-
-def _critpath_doc_from_source(source: str):
+def _critpath_doc_from_source(source: str, allow_clock_skew: bool):
     """Resolve an ``obs critpath`` source argument to a critpath
-    document, probing in the JAX order: a trace base with ``.proc<i>``
-    shards, a single shard document and a merged Chrome trace raise
-    :class:`NotPorted` (ROADMAP A8); a skew report or metrics document
-    with a stored ``critpath`` section, and a metrics document / crash
-    bundle with an attribution timeline, resolve.  Returns ``(doc,
-    title)`` or raises ``ValueError``."""
+    document.  Accepts, in probe order: a trace base with ``.proc<i>``
+    shards next to it (fresh extraction, torn shards tolerated), a single
+    shard document, a merged Chrome trace (event list), a skew report
+    carrying a ``critpath`` section, and a metrics document / crash
+    bundle (its stored section, else the attribution timeline).  Returns
+    ``(doc, title)`` or raises ``ValueError``."""
     import json
 
-    from map_oxidize_tpu_torch.obs import critpath
+    from map_oxidize_tpu_torch.obs import critpath, merge
 
-    if _has_shards(source):
-        raise NotPorted(f"obs critpath over trace shards ({source}.proc*)")
+    shard_paths = merge.find_shards(source)
+    if shard_paths:
+        shards, torn = merge.read_shards_tolerant(shard_paths)
+        if not shards:
+            raise ValueError(
+                f"no readable shards at {source}.proc* "
+                f"(torn: {[t['path'] for t in torn]})")
+        cov = merge.coverage_report(shards, torn)
+        doc = critpath.compute_from_shards(
+            shards, coverage=cov, check_clock=not allow_clock_skew)
+        wl = shards[0].get("meta", {}).get("workload")
+        return doc, f"critical path — {wl or '?'} ({len(shards)} shards)"
     path = resolve_metrics_path(source)
     with open(path) as f:
         loaded = json.load(f)
     if isinstance(loaded, list):
-        raise NotPorted("obs critpath over a merged Chrome trace")
+        # a merged Chrome trace: pid = process slot, already aligned
+        return (critpath.compute_from_merged_events(loaded),
+                "critical path — merged trace")
     if not isinstance(loaded, dict):
         raise ValueError(f"{path!r} is not a critpath source")
-    if loaded.get("schema") == SHARD_SCHEMA:
-        raise NotPorted("obs critpath over a trace shard document")
+    if loaded.get("schema") == merge.SHARD_SCHEMA:
+        meta = loaded.get("meta", {})
+        return (critpath.compute_from_shards([loaded]),
+                f"critical path — proc {meta.get('process')} shard only")
     stored = loaded.get("critpath")
     if stored and not stored.get("error"):
         wl = (loaded.get("meta") or {}).get("workload")
@@ -519,9 +508,11 @@ def _critpath(args) -> int:
               file=sys.stderr)
         return 2
     try:
-        doc, title = _critpath_doc_from_source(args.source)
-    except NotPorted as e:
-        return _not_ported(str(e), "A8: the critical path's shard half")
+        doc, title = _critpath_doc_from_source(args.source,
+                                               args.allow_clock_skew)
+    except critpath.ClockSkewError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 3
     except (OSError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -911,8 +902,38 @@ def _plan(args) -> int:
 
 
 def _merge(args) -> int:
-    # the per-process trace shards come from the multi-process drivers
-    return _not_ported("obs merge", "A8: obs/merge.py")
+    from map_oxidize_tpu_torch.obs.merge import find_shards, merge_to_files
+
+    shards = find_shards(args.base)
+    if not shards:
+        print(f"error: no shards found at {args.base}.proc*",
+              file=sys.stderr)
+        return 2
+    out = args.out if args.out else args.base
+    try:
+        skew = merge_to_files(shards, out, args.skew_out,
+                              allow_clock_skew=args.allow_clock_skew)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    skew_path = args.skew_out if args.skew_out else out + ".skew.json"
+    cov = skew.get("coverage") or {}
+    n_merged = len(cov.get("present_processes") or []) or len(shards)
+    print(f"merged {n_merged} shards -> {out}")
+    print(f"skew report -> {skew_path}")
+    if cov.get("missing_processes") or cov.get("torn_shards"):
+        print(f"  !! coverage gap: missing process(es) "
+              f"{cov.get('missing_processes')}, torn shard(s) "
+              f"{cov.get('torn_shards')} — post-mortem merge over the "
+              "survivors")
+    for r in skew["straggler_ranking"]:
+        print(f"  proc {r['process']}: work {r['work_s']:.3f}s, "
+              f"collective wait {r['collective_wait_s']:.3f}s")
+    cp = skew.get("critpath") or {}
+    if cp.get("bound_by"):
+        print(f"  critical path: bound by {cp['bound_by']} "
+              f"(obs critpath {args.base} for the full report)")
+    return 0
 
 
 def _diff(args) -> int:

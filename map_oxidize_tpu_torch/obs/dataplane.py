@@ -24,8 +24,9 @@ reduction-ratio gauges.  The port of the JAX package's ``obs/dataplane.py``
 * **reduction-ratio gauges** — rows in vs distinct keys out.
 
 On one device the audit partitions by hash into ``VIRTUAL_PARTITIONS``.
-Everything is host-side numpy.  The cross-process reduction (multi-process
-drivers) comes with the modules that feed it.
+Everything is host-side numpy.  A multi-process job folds every process's
+vectors into the global audit with one allgather
+(:meth:`DataPlaneAudit.reduce_distributed`, JAX :329).
 """
 from __future__ import annotations
 
@@ -154,9 +155,11 @@ def _hll_ranks(hashes: np.ndarray, p: int) -> "tuple[np.ndarray, np.ndarray]":
 class _Stage:
     """One phase boundary's per-partition ledger: row/byte counts plus
     the order-independent digests (both families; the checks read the
-    one that applies).  ``scope`` (``local`` map-side, ``disjoint``
-    per-bucket drains, ``replicated`` readback) is kept for the
-    cross-process reduction."""
+    one that applies).  ``scope`` drives the cross-process reduction:
+    ``local`` vectors sum across processes, ``disjoint`` ones too (a
+    partition is owned by exactly one process, everyone else holds
+    zeros; XOR folds the same way), ``replicated`` ones are already
+    global on every process and are NOT reduced again."""
 
     __slots__ = ("rows", "bytes", "vsum", "wsum", "xor", "sum",
                  "uniq", "scope")
@@ -170,6 +173,14 @@ class _Stage:
         self.sum = np.zeros(S, _U64)
         self.uniq = np.zeros(S, _U64)
         self.scope = scope
+
+    def vectors(self) -> "list[tuple[str, np.ndarray, str]]":
+        """(name, vector, reduce-op) triples for the cross-process
+        allgather; op is ``add`` or ``xor``."""
+        return [("rows", self.rows, "add"), ("bytes", self.bytes, "add"),
+                ("vsum", self.vsum, "add"), ("wsum", self.wsum, "add"),
+                ("xor", self.xor, "xor"), ("sum", self.sum, "add"),
+                ("uniq", self.uniq, "add")]
 
 
 class DataPlaneAudit:
@@ -296,6 +307,62 @@ class DataPlaneAudit:
 
     def set_records_in(self, records: int) -> None:
         self.records_in = int(records)
+
+    # --- cross-process reduction -----------------------------------------
+
+    def reduce_distributed(self, allgather,
+                           expect=(("map_out", "local"),)) -> None:
+        """Fold every process's local vectors into the global audit (JAX
+        ``reduce_distributed`` :329): ``allgather`` maps a u64 vector to
+        its ``(P, k)`` gather.  One collective carries everything; each
+        section then reduces with its own op (sum for counts, XOR for the
+        pair digest, max for HLL registers).  Every process ends with the
+        same global state, so the checks after it abort SPMD-consistently.
+
+        ``expect`` names the (stage, scope) pairs the workload feeds
+        before the reduction; they are made (as zeros) first, so a process
+        that recorded nothing (it owned no chunk, or drained no spill
+        bucket) still ships the same payload shape as its peers: a Gloo
+        call with diverging lengths hangs."""
+        for name, scope in expect:
+            self._stage(name, scope)
+        sections: "list[tuple[str, str, np.ndarray, str]]" = []
+        for name in sorted(self.stages):
+            st = self.stages[name]
+            if st.scope == "replicated":
+                continue
+            for fld, vec, op in st.vectors():
+                sections.append((name, fld, vec, op))
+        hot = sorted(self._hot.items(), key=lambda kv: -kv[1])[:_HOT_KEEP]
+        hot_k = np.zeros(_HOT_KEEP, _U64)
+        hot_c = np.zeros(_HOT_KEEP, _U64)
+        if hot:
+            hot_k[:len(hot)] = np.array([k for k, _ in hot], _U64)
+            hot_c[:len(hot)] = np.array([c for _, c in hot], _U64)
+        parts = ([vec for _, _, vec, _ in sections]
+                 + [self._regs.astype(_U64), hot_k, hot_c,
+                    np.array([self.records_in or 0], _U64)])
+        g = np.asarray(allgather(np.concatenate(parts)), _U64)  # (P, k)
+        off = 0
+        for name, fld, vec, op in sections:
+            blk = g[:, off:off + vec.shape[0]]
+            off += vec.shape[0]
+            folded = (np.bitwise_xor.reduce(blk, axis=0) if op == "xor"
+                      else blk.sum(axis=0, dtype=_U64))
+            setattr(self.stages[name], fld, folded)
+        regs = g[:, off:off + self._regs.shape[0]]
+        off += self._regs.shape[0]
+        self._regs = regs.max(axis=0).astype(np.int32)
+        merged: "dict[int, int]" = {}
+        for p_ in range(g.shape[0]):
+            ks = g[p_, off:off + _HOT_KEEP]
+            cs = g[p_, off + _HOT_KEEP:off + 2 * _HOT_KEEP]
+            for k, c in zip(ks.tolist(), cs.tolist()):
+                if c:
+                    merged[k] = merged.get(k, 0) + c
+        self._hot = merged
+        off += 2 * _HOT_KEEP
+        self.records_in = int(g[:, off].sum(dtype=_U64))
 
     # --- checks -----------------------------------------------------------
 

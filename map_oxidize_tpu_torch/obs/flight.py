@@ -16,9 +16,9 @@ the run asked for, and dumps one bundle per crash under ``crash_dir``:
   closed at crash time and tagged ``unfinished`` (only when the run
   traced).
 
-Every step is best-effort: a recorder error never masks the original
-exception.  The multi-process shard branch comes with the multi-process
-drivers.
+A process of a multi-process job writes ``<path>.proc<i>`` instead, the
+trace as an ``obs merge`` shard.  Every step is best-effort: a recorder
+error never masks the original exception.
 """
 
 from __future__ import annotations
@@ -91,11 +91,21 @@ def _record(obs, config, exc, workload):
                          "pid": obs.tracer._pid, "tid": 0,
                          "args": dict(meta, aborted=True)})
 
-    # honour the run's own artifact flags with the partial documents
+    # honour the run's own artifact flags with the partial documents; a
+    # process of a multi-process job writes its own ``.proc<i>`` files,
+    # the trace as a mergeable shard (JAX :113-125)
     if config.metrics_out:
-        write_json_atomic(config.metrics_out, metrics_doc)
+        path = (config.metrics_out if obs.n_processes <= 1
+                else f"{config.metrics_out}.proc{obs.process}")
+        write_json_atomic(path, metrics_doc)
     if trace is not None and config.trace_out and config.trace_out != "-":
-        write_json_atomic(config.trace_out, trace, indent=None)
+        if obs.n_processes > 1:
+            from map_oxidize_tpu_torch.obs.merge import shard_path, write_shard
+
+            write_shard(shard_path(config.trace_out, obs.process), meta,
+                        trace, metrics_doc)
+        else:
+            write_json_atomic(config.trace_out, trace, indent=None)
 
     if not config.crash_dir:
         return None

@@ -18,7 +18,10 @@ through the same machinery as job evidence, tagged ``source: "probe"``.
 
 Inputs are seeded (``numpy.random.default_rng(0)``) and the bucket ->
 buffer-shape derivation is the engines' payload identity
-(``exchange_payload_bytes``).  A rep's latency is the wall of one call
+(``exchange_payload_bytes``).  Under a process group the probe sweeps the
+global mesh: every process builds the same seeded global inputs, feeds
+its local slots their rows, and runs the identical sweep in lockstep, so
+two processes probing into two stores write identical row sets.  A rep's latency is the wall of one call
 with the devices synchronised after it: the exchange rows time the
 ``_exchange`` body the merge step runs, without the segment-combine.
 """
@@ -130,7 +133,10 @@ def run_probe(store_dir: str, num_shards: int = 0,
     cells = []
 
     def _shards(a: np.ndarray) -> list:
-        return mesh.split(torch.from_numpy(a))
+        # this process's local slots' rows of the global row-major array
+        per = a.shape[0] // S
+        lo = mesh.offset * per
+        return mesh.split(torch.from_numpy(a[lo:lo + mesh.n_local * per]))
 
     def _cell(collective, program, payload, walls, shape):
         for ms in walls:
@@ -202,7 +208,7 @@ def run_probe(store_dir: str, num_shards: int = 0,
         _cell("all_gather", "shuffle/top_k", payload, walls, (S, k_local))
 
     # --- merge into the store through the normal machinery --------------
-    ident = _calib.run_identity(n_processes)
+    ident = _calib.run_identity(max(n_processes, mesh.n_processes))
     path = os.path.join(store_dir, _calib.CALIB_FILE)
     store = _calib.CalibStore(path=path)
     touched = store.accumulate_run(ident, reg.comms_table(), None,

@@ -400,11 +400,11 @@ class ShardedCollectEngine:
         s_keys, s_docs = sort_sharded(self.mesh, *self._buf)
         keys_parts, docs_parts = [], []
         observed_rows = np.zeros(self.S, np.int64)
-        for s in range(self.S):
+        for s in range(self.mesh.n_local):
             got = _live_pairs(s_keys[s], s_docs[s])
             if got is None:
                 continue
-            observed_rows[s] = got[0].shape[0]
+            observed_rows[self.mesh.global_index(s)] = got[0].shape[0]
             keys_parts.append(got[0])
             docs_parts.append(got[1])
         dp = getattr(self.obs, "dataplane", None) if self.obs else None

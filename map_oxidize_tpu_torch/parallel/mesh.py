@@ -26,8 +26,20 @@ runs in order, so a collective among them is a set of on-device copies
 and needs no synchronisation.  A copy between two cards is ordered by
 PyTorch after the source's current stream and before the destination's.
 
-A later step (the multi-process drivers) puts a process group under these
-same functions: each process then holds the list of its local shards.
+**Several processes.**  Under a ``torch.distributed`` process group
+(:func:`~map_oxidize_tpu_torch.parallel.distributed.init_distributed`) a
+mesh has S GLOBAL slots, of which process ``p`` of ``P`` owns the S/P
+LOCAL slots ``p*S/P .. (p+1)*S/P - 1`` (process-major, as ``jax.devices()``
+orders a multi-process mesh).  ``Mesh.devices`` and every per-shard list
+are the local slots; ``Mesh.size`` stays S, the axis the keys route over.
+The collectives keep their signatures: rows for a slot of the same process
+move on its device, and only rows that cross processes are staged through
+host buffers (pinned on a card) and one Gloo call (:func:`all_to_all`,
+:func:`all_gather`).  A float :func:`psum` gathers every shard's partial
+and adds them in global shard order 0..S-1, never through Gloo's ring
+``all_reduce``, so a P-process sum is bit-equal to the one-process S-slot
+sum.  Unsigned and bool tensors cross as their bytes.  With one process
+every collective is the in-process one above.
 """
 
 from __future__ import annotations
@@ -57,58 +69,77 @@ def real_pool(backend: str) -> list[torch.device]:
 
 class Mesh:
     """S device slots on one axis.  ``shape`` is ``{SHARD_AXIS: S}``, as a
-    JAX mesh's is; ``devices[s]`` is slot ``s``'s device."""
+    JAX mesh's is.  ``devices[i]`` is LOCAL slot ``i``'s device, global
+    slot ``offset + i``; with one process the local slots are all S."""
 
-    def __init__(self, devices):
+    def __init__(self, devices, process: int = 0, n_processes: int = 1):
         self.devices = tuple(torch.device(d) for d in devices)
         if not self.devices:
             raise RuntimeError("a mesh needs at least one device slot")
-        self.size = len(self.devices)
+        #: this process's slot among ``n_processes`` (0 / 1 in one process)
+        self.process = int(process)
+        self.n_processes = int(n_processes)
+        #: local slots of this process, and the global index of the first
+        self.n_local = len(self.devices)
+        self.offset = self.process * self.n_local
+        self.size = self.n_local * self.n_processes
         self.shape = {SHARD_AXIS: self.size}
-        #: every slot on one device (the virtual pool on one card, or the
-        #: CPU): collectives there move nothing between devices
+        #: more than one process: the collectives cross the process group
+        self.distributed = self.n_processes > 1
+        #: every local slot on one device (the virtual pool on one card, or
+        #: the CPU): collectives among them move nothing between devices
         self.single_device = len(set(self.devices)) == 1
 
     def __repr__(self) -> str:
-        return f"Mesh({[str(d) for d in self.devices]})"
+        where = (f", process {self.process}/{self.n_processes}"
+                 if self.distributed else "")
+        return f"Mesh({[str(d) for d in self.devices]}{where})"
+
+    def global_index(self, i: int) -> int:
+        """Global slot of local slot ``i``."""
+        return self.offset + i
 
     def run(self, fn, *per_shard_args) -> list:
-        """``shard_map``'s counterpart: ``fn`` once per slot, in slot order,
-        on that slot's entries of ``per_shard_args`` (each a list of S)."""
+        """``shard_map``'s counterpart: ``fn`` once per local slot, in slot
+        order, on that slot's entries of ``per_shard_args`` (each a list
+        with one entry per local slot)."""
         for a in per_shard_args:
-            if len(a) != self.size:
+            if len(a) != self.n_local:
                 raise ValueError(
                     f"per-shard argument has {len(a)} entries for "
-                    f"{self.size} shards")
+                    f"{self.n_local} shards")
         return [fn(*(a[s] for a in per_shard_args))
-                for s in range(self.size)]
+                for s in range(self.n_local)]
 
     def check(self, xs, what: str = "tensor") -> None:
-        """Raise unless ``xs[s]`` lies on slot ``s``'s device, for every
-        slot: a sharded job never computes a shard elsewhere."""
-        if len(xs) != self.size:
+        """Raise unless ``xs[i]`` lies on local slot ``i``'s device, for
+        every local slot: a sharded job never computes a shard
+        elsewhere."""
+        if len(xs) != self.n_local:
             raise ValueError(f"{len(xs)} per-shard {what}s for "
-                             f"{self.size} shards")
+                             f"{self.n_local} shards")
         for s, (x, dev) in enumerate(zip(xs, self.devices)):
             if x.device != dev:
                 raise RuntimeError(
-                    f"shard {s}'s {what} is on {x.device}, not on its "
-                    f"slot's device {dev}")
+                    f"shard {self.global_index(s)}'s {what} is on "
+                    f"{x.device}, not on its slot's device {dev}")
 
     def split(self, x: torch.Tensor) -> list[torch.Tensor]:
-        """Split ``x`` on dim 0 into S equal blocks (row-major, as a
-        ``P('shards')`` sharding splits a global array) and place block
-        ``s`` on slot ``s``: views where ``x`` already lies on a slot's
-        device, copies elsewhere."""
-        if x.shape[0] % self.size:
+        """Split ``x`` (this process's rows) on dim 0 into one equal block
+        per local slot (row-major, as a ``P('shards')`` sharding splits a
+        global array, whose process-local rows ``make_array_from_process_
+        local_data`` deals to the local devices in order) and place block
+        ``i`` on local slot ``i``: views where ``x`` already lies on a
+        slot's device, copies elsewhere."""
+        if x.shape[0] % self.n_local:
             raise ValueError(f"{x.shape[0]} rows do not split over "
-                             f"{self.size} shards")
+                             f"{self.n_local} shards")
         return [b if b.device == d else b.to(d)
-                for b, d in zip(x.chunk(self.size), self.devices)]
+                for b, d in zip(x.chunk(self.n_local), self.devices)]
 
     def replicate(self, x: torch.Tensor) -> list[torch.Tensor]:
-        """``x`` on every slot: slots on ``x``'s device share it (it is
-        read-only there), the others get a copy."""
+        """``x`` on every local slot: slots on ``x``'s device share it (it
+        is read-only there), the others get a copy."""
         copies: dict = {x.device: x}
         out = []
         for d in self.devices:
@@ -121,42 +152,148 @@ class Mesh:
 def make_mesh(num_shards: int = 0, backend: str = "cuda") -> Mesh:
     """A mesh of ``num_shards`` slots over ``backend``'s real pool (0 =
     the whole pool).  More slots than the pool has are dealt round-robin
-    over it (a virtual pool), with a warning."""
+    over it (a virtual pool), with a warning.
+
+    Under an initialised process group of P processes, ``num_shards`` is
+    the GLOBAL slot count (0 = P times the local pool) and must divide by
+    P; this process's S/P local slots are dealt over its own pool."""
     pool = real_pool(backend)
     if not pool:
         raise RuntimeError(
             f"backend {backend!r} requested but no CUDA device is "
             "available (pass backend='cpu' to run on the CPU)")
-    n = num_shards if num_shards > 0 else len(pool)
-    if n > len(pool):
+    process, n_proc = process_slot()
+    n = num_shards if num_shards > 0 else len(pool) * n_proc
+    if n % n_proc:
+        raise ValueError(
+            f"shard count {n} must divide by process count {n_proc} "
+            "(every process owns an equal mesh slice)")
+    n_local = n // n_proc
+    if n_local > len(pool):
         _log.warning(
             "%d shards exceed the %d-device %s pool; dealing %d virtual "
-            "slots round-robin over it", n, len(pool), backend, n)
-    return Mesh([pool[i % len(pool)] for i in range(n)])
+            "slots round-robin over it", n_local, len(pool), backend,
+            n_local)
+    return Mesh([pool[i % len(pool)] for i in range(n_local)],
+                process=process, n_processes=n_proc)
+
+
+def process_slot() -> tuple[int, int]:
+    """``(rank, world size)`` of the initialised default process group, or
+    ``(0, 1)`` without one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
 # --- collectives --------------------------------------------------------------
 
+#: what this process has sent to other processes over Gloo, all jobs of the
+#: process together: ``{"bytes": ..., "calls": ...}`` (read by the drivers'
+#: logs and ``chip_smoke.py``; no metric key names the wire)
+WIRE = {"bytes": 0, "calls": 0}
+
+
+def _sent(nbytes: int) -> None:
+    WIRE["bytes"] += int(nbytes)
+    WIRE["calls"] += 1
+
+
+def _wire_bytes(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the flat uint8 bytes Gloo carries, on the host: pinned
+    when it comes from a card (unsigned, bool and bf16 tensors cross as
+    their bytes)."""
+    x = x.contiguous()
+    if x.device.type == "cpu":
+        return x.reshape(-1).view(torch.uint8)
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x)
+    return host.reshape(-1).view(torch.uint8)
+
+
+def _from_wire(b: torch.Tensor, shape, dtype, device) -> torch.Tensor:
+    """The inverse of :func:`_wire_bytes` for one received block."""
+    x = b.view(dtype).reshape(shape)
+    return x if device.type == "cpu" else x.to(device, non_blocking=True)
+
+
+def _gather_local(mesh: Mesh, stacked: torch.Tensor) -> list[torch.Tensor]:
+    """Every process's ``[n_local, ...]`` block (the same shape on all),
+    in process order, on this process's slot-0 device: the own block
+    stays where it is, the others come through one Gloo ``all_gather``."""
+    import torch.distributed as dist
+
+    wire = _wire_bytes(stacked)
+    got = [torch.empty_like(wire) for _ in range(mesh.n_processes)]
+    dist.all_gather(got, wire)
+    _sent(wire.numel() * (mesh.n_processes - 1))
+    d0 = mesh.devices[0]
+    return [stacked.to(d0) if q == mesh.process
+            else _from_wire(got[q], stacked.shape, stacked.dtype, d0)
+            for q in range(mesh.n_processes)]
+
 
 def all_to_all(mesh: Mesh, bufs: list) -> list[torch.Tensor]:
-    """``bufs[src]`` is shard ``src``'s ``[S, ...]`` send buffer, row
-    ``dst`` addressed to shard ``dst``; returns ``out[dst]`` = ``[S, ...]``
-    whose row ``src`` is ``bufs[src][dst]``, on ``dst``'s device
-    (``lax.all_to_all(x, axis, 0, 0, tiled=True)``)."""
+    """``bufs[i]`` is local shard ``i``'s ``[S, ...]`` send buffer, row
+    ``dst`` addressed to global shard ``dst``; returns ``out[j]`` =
+    ``[S, ...]`` whose row ``src`` is global shard ``src``'s row for local
+    shard ``j``, on ``j``'s device (``lax.all_to_all(x, axis, 0, 0,
+    tiled=True)``).  Across processes, the rows addressed to another
+    process's slots cross in one Gloo ``all_to_all``; the receiver lays
+    them out in global source order."""
     mesh.check(bufs, "send buffer")
-    S = mesh.size
-    return [torch.stack([bufs[src][dst].to(mesh.devices[dst])
-                         for src in range(S)])
-            for dst in range(S)]
+    if not mesh.distributed:
+        S = mesh.size
+        return [torch.stack([bufs[src][dst].to(mesh.devices[dst])
+                             for src in range(S)])
+                for dst in range(S)]
+    import torch.distributed as dist
+
+    L, P, me = mesh.n_local, mesh.n_processes, mesh.process
+    d0 = mesh.devices[0]
+    # send[q] = [L_src, L_dst(q), ...]: this process's rows for q's slots
+    send = [torch.stack([b[q * L:(q + 1) * L].to(d0) for b in bufs])
+            for q in range(P)]
+    block = send[0]
+    nbytes = block.numel() * block.element_size()
+    wire_in = torch.cat([_wire_bytes(send[q]) if q != me
+                         else torch.empty(0, dtype=torch.uint8)
+                         for q in range(P)])
+    splits = [0 if q == me else nbytes for q in range(P)]
+    wire_out = torch.empty(nbytes * (P - 1), dtype=torch.uint8)
+    dist.all_to_all_single(wire_out, wire_in, output_split_sizes=splits,
+                           input_split_sizes=splits)
+    _sent(wire_in.numel())
+    recv, off = [], 0
+    for q in range(P):
+        if q == me:
+            recv.append(send[q])
+            continue
+        recv.append(_from_wire(wire_out[off:off + nbytes], block.shape,
+                               block.dtype, d0))
+        off += nbytes
+    # recv[q][i, j] = global source q*L+i's rows for local slot j
+    full = torch.cat(recv)          # [S, L, ...] in global source order
+    return [full[:, j].to(mesh.devices[j]) for j in range(L)]
 
 
 def all_gather(mesh: Mesh, xs: list, tiled: bool = False
                ) -> list[torch.Tensor]:
-    """Every shard's ``xs[s]`` gathered on every slot, in shard order:
-    stacked on a new leading axis, or concatenated on dim 0 with
-    ``tiled`` (``lax.all_gather``).  Slots on one device share the
-    gathered tensor."""
+    """Every shard's ``xs[s]`` gathered on every local slot, in global
+    shard order: stacked on a new leading axis, or concatenated on dim 0
+    with ``tiled`` (``lax.all_gather``).  Slots on one device share the
+    gathered tensor.  Across processes every shard's block must have the
+    same shape (SPMD, as under ``shard_map``)."""
     mesh.check(xs)
+    if mesh.distributed:
+        d0 = mesh.devices[0]
+        blocks = _gather_local(mesh, torch.stack([x.to(d0) for x in xs]))
+        g = torch.cat(blocks)
+        if tiled:
+            g = g.reshape((-1,) + tuple(g.shape[2:]))
+        return mesh.replicate(g)
     by_device: dict = {}
     out = []
     for d in mesh.devices:
@@ -170,18 +307,48 @@ def all_gather(mesh: Mesh, xs: list, tiled: bool = False
 
 
 def psum(mesh: Mesh, xs: list) -> list[torch.Tensor]:
-    """The sum of every shard's ``xs[s]``, added in shard order 0..S-1 on
-    slot 0's device (a fixed left fold, no atomics, so a float psum is
-    bit-equal from run to run), then placed on every slot
-    (:meth:`Mesh.replicate`)."""
+    """The sum of every shard's ``xs[s]``, added in global shard order
+    0..S-1 on local slot 0's device (a fixed left fold, no atomics, so a
+    float psum is bit-equal from run to run and from one process to P),
+    then placed on every local slot (:meth:`Mesh.replicate`).  Across
+    processes the partials are gathered first (:func:`all_gather`)."""
     mesh.check(xs)
     d0 = mesh.devices[0]
-    acc = xs[0]
-    for x in xs[1:]:
+    parts = all_gather(mesh, xs)[0] if mesh.distributed else xs
+    acc = parts[0]
+    for x in parts[1:]:
         acc = acc + x.to(d0)
     if acc is xs[0]:
         acc = acc.clone()
     return mesh.replicate(acc)
+
+
+def process_allgather(mesh: Mesh, a) -> "np.ndarray":
+    """``jax.experimental.multihost_utils.process_allgather`` of a host
+    array: ``(P, *a.shape)``, one row per process in process order; every
+    process must pass the same shape.  One process gets ``a[None]``."""
+    import numpy as np
+
+    a = np.ascontiguousarray(a)
+    if not mesh.distributed:
+        return a[None].copy()
+    import torch.distributed as dist
+
+    wire = torch.from_numpy(a.reshape(-1).view(np.uint8).copy())
+    got = [torch.empty_like(wire) for _ in range(mesh.n_processes)]
+    dist.all_gather(got, wire)
+    _sent(wire.numel() * (mesh.n_processes - 1))
+    return np.stack([g.numpy().view(a.dtype).reshape(a.shape)
+                     for g in got])
+
+
+def barrier(mesh: Mesh) -> None:
+    """Every process of the mesh reaches this point (``dist.barrier``);
+    nothing with one process."""
+    if mesh.distributed:
+        import torch.distributed as dist
+
+        dist.barrier()
 
 
 # --- staging (``device_put_handoff``) ---------------------------------------
@@ -232,4 +399,5 @@ def shard_bounds(n: int, num_shards: int) -> list[tuple[int, int]]:
 
 
 __all__ = ["SHARD_AXIS", "Mesh", "ShardedStagingRing", "all_gather",
-           "all_to_all", "make_mesh", "psum", "real_pool", "shard_bounds"]
+           "all_to_all", "barrier", "make_mesh", "process_allgather",
+           "process_slot", "psum", "real_pool", "shard_bounds"]

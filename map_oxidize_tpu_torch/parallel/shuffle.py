@@ -121,15 +121,15 @@ def _exchange(mesh: Mesh, keys: list, vals: list, cap: int, dests=None,
               method: str = "all_to_all"):
     """Route every shard's rows to their owner shard (JAX ``_exchange``).
     ``dests`` overrides the hash buckets per shard (the sort's range
-    partition).  Returns per shard the ``[S*cap]`` rows it owns after the
-    exchange (source-major) and the global count of dropped real rows
-    (the same on every slot)."""
+    partition).  Returns per local shard the ``[S*cap]`` rows it owns
+    after the exchange (source-major) and the global count of dropped
+    real rows (the same on every slot)."""
     if method not in EXCHANGE_COLLECTIVES:
         raise ValueError(f"exchange method must be one of "
                          f"{EXCHANGE_COLLECTIVES}, got {method!r}")
     S = mesh.size
     if dests is None:
-        dests = [None] * S
+        dests = [None] * mesh.n_local
     sent = mesh.run(partial(_route, S=S, cap=cap), keys, vals, dests)
     buf_keys = [x[0] for x in sent]
     buf_vals = [x[1] for x in sent]
@@ -139,8 +139,10 @@ def _exchange(mesh: Mesh, keys: list, vals: list, cap: int, dests=None,
         # exactly the rows all_to_all delivers
         g_keys = all_gather(mesh, buf_keys)
         g_vals = all_gather(mesh, buf_vals)
-        r_keys = [g_keys[s][:, s] for s in range(S)]
-        r_vals = [g_vals[s][:, s] for s in range(S)]
+        r_keys = [g_keys[i][:, mesh.global_index(i)]
+                  for i in range(mesh.n_local)]
+        r_vals = [g_vals[i][:, mesh.global_index(i)]
+                  for i in range(mesh.n_local)]
     else:
         r_keys = all_to_all(mesh, buf_keys)
         r_vals = all_to_all(mesh, buf_vals)

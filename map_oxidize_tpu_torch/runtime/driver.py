@@ -86,12 +86,13 @@ def effective_num_shards(config: JobConfig) -> int:
     ``runtime/driver.py:51``): every CUDA card, or the one CPU device; 1
     when the pool is empty, so a ``cuda`` job without a card reaches the
     one-device path and its named error.  The one answer every caller
-    that must agree with the engine built reads."""
-    from map_oxidize_tpu_torch.parallel.mesh import real_pool
+    that must agree with the engine built reads.  Under a process group
+    of P processes the pool is global: P times the local pool."""
+    from map_oxidize_tpu_torch.parallel.mesh import process_slot, real_pool
 
     n = config.num_shards
     if n == 0:
-        n = max(len(real_pool(config.backend)), 1)
+        n = max(len(real_pool(config.backend)), 1) * process_slot()[1]
     return n
 
 

@@ -19,8 +19,9 @@ happens at the resident-row cap; the driver picks it
   hybrid's placement with the push cadence: the map runs ahead in the
   prefetch thread and each push window is optionally combined map-side.
 * :class:`~map_oxidize_tpu_torch.shuffle.remote.RemoteTransport` — staged
-  from the first row like disk (the JAX package's shared-filesystem stage
-  comes with the multi-process drivers).
+  from the first row like disk; multi-process fold jobs stage on a shared
+  filesystem (``moxt-shuffle-stage-v1`` manifests) from which a surviving
+  peer finishes the job.
 
 ``auto`` routes on corpus size vs the cap (:func:`resolve_transport`).
 On one device every transport runs: ``remote`` places like ``disk``.

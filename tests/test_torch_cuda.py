@@ -1040,3 +1040,102 @@ def test_sharded_kmeans_on_the_card_matches_one_shard(cuda, tmp_path, mode):
         np.bincount(assign_points(pts, one.centroids), minlength=8))
     np.testing.assert_allclose(a.centroids, one.centroids, rtol=0,
                                atol=1e-5 * float(np.abs(pts).max()))
+
+
+# --- the multi-process drivers: 2 processes x 4 slots on the card ---------
+
+_DIST_CHILD = r"""
+import json, sys
+from map_oxidize_tpu_torch.config import JobConfig
+from map_oxidize_tpu_torch.ops import kernel_launches
+from map_oxidize_tpu_torch.parallel import distributed as D
+pid, port, workload, cfg, out = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                                 json.loads(sys.argv[4]), sys.argv[5])
+r = D.run_distributed_job(JobConfig(
+    **cfg, dist_coordinator=f"127.0.0.1:{port}", dist_num_processes=2,
+    dist_process_id=pid), workload)
+D.shutdown_distributed()
+c = r.centroids
+json.dump({"launches": kernel_launches(), "top": [[w.decode(), n] for
+           _h, w, n in r.top], "centroids": None if c is None
+           else c.tobytes().hex()}, open(out % pid, "w"))
+"""
+
+
+def _two_processes(tmp_path, workload, cfg):
+    """``workload`` in 2 card processes (4 slots each on cuda:0), the
+    spawn retried once on a fresh port; their reports."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo)
+    out = str(tmp_path / f"{workload}_%d.json")
+    for attempt in range(2):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _DIST_CHILD, str(i), str(port), workload,
+             json.dumps(cfg), out], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for i in range(2)]
+        logs = []
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=240)[0])
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                logs.append("(timeout)")
+                p.wait()
+        if all(p.returncode == 0 for p in procs):
+            return [json.load(open(out % i)) for i in range(2)]
+        assert attempt == 0 and not any("(timeout)" in g for g in logs), \
+            logs
+    raise AssertionError("unreachable")
+
+
+def test_two_process_wordcount_on_the_card_equals_one_process(cuda,
+                                                              tmp_path):
+    """2 processes x 4 slots on cuda:0 write the one-process S=8 run's
+    bytes (parts concatenated and sorted) and report its top-k."""
+    rng = np.random.default_rng(2)
+    words = [b"w%dq" % i for i in range(3000)]
+    z = rng.zipf(1.2, size=(20_000, 10)) % len(words)
+    inp = tmp_path / "c.txt"
+    inp.write_bytes(b"\n".join(b" ".join(words[j] for j in row)
+                               for row in z) + b"\n")
+    cfg = dict(input_path=str(inp), chunk_bytes=1 << 16,
+               batch_size=1 << 14, num_shards=8, top_k=10)
+    one = run_job(JobConfig(**dict(cfg, output_path=str(
+        tmp_path / "one.txt"))), "wordcount")
+    reports = _two_processes(tmp_path, "wordcount", dict(
+        cfg, output_path=str(tmp_path / "p.txt")))
+    rows = []
+    for i in range(2):
+        rows.extend((tmp_path / f"p.txt.part{i}of2").read_bytes()
+                    .splitlines(keepends=True))
+    assert b"".join(sorted(rows)) == (tmp_path / "one.txt").read_bytes()
+    want = [[w.decode(), c] for w, c in one.top]
+    assert reports[0]["top"] == reports[1]["top"] == want
+
+
+@pytest.mark.parametrize("precision", ["highest", "bf16"])
+def test_two_process_kmeans_on_the_card_equals_one_process(cuda, tmp_path,
+                                                           precision):
+    """2 processes x 4 slots: each launches the kernel once per local
+    shard per iteration, and the centroids are the one-process S=8 fit's
+    bit for bit (the psum adds the 8 partials in shard order)."""
+    path = tmp_path / "pts.npy"
+    _blob_points(path)
+    cfg = dict(input_path=str(path), output_path="", kmeans_k=8,
+               kmeans_iters=5, num_shards=8, kmeans_precision=precision)
+    one = run_job(JobConfig(mapper="device", **cfg), "kmeans")
+    reports = _two_processes(tmp_path, "kmeans", cfg)
+    for r in reports:
+        assert r["launches"]["kmeans_assign_sum"] == 4 * 5
+        assert bytes.fromhex(r["centroids"]) == one.centroids.tobytes()

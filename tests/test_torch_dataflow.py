@@ -235,7 +235,10 @@ def test_sort_sample_validation():
 
 
 @pytest.mark.parametrize("flag", ["--join-input", "--session-gap",
-                                  "--sort-sample"])
+                                  "--sort-sample", "--dist-coordinator",
+                                  "--dist-processes", "--dist-process-id",
+                                  "--remote-stage-dir",
+                                  "--remote-stage-timeout"])
 def test_cli_flag_has_the_jax_name_and_default(flag):
     def action(parser):
         (a,) = [a for a in parser._actions if flag in a.option_strings]

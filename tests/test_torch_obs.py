@@ -458,7 +458,9 @@ FLAGS = ["--metrics-out", "--trace-out", "--trace-dir", "--crash-dir",
          "--ledger-dir", "--obs-port", "--obs-sample-interval",
          "--obs-spool", "--slo-rules", "--incident-dir", "--profile-dir",
          "--host-sample-hz", "--no-native", "--num-shards",
-         "--exchange-collective"]
+         "--exchange-collective", "--dist-coordinator", "--dist-processes",
+         "--dist-process-id", "--remote-stage-dir",
+         "--remote-stage-timeout"]
 
 
 @pytest.mark.parametrize("flag", FLAGS)

@@ -4,9 +4,9 @@ default and ``dest``; on the same metrics documents, run ledgers,
 calibration stores, crash bundles, capture bundles and ``BENCH_r*.json``
 rounds both CLIs print the same stdout bytes and return the same exit
 code, over documents written by a JAX job and by a port job of the same
-config; ``merge``, ``calib probe`` and ``critpath`` over trace shards exit
-2 naming their ROADMAP item; and a subprocess running every offline
-subcommand imports neither ``jax`` nor ``torch``.
+config; ``merge`` and ``critpath`` over a port multi-process job's trace
+shards print what the JAX CLI prints; and a subprocess running every
+offline subcommand imports neither ``jax`` nor ``torch``.
 """
 
 import argparse
@@ -337,29 +337,48 @@ def test_flame_over_a_capture_bundle(docs, pkg):
     _same(["flame", os.path.join(root, "nope")], rc=2)
 
 
-# --- the parts that wait for A7 and A8 ------------------------------------------
+# --- the multi-process parts: real trace shards ------------------------------
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["merge", "TRACE"], "ROADMAP A8"),
-    (["critpath", "TRACE"], "ROADMAP A8"),
-    (["critpath", "TRACE.proc0"], "ROADMAP A8"),
-    (["critpath", "MERGED"], "ROADMAP A8"),
+@pytest.fixture(scope="module")
+def shards(tmp_path_factory):
+    """A port 2-process word count's ``t.json.proc<i>`` trace shards and
+    their merged trace (``merged.json``)."""
+    import test_torch_distributed as td
+    from map_oxidize_tpu_torch.obs.merge import find_shards, merge_to_files
+
+    tmp = tmp_path_factory.mktemp("obs_cli_shards")
+    corpus = td.write_corpus(tmp / "c.txt", lines=1500)
+    td.launch(tmp, "wordcount", dict(
+        input_path=corpus, output_path="", chunk_bytes=4096,
+        batch_size=1 << 12, key_capacity=1 << 12, num_shards=8,
+        trace_out=str(tmp / "t.json")))
+    merge_to_files(find_shards(str(tmp / "t.json")),
+                   str(tmp / "merged.json"))
+    return tmp
+
+
+@pytest.mark.parametrize("argv", [
+    ["merge", "TRACE"],
+    ["critpath", "TRACE"],
+    ["critpath", "TRACE.proc0"],
+    ["critpath", "MERGED"],
 ])
-def test_multi_process_parts_exit_2_naming_their_item(tmp_path, argv, item):
-    trace = tmp_path / "t.json"
-    for i in range(2):
-        (tmp_path / f"t.json.proc{i}").write_text(json.dumps(
-            {"schema": "moxt-obs-shard-v1", "meta": {"process": i},
-             "events": []}))
-    (tmp_path / "merged.json").write_text("[]")
+def test_multi_process_parts_exit_2_naming_their_item(shards, argv):
+    """``obs merge`` and ``obs critpath`` over a port multi-process job's
+    shards, one shard, and the merged trace: both CLIs print the same
+    bytes and exit 0."""
+    trace = shards / "t.json"
     paths = {"TRACE": str(trace), "TRACE.proc0": str(trace) + ".proc0",
-             "MERGED": str(tmp_path / "merged.json"),
-             "STORE": str(tmp_path / "calib")}
-    rc, out, err = _run(port_main, [paths.get(a, a) for a in argv])
-    assert rc == 2 and out == ""
-    assert len(err.splitlines()) == 1 and item in err
-    assert not (tmp_path / "calib").exists()
+             "MERGED": str(shards / "merged.json")}
+    out = _same([paths.get(a, a) for a in argv])
+    assert out
+    if argv[0] == "merge":
+        assert out.startswith(f"merged 2 shards -> {trace}")
+    else:
+        assert "bound by:" in out
+    _same([paths.get(a, a) for a in argv] + (
+        ["--json"] if argv[0] == "critpath" else []))
 
 
 def test_calib_probe_round_trip_fills_a_selectable_curve(tmp_path):

@@ -38,11 +38,9 @@ from map_oxidize_tpu_torch.serve.scheduler import (
     Scheduler,
 )
 
-#: JobConfig fields of the JAX package the port has not got yet: the
-#: multi-process drivers (ROADMAP A8)
-JAX_ONLY_FIELDS = {"dist_coordinator", "dist_num_processes",
-                   "dist_process_id", "remote_stage_dir",
-                   "remote_stage_timeout_s"}
+#: JobConfig fields of the JAX package the port has not got: none (the
+#: multi-process fields came with the multi-process drivers)
+JAX_ONLY_FIELDS: set = set()
 
 
 def _write_corpus(path, lines=200, words=None):
@@ -266,9 +264,10 @@ def test_queue_bound_rejects_named(tmp_path):
 
 
 def test_submit_validation_errors(tmp_path):
-    """Malformed submissions raise named errors; overrides naming a JAX
-    field the port lacks fail at submit as unknown, the multi-process
-    fields as reserved (the JAX list, unchanged)."""
+    """Malformed submissions raise named errors; an unknown field fails at
+    submit as unknown, the multi-process fields as reserved (the JAX
+    list, unchanged), and the remote-stage fields are known overrides, as
+    in the JAX package (``serve/scheduler.py:66-71``)."""
     from map_oxidize_tpu.serve.scheduler import (
         RESERVED_OVERRIDES as JAX_RESERVED,
     )
@@ -280,12 +279,23 @@ def test_submit_validation_errors(tmp_path):
     try:
         with pytest.raises(ValueError, match="unknown workload"):
             sched.submit("terasort", corpus)
-        for name in ("metrics_out", "dist_coordinator", "obs_port"):
+        for name in ("metrics_out", "dist_coordinator", "obs_port",
+                     "dist_num_processes", "dist_process_id"):
             with pytest.raises(ValueError, match="reserved"):
                 sched.submit("wordcount", corpus, overrides={name: "x"})
-        for name in ("nope", "remote_stage_timeout_s", "remote_stage_dir"):
-            with pytest.raises(ValueError, match="unknown config"):
-                sched.submit("wordcount", corpus, overrides={name: "x"})
+        with pytest.raises(ValueError, match="unknown config"):
+            sched.submit("wordcount", corpus, overrides={"nope": "x"})
+        # the remote-stage fields are known overrides, validated as the
+        # JAX package validates them
+        with pytest.raises(ValueError, match="remote_stage_timeout_s"):
+            sched.submit("wordcount", corpus,
+                         overrides={"remote_stage_timeout_s": 0})
+        job = sched.submit("wordcount", corpus, overrides={
+            "remote_stage_dir": str(tmp_path / "stage"),
+            "remote_stage_timeout_s": 5.0})
+        assert job.state != "rejected"
+        assert job.config.remote_stage_dir == str(tmp_path / "stage")
+        assert job.config.remote_stage_timeout_s == 5.0
         with pytest.raises(ValueError):
             sched.submit("wordcount", corpus, overrides={"batch_size": -1})
         missing = sched.submit("wordcount", str(tmp_path / "missing.txt"))
@@ -667,8 +677,11 @@ def test_http_submit_validation(servers, clients):
     with pytest.raises(ServeError, match="reserved"):
         c.submit("wordcount", str(tmp / "warm.txt"), config={"obs_port": 5})
     with pytest.raises(ServeError, match="unknown config"):
+        c.submit("wordcount", str(tmp / "warm.txt"), config={"nope": "x"})
+    # a remote-stage field is a known override: its value is validated
+    with pytest.raises(ServeError, match="remote_stage_timeout_s"):
         c.submit("wordcount", str(tmp / "warm.txt"),
-                 config={"remote_stage_dir": "x"})
+                 config={"remote_stage_timeout_s": 0})
     with pytest.raises(ServeError, match="unknown job"):
         c.cancel("job-9999")
     rejected = c.submit("wordcount", str(tmp / "nope.txt"))
