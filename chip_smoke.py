@@ -2329,8 +2329,8 @@ def measure_peaks() -> dict:
     """The card's sustained bf16 matmul rate (``torch.matmul`` at
     ``PEAK_MM``^3, FLOPs = 2 m n k over the CUDA-event time) and its
     device-to-device copy rate (a 1 GiB ``copy_``, bytes read plus bytes
-    written over the time): the peaks ``obs/xprof.py`` quotes MFU
-    against.  A probe, not a port of anything."""
+    written over the time), beside the published peaks ``obs/xprof.py``
+    quotes MFU against.  A probe, not a port of anything."""
     import torch
 
     a = torch.randn(PEAK_MM, PEAK_MM, device="cuda", dtype=torch.bfloat16)

@@ -162,6 +162,11 @@ class Obs:
     dataplane_enabled: bool = True
     #: first-phase latch for the ``attrib/pre_phase_ms`` stamp
     _setup_stamped: bool = False
+    #: the end of the envelope's set-up (tracer clock) and the thread it
+    #: ran on, stamped by :meth:`recording`; ``finish`` records the
+    #: ``obs/setup`` span from them
+    _setup_end: "float | None" = None
+    _setup_tid: "int | None" = None
 
     @classmethod
     def from_config(cls, config, process: int = 0,
@@ -173,12 +178,17 @@ class Obs:
         ``obs_port``; and ``calib_dir``'s store loads (recording
         ``calib/store_runs``, or ``calib/load_refused`` when it refuses).
         ``trace_out='-'`` collects the trace for ``result.trace`` without
-        writing a file.
+        writing a file, as ``trace_dir`` alone does (whose device trace
+        holds the spans as profiler ranges).
 
         Multi-process jobs pass their slot: progress lines are prefixed
         with the process id and printed by process 0 only (the processes
         advance in lockstep; ``MOXT_PROGRESS_ALL_PROCS=1`` prints every
         process's)."""
+        # the tracer first: its epoch opens the envelope's ``obs/setup``.
+        # A trace_dir job traces too: its spans are then profiler ranges
+        # in the device trace
+        tracer = Tracer(enabled=bool(config.trace_out or config.trace_dir))
         live = config.obs_port >= 0 or config.obs_sample_s > 0
         sample_s = config.obs_sample_s
         if live and sample_s <= 0:
@@ -206,8 +216,7 @@ class Obs:
                            interval_s=config.progress_interval_s,
                            emit=(lambda line: None) if silent else emit)
             hb.silent = silent
-        obs = cls(registry=MetricsRegistry(),
-                  tracer=Tracer(enabled=bool(config.trace_out)),
+        obs = cls(registry=MetricsRegistry(), tracer=tracer,
                   heartbeat=hb, process=process, n_processes=n_processes,
                   dataplane_enabled=bool(config.data_audit))
         obs.xprof_base = _compile.LEDGER.activate(obs)
@@ -332,6 +341,12 @@ class Obs:
                     self.current_phase = prev
                     sample_host_memory(self.registry)
 
+    def step(self, name: str, **attrs) -> "_Step":
+        """One timed step of a driver loop: the span ``name`` when the
+        job is traced, and in every run the counter ``<name>_ms``, the
+        step's wall summed over the job."""
+        return _Step(self, name, attrs)
+
     def feed_span(self, **attrs) -> "Span":
         """Span for one mapped block's engine feed, and the job's
         fine-grained cancellation point."""
@@ -369,12 +384,14 @@ class Obs:
             self.alerts.stop()
 
     def finish_xprof(self) -> dict | None:
-        """Close the job's launch-ledger window: stop the sampler, fold the
+        """Close the job's launch-ledger window: stop the sampler, resolve
+        the job's pending device-time samples (CUDA event pairs), fold the
         per-job delta into ``compile/*`` / ``xprof/*`` gauges and return
         the structured report (None on a second call)."""
         if self.sampler is not None:
             self.sampler.stop()
             self.sampler = None
+        _compile.LEDGER.resolve(self)
         local = _compile.LEDGER.deactivate(self)
         base, self.xprof_base = self.xprof_base, None
         if base is None:
@@ -423,32 +440,47 @@ class Obs:
         ``(summary, trace_events)`` pair the result carries.
         ``trace_events`` is None when tracing was off.  The resident
         server's own bundle (workload ``serve``) has no job wall to
-        decompose, so its finish publishes no critical path."""
-        self.stop_live()
-        xprof_report = self.finish_xprof()
-        attrib_doc = attrib.finalize(
-            self, xprof_report,
-            max(time.time() - self.tracer.wall_start, 1e-9))
-        critpath_doc = None
-        if workload != "serve":
-            critpath_doc = critpath.degenerate_from_attrib(
-                attrib_doc, process=self.process)
-            critpath.publish(self.registry, critpath_doc)
-        if self.plan is not None:
-            _plan.finalize(self, self.plan, attrib_doc)
-        corpus_bytes = 0.0
-        try:
-            corpus_bytes = float(os.path.getsize(config.input_path))
-        except OSError:
-            pass
-        self._merge_calibration(xprof_report, workload, corpus_bytes,
-                                attrib_doc)
-        data_doc = self.finish_dataplane()
-        sample_host_memory(self.registry)
-        sample_device_memory(self.registry)
-        if self.heartbeat is not None:
-            self.heartbeat.final_beat()
-        meta = self.stamp(config, workload)
+        decompose, so its finish publishes no critical path.
+
+        The work up to the exports is the span ``obs/finish``; with the
+        set-up (``obs/setup``: ``from_config`` and the plan solve of
+        :meth:`recording`) it is the counter ``obs/envelope_ms``, the
+        instrumentation's own share of the job's wall, counted before
+        the summary is taken."""
+        t_finish = self.tracer._clock()
+        with self.tracer.span("obs/finish"):
+            self.stop_live()
+            xprof_report = self.finish_xprof()
+            attrib_doc = attrib.finalize(
+                self, xprof_report,
+                max(time.time() - self.tracer.wall_start, 1e-9))
+            critpath_doc = None
+            if workload != "serve":
+                critpath_doc = critpath.degenerate_from_attrib(
+                    attrib_doc, process=self.process)
+                critpath.publish(self.registry, critpath_doc)
+            if self.plan is not None:
+                _plan.finalize(self, self.plan, attrib_doc)
+            corpus_bytes = 0.0
+            try:
+                corpus_bytes = float(os.path.getsize(config.input_path))
+            except OSError:
+                pass
+            self._merge_calibration(xprof_report, workload, corpus_bytes,
+                                    attrib_doc)
+            data_doc = self.finish_dataplane()
+            sample_host_memory(self.registry)
+            sample_device_memory(self.registry)
+            if self.heartbeat is not None:
+                self.heartbeat.final_beat()
+            meta = self.stamp(config, workload)
+        envelope_ms = (self.tracer._clock() - t_finish) * 1e3
+        if self._setup_end is not None:
+            self.tracer.record_span("obs/setup", self.tracer._epoch,
+                                    self._setup_end, tid=self._setup_tid)
+            envelope_ms += (self._setup_end - self.tracer._epoch) * 1e3
+        self.registry.count("obs/envelope_ms", envelope_ms)
+        summary = self.registry.summary()
         if config.metrics_out:
             doc = dict(self.registry.to_dict(), meta=meta)
             doc["attrib"] = attrib_doc
@@ -470,9 +502,8 @@ class Obs:
             trace.insert(0, {"name": "moxt_meta", "ph": "M",
                              "pid": self.tracer._pid, "tid": 0,
                              "args": meta})
-            if config.trace_out != "-":
+            if config.trace_out and config.trace_out != "-":
                 write_json_atomic(config.trace_out, trace, indent=None)
-        summary = self.registry.summary()
         if config.ledger_dir:
             extra: dict = {}
             if self.plan is not None:
@@ -503,7 +534,9 @@ class Obs:
 
         Unless ``config.plan`` is ``'off'``, the job plan is solved first
         (``runtime/planner.py``) and its ``plan/*`` gauges published;
-        planning is evidence, never a reason to fail the job."""
+        planning is evidence, never a reason to fail the job.  The plan's
+        end closes the envelope's set-up (``obs/setup``, from the
+        tracer's epoch in ``from_config``)."""
         self.workload = workload
         if (self.plan is None and workload and workload != "serve"
                 and config.plan != "off"):
@@ -516,6 +549,9 @@ class Obs:
                 _plan.publish(self.registry, self.plan)
             except Exception as e:
                 _log.warning("job planning failed: %s", e)
+        if self._setup_end is None:
+            self._setup_end = self.tracer._clock()
+            self._setup_tid = threading.get_ident()
         try:
             with use_obs(self):
                 yield self
@@ -526,16 +562,49 @@ class Obs:
             raise
 
 
-def observe_device_wait(t0: float) -> None:
+class _Step:
+    """:meth:`Obs.step`.  A traced step's counter reads its span's own two
+    clock reads (an ``Obs`` tracer's clock is ``perf_counter``); an
+    untraced one reads the clock twice itself."""
+
+    __slots__ = ("_registry", "_counter", "_span", "_t0")
+
+    def __init__(self, obs: Obs, name: str, attrs: dict):
+        self._registry = obs.registry
+        self._counter = f"{name}_ms"
+        self._span = obs.tracer.span(name, **attrs)
+
+    def __enter__(self):
+        if self._span is NULL_SPAN:
+            self._t0 = time.perf_counter()
+        return self._span.__enter__()
+
+    def __exit__(self, *exc) -> bool:
+        span = self._span
+        if span is NULL_SPAN:
+            dt = time.perf_counter() - self._t0
+        else:
+            span.__exit__(*exc)
+            dt = span._t1 - span._t0
+        self._registry.count(self._counter, dt * 1e3)
+        return False
+
+
+def observe_device_wait(t0: float) -> float:
     """A blocking device-to-host fetch started at ``t0`` (its wait for the
     device chain that produced the data, plus the copy) into the current
     job's ``device/compute_ms``: the consumer-visible device time of the
     attribution.  Only fetches that block anyway are timed; no sync is
-    added.  A no-op outside a job."""
+    added.  On the card these fetches are all of ``device/compute_ms``:
+    the launch ledger's sampled device time comes from CUDA event pairs
+    and waits for nothing.  Returns the wait in ms, so that a caller's own
+    counter of the same interval takes the same two clock reads; records
+    nothing outside a job."""
+    ms = (time.perf_counter() - t0) * 1e3
     obs = current_obs()
     if obs is not None:
-        obs.registry.observe("device/compute_ms",
-                             (time.perf_counter() - t0) * 1e3)
+        obs.registry.observe("device/compute_ms", ms)
+    return ms
 
 
 def write_json_atomic(path: str, payload, indent: int | None = 1) -> None:

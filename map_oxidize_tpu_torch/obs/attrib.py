@@ -39,7 +39,9 @@ port feeds:
     :mod:`~map_oxidize_tpu_torch.obs.compile`).
 ``device_compute``
     The device waits the job pays (``device/compute_ms``): the blocking
-    fetches and the ledger's sampled device waits.
+    fetches, which already wait for the device.  The launch ledger adds
+    no wait: on the card its samples are CUDA event pairs, and on the CPU
+    each sample adds a zero.
 ``collective_wait``
     Lockstep waits on the slowest participant (``dist/flag_wait_ms``); 0
     on one device.

@@ -8,7 +8,7 @@ torch or touches the card.
 
 * ``obs xprof`` / ``obs data`` / ``obs plan`` — the launch ledger's
   program report (compiles, dispatches, achieved rates against the
-  measured peaks, the dispatch-gap histograms), the data-plane audit and
+  published peaks, the dispatch-gap histograms), the data-plane audit and
   the plan-vs-actual report, from a ``--metrics-out`` document or a
   ``--crash-dir`` bundle;
 * ``obs where`` — the wall-clock attribution (buckets plus the

@@ -20,13 +20,22 @@ has no jit cache, so the JAX notions map as follows:
   CUDA program returns once its launches are queued).
 * **The sampled device compute** is taken on the job's 1st dispatch of a
   program, on every compile and then on every ``SAMPLE_EVERY``-th
-  dispatch.  On the card a CUDA event is recorded after the call on the
-  stream the call ran on, and the wait for that event is timed
-  (``Event.synchronize``: only that stream's work, never the staging
-  copy stream of a concurrent ``BlockStager``).  On the CPU a call
-  returns when its work is done, so the sample is the call's wall; the
-  wait after it (nothing) is what ``device/compute_ms`` gets, as the call's
-  wall is already the dispatch gap (or the compile) of the attribution.
+  dispatch.  On the card a timing CUDA event is recorded on the call's
+  stream before the call and another after it; the ledger keeps the pair
+  and resolves its ``elapsed_time`` once the end event has completed,
+  checked with ``query()`` at later dispatches; the job's
+  ``finish_xprof`` waits for the rest of its own pairs, outside the
+  ledger's lock (a finished job has synchronised by then).  So the
+  sample is the call's own time on its stream, and no dispatch waits for
+  the card for it.  A compile's pair also holds the host's build, so its
+  sample is the pair less the call's wall: the device time left when the
+  call returned (a one-dispatch program such as ``kmeans/fit`` in a
+  fresh process has no other sample).  On the CPU a call returns when
+  its work is done, so the sample is the call's wall, and the wait after
+  it (nothing) is what ``device/compute_ms`` gets, as the call's wall is
+  already the dispatch gap (or the compile) of the attribution.  On the
+  card ``device/compute_ms`` gets nothing from the ledger: only the
+  fetches that block anyway feed it.
 * **Per-program costs.** XLA's ``cost_analysis`` has no counterpart, so
   :data:`COSTS` reckons each program's FLOPs and bytes per dispatch from
   its arguments' shapes; :mod:`~map_oxidize_tpu_torch.obs.xprof` joins
@@ -37,17 +46,20 @@ has no jit cache, so the JAX notions map as follows:
 The ledger is process-global; a job sees its own numbers through the
 per-job overlay opened by :meth:`CompileLedger.activate` and closed by
 :meth:`CompileLedger.deactivate`.  Per dispatch the ledger adds two
-``perf_counter`` reads and a dict probe; only the sampled dispatches wait
-for the device.
+``perf_counter`` reads and a dict probe; a sampled dispatch on the card
+adds two event records, and a dispatch while samples are pending one
+``query()`` each.  No dispatch waits for the device.
 """
 
 from __future__ import annotations
 
+import inspect
 import math
 import threading
 import time
 
 from map_oxidize_tpu_torch.obs.context import current_obs
+from map_oxidize_tpu_torch.obs.metrics import loaded_torch
 from map_oxidize_tpu_torch.utils.logging import get_logger
 
 _log = get_logger(__name__)
@@ -62,7 +74,8 @@ class ProgramStats:
 
     __slots__ = ("name", "compiles", "compile_ms", "backend_compile_ms",
                  "dispatches", "dispatch_ms", "sampled_ms", "samples",
-                 "causes", "sigs", "flops", "bytes_accessed", "chunks")
+                 "causes", "sigs", "flops", "bytes_accessed", "chunks",
+                 "precision")
 
     def __init__(self, name: str):
         self.name = name
@@ -71,7 +84,7 @@ class ProgramStats:
         self.backend_compile_ms = 0.0  # nvcc time inside them
         self.dispatches = 0
         self.dispatch_ms = 0.0         # call -> return, non-compiling
-        self.sampled_ms = 0.0          # sampled device-time waits
+        self.sampled_ms = 0.0          # sampled device times
         self.samples = 0
         #: logical chunks retired by the non-compiling dispatches (a
         #: batched program retires B per call)
@@ -81,6 +94,9 @@ class ProgramStats:
         self.sigs: dict = {}
         self.flops: float | None = None
         self.bytes_accessed: float | None = None
+        #: the ``precision`` argument of the newest signature (the
+        #: k-means programs), which picks the peak MFU is quoted against
+        self.precision: str | None = None
 
     def snapshot(self) -> tuple:
         return (self.compiles, self.compile_ms, self.backend_compile_ms,
@@ -111,12 +127,17 @@ class CompileLedger:
         #: id(obs) -> [obs, baseline snapshot, per-job overlay]
         self._actives: dict[int, list] = {}
         self._tls = threading.local()
+        #: sampled card dispatches whose end event had not completed:
+        #: [stats, job overlay row or None, job, start event, end event,
+        #: ms to take off]
+        self._pending: list[list] = []
 
     def reset(self) -> None:
         """Forget every program and every signature a program has run: the
         ledger of a fresh process."""
         with self._lock:
             self.programs = {}
+            self._pending = []
             self.epoch += 1
 
     # --- job lifecycle ----------------------------------------------------
@@ -130,6 +151,58 @@ class CompileLedger:
                                  for n, p in self.programs.items()}
             self._actives[id(obs)] = [obs, dict(self._active_base), {}]
             return dict(self._active_base)
+
+    def defer_sample(self, stats: ProgramStats, start, end,
+                     less_ms: float = 0.0) -> None:
+        """Keep a sampled card dispatch's event pair until its end event
+        has completed (:meth:`resolve`); its sample is the pair's time
+        less ``less_ms`` (a compile's wall), and not below 0."""
+        obs, _base, local = self._job()
+        with self._lock:
+            row = (local.setdefault(stats.name, _new_row())
+                   if local is not None else None)
+            self._pending.append([stats, row, obs, start, end, less_ms])
+
+    def resolve(self, obs=None) -> None:
+        """Fold in the device time of every pending pair whose end event
+        has completed; with ``obs``, wait for the rest of that job's pairs
+        first (its finish: a finished job has synchronised, so nothing
+        waits; a failed one may still have work queued).  The wait is
+        made outside the ledger's lock, so other jobs' dispatches go on
+        meanwhile."""
+        if not self._pending:
+            return
+        with self._lock:
+            keep, ready = [], []
+            for entry in self._pending:
+                try:
+                    if obs is not None and entry[2] is obs:
+                        ready.append((entry, True))
+                    elif entry[4].query():
+                        ready.append((entry, False))
+                    else:
+                        keep.append(entry)
+                except Exception:  # a failed card: the sample is lost
+                    pass
+            self._pending = keep
+        done = []
+        for (stats, row, _owner, start, end, less_ms), wait in ready:
+            try:
+                if wait:
+                    end.synchronize()
+                done.append((stats, row,
+                             max(start.elapsed_time(end) - less_ms, 0.0)))
+            except Exception:
+                pass
+        if not done:
+            return
+        with self._lock:
+            for stats, row, ms in done:
+                stats.sampled_ms += ms
+                stats.samples += 1
+                if row is not None:
+                    row["sampled_ms"] += ms
+                    row["samples"] += 1
 
     def deactivate(self, obs) -> "dict | None":
         """Close the job's window; returns its overlay (what
@@ -229,9 +302,10 @@ class CompileLedger:
         is the number of real logical chunks the dispatch retired; a
         ``batched`` program also lands ``device/dispatch_gap_per_chunk_ms``
         (gap / chunks), comparable across B.  ``ready_ms`` is the sampled
-        device time; ``wait_ms`` (default: the same) the part of it the
-        host waited after the call returned, which ``device/compute_ms``
-        gets."""
+        device time where it is known at once (the CPU; a card's sample
+        comes later, through :meth:`defer_sample`); ``wait_ms`` (default:
+        the same) the part of it the host waited after the call returned,
+        which ``device/compute_ms`` gets."""
         with self._lock:
             stats.dispatches += 1
             if not compiled:
@@ -306,6 +380,7 @@ class CompileLedger:
                 "shape_sets": len(p.sigs) if p is not None else 0,
                 "flops_per_dispatch": p.flops if p else None,
                 "bytes_per_dispatch": p.bytes_accessed if p else None,
+                "precision": p.precision if p else None,
             }
         return out
 
@@ -464,22 +539,29 @@ def _cost_prefix_pack(u_hi, u_lo, reps, m):
     return float(m), float(2 * 3 * 4 * m)
 
 
+def assign_sum_ops(n: int, k: int, d: int) -> float:
+    """Operations one fused assign + sum needs: a multiply and an add per
+    point, centroid and dimension for the scores, an add per point and
+    dimension for the sums."""
+    return 2.0 * n * k * d + n * d
+
+
 def _cost_kmeans_step(c, p, k, precision="highest"):
     n, d = p.shape
-    return 4.0 * n * k * d, float(_nbytes(p) + 2 * _nbytes(c))
+    return assign_sum_ops(n, k, d), float(_nbytes(p) + 2 * _nbytes(c))
 
 
 def _cost_kmeans_fit(c, p, k, iters, precision="highest"):
     n, d = p.shape
-    return 4.0 * n * k * d * iters, float(iters * _nbytes(p)
-                                          + 2 * _nbytes(c))
+    return assign_sum_ops(n, k, d) * iters, float(iters * _nbytes(p)
+                                                   + 2 * _nbytes(c))
 
 
 def _cost_stream_step(block, c, acc, chunk_rows, **_statics):
     n, d = block.shape
     k = c.shape[0]
-    return 4.0 * n * k * d, float(_nbytes(block) + _nbytes(c)
-                                  + 2 * _nbytes(acc))
+    return assign_sum_ops(n, k, d), float(_nbytes(block) + _nbytes(c)
+                                           + 2 * _nbytes(acc))
 
 
 def _sum_bytes(ts) -> int:
@@ -543,7 +625,7 @@ def _cost_sort_sharded(mesh, buf_keys, buf_docs):
 def _cost_fit_sharded(mesh, p, c, k, loop_iters, precision="highest"):
     n = sum(t.shape[0] for t in p)
     d = c[0].shape[1]
-    return (4.0 * n * k * d * loop_iters,
+    return (assign_sum_ops(n, k, d) * loop_iters,
             float(loop_iters * _sum_bytes(p) + 2 * _nbytes(c[0])))
 
 
@@ -552,8 +634,9 @@ def _cost_stream_step_sharded(mesh, blocks, c, acc, per_shard,
     n = sum(t.shape[0] for t in blocks)
     d = c[0].shape[1]
     k = c[0].shape[0]
-    return 4.0 * n * k * d, float(_sum_bytes(blocks) + _nbytes(c[0])
-                                  + 2 * _nbytes(acc))
+    return assign_sum_ops(n, k, d), float(_sum_bytes(blocks)
+                                           + _nbytes(c[0])
+                                           + 2 * _nbytes(acc))
 
 
 def _cost_tokenize_group(chunks, *, max_tokens, out_keys, fetch_keys,
@@ -589,9 +672,11 @@ def _cost_stream_step_any(*args, **kw):
 #:   unique rows and the packed row written;
 #: * ``device_map/prefix_pack``: m ops (the rep plane's u32 conversion, as
 #:   XLA counts it); bytes = 3m u32 read and written;
-#: * ``kmeans/step``, ``kmeans/stream_step``: 4 n k d (the score product
-#:   and the one-hot sums); bytes = the points read once, the centroids
-#:   read and written (the stream step: its ``(k, d+1)`` partial too);
+#: * ``kmeans/step``, ``kmeans/stream_step``: 2 n k d + n d, what the
+#:   fused kernel needs (the scores, then the sums; the count the
+#:   benchmark's roofline of ``kmeans_assign_sum`` takes); bytes = the
+#:   points read once, the centroids read and written (the stream step:
+#:   its ``(k, d+1)`` partial too);
 #: * ``kmeans/fit``: ``iters`` steps; the points are re-read every one;
 #: * the sharded programs (``shuffle/*``, ``collect/route_append``,
 #:   ``collect/grow``, ``collect/sort_sharded``, ``kmeans/fit_sharded``,
@@ -635,6 +720,22 @@ def _cost_of(name: str, args, kw):
     return (fl if fl and fl > 0 else None, by if by and by > 0 else None)
 
 
+def _precision_of(name: str, args, kw) -> "str | None":
+    """The ``precision`` argument of a call (the k-means programs), bound
+    by its cost row's signature; None for a program without one."""
+    if "precision" in kw:
+        return kw["precision"]
+    fn = COSTS.get(name)
+    if fn is None:
+        return None
+    try:
+        bound = inspect.signature(fn).bind(*args, **kw)
+    except (TypeError, ValueError):
+        return None
+    bound.apply_defaults()
+    return bound.arguments.get("precision")
+
+
 # --- the wrapper ------------------------------------------------------------
 
 
@@ -646,24 +747,31 @@ def _first_tensor(x):
     return None
 
 
-def _sample(args, out, gap_ms: float) -> tuple[float, float]:
-    """``(device ms, waited ms)`` of a call that just returned: on the card
-    both are the wait for an event recorded now on the current stream (the
-    stream the call ran on); on the CPU the device time is the call's own
-    wall and nothing is left to wait for."""
-    t = _first_tensor(out)
-    if t is None:
-        t = _first_tensor(args)
-    if t is None or t.device.type != "cuda":
-        return gap_ms, 0.0
+def _sample_stream(args):
+    """The CUDA stream a sampled call runs on, for its start event: the
+    current stream of its first tensor argument's card, or, for a call
+    with no tensor argument in a process that has initialised CUDA, of the
+    current card; None for a call on the CPU."""
+    t = _first_tensor(args)
+    if t is not None:
+        if t.device.type != "cuda":
+            return None
+        import torch
+
+        return torch.cuda.current_stream(t.device)
+    torch = loaded_torch()
+    if torch is None or not torch.cuda.is_initialized():
+        return None
+    return torch.cuda.current_stream()
+
+
+def _timing_event(stream):
+    """A timing CUDA event recorded now on ``stream``."""
     import torch
 
-    ev = torch.cuda.Event()
-    ev.record(torch.cuda.current_stream(t.device))
-    t1 = time.perf_counter()
-    ev.synchronize()
-    ms = (time.perf_counter() - t1) * 1e3
-    return ms, ms
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(stream)
+    return ev
 
 
 class ObservedProgram:
@@ -705,6 +813,7 @@ class ObservedProgram:
         if new_sig:
             t_cost = time.perf_counter()
             cost = _cost_of(self.name, args, kw)
+            stats.precision = _precision_of(self.name, args, kw)
             obs = led._job()[0]
             if obs is not None and obs.current_phase:
                 obs.registry.count("attrib/lowering_ms",
@@ -715,6 +824,21 @@ class ObservedProgram:
         with led._lock:
             compiled = sig not in self._seen
             self._seen.add(sig)
+        # sample on the job's own dispatch ordinal: its first dispatch of
+        # every program is always sampled
+        _obs, jbase, jlocal = led._job()
+        if jlocal is not None:
+            lrow = jlocal.get(self.name)
+            n = (lrow["dispatches"] if lrow else 0) + 1
+        else:
+            base = jbase.get(self.name)
+            n = stats.dispatches - (base[3] if base else 0) + 1
+        sampled = n <= 1 or n % self._sample_every == 0 or compiled
+        stream = start = None
+        if sampled:
+            stream = _sample_stream(args)
+            if stream is not None:
+                start = _timing_event(stream)
         tls = led._tls
         prev, tls.current = getattr(tls, "current", None), stats
         bc0 = stats.backend_compile_ms
@@ -741,18 +865,21 @@ class ObservedProgram:
                 stats.sigs.setdefault(sig, cost)
                 if cost is not None and stats.flops is None:
                     stats.flops, stats.bytes_accessed = cost
-        # sample on the job's own dispatch ordinal: its first dispatch of
-        # every program is always sampled
-        _obs, jbase, jlocal = led._job()
-        if jlocal is not None:
-            lrow = jlocal.get(self.name)
-            n = (lrow["dispatches"] if lrow else 0) + 1
-        else:
-            base = jbase.get(self.name)
-            n = stats.dispatches - (base[3] if base else 0) + 1
+        led.resolve()
         ready_ms = wait_ms = None
-        if n <= 1 or n % self._sample_every == 0 or compiled:
-            ready_ms, wait_ms = _sample(args, out, gap_ms)
+        if sampled:
+            t = _first_tensor(out)
+            if t is None:
+                t = _first_tensor(args)
+            if t is None or t.device.type != "cuda":
+                # the CPU: the call's wall is its device time
+                ready_ms, wait_ms = gap_ms, 0.0
+            elif start is not None:
+                end = _timing_event(stream)
+                # a compiling call's pair holds the host's build: its
+                # sample is the pair less the call's wall
+                led.defer_sample(stats, start, end,
+                                 gap_ms if compiled else 0.0)
         led.record_dispatch(stats, gap_ms, ready_ms, compiled,
                             chunks=chunks,
                             batched=(observed_chunks is not None

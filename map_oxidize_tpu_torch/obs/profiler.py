@@ -8,8 +8,9 @@ The port of the JAX package's ``obs/profiler.py`` (``CaptureBusy`` :68,
 * :func:`device_trace` is the whole-job trace (``trace_dir`` /
   ``--trace-dir``): host activity and, on a CUDA device, the device's
   kernels and copies (CUPTI), so the hand-written kernels show under
-  their own names (``kmeans_assign_sum``); written as Chrome trace-event
-  JSON under the directory.
+  their own names (``kmeans_assign_sum``), and the job's spans as
+  profiler ranges of the same names (a ``trace_dir`` job is traced);
+  written as Chrome trace-event JSON under the directory.
 * :func:`capture` drives one bounded capture on a LIVE job or resident
   server (``POST /profile``): a ``torch.profiler`` trace with the CPU and
   (where CUDA is available) CUDA activities, exported as Chrome trace
@@ -20,7 +21,9 @@ The port of the JAX package's ``obs/profiler.py`` (``CaptureBusy`` :68,
   ``host_stacks.collapsed`` (flamegraph collapsed-stack format) and
   ``device/``.  CUPTI records device activity for the whole process, so
   kernels launched from other threads (a resident server's workers)
-  appear in a capture taken on the HTTP handler's thread.
+  appear in a capture taken on the HTTP handler's thread; the host
+  ranges of every thread are recorded too, so a traced job's spans on a
+  worker's thread appear as well.
 * ``torch.profiler`` is process-global, so one lock owns it: a whole-job
   trace or one capture's device half.  A capture while a ``trace_dir``
   trace runs records its device half as ``skipped``; a ``trace_dir`` job
@@ -237,10 +240,15 @@ def capture(out_dir: str, duration_s: float = DEFAULT_CAPTURE_S,
             owns_device = True
             try:
                 import torch
-                from torch.profiler import profile
+                from torch.profiler import _ExperimentalConfig, profile
 
+                # host ranges of every thread: the capture, taken on the
+                # HTTP handler's thread, holds the spans of the jobs on
+                # the workers' threads (obs/trace.py mirrors them)
                 prof = profile(activities=_activities(
-                    torch.cuda.is_available()))
+                    torch.cuda.is_available()),
+                    experimental_config=_ExperimentalConfig(
+                        profile_all_threads=True))
                 prof.start()
                 device_doc["dir"] = device_dir
             except Exception as e:

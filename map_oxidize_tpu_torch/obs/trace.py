@@ -15,6 +15,15 @@ idents to small ``tid`` numbers (0 = the first thread seen, the driver).
 Disabled tracers hand out one shared no-op span object, so the per-site
 cost of an un-traced run is a single attribute check.
 
+While a ``torch.profiler`` capture is recording (the benchmark's, a
+``trace_dir`` whole-job trace, a ``POST /profile`` capture), every span
+also opens a profiler range of the same name on its own thread, so the
+capture holds the port's spans on the profiler's own clock, beside the
+device's kernels and copies.  The check is one flag of
+``torch.autograd.profiler``, read only once this process has imported
+torch; this module never imports it.  Without a capture an enabled
+tracer pays that one check per span.
+
 The pipeline's producer/consumer handoff spans carry ``seq=<n>`` tags in
 their args, pairing each ``<name>/produce`` with the consumer's
 ``<name>/feed_wait`` of the same item.
@@ -26,8 +35,46 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 import threading
 import time
+
+#: ``torch.autograd.profiler`` once this process has imported torch (read
+#: from ``sys.modules``, never imported here)
+_autograd_profiler = None
+
+
+def _capture_running() -> bool:
+    """True while a ``torch.profiler`` capture records in this process."""
+    global _autograd_profiler
+    prof = _autograd_profiler
+    if prof is None:
+        prof = _autograd_profiler = sys.modules.get(
+            "torch.autograd.profiler")
+        if prof is None:
+            return False
+    return prof._is_profiler_enabled
+
+
+def _open_range(name: str):
+    """A profiler range ``name`` opened now on this thread (closed by
+    :func:`_close_range`), or None when the profiler refuses it.  The
+    range is torch's C++ ``_RecordFunctionFast``: the Python
+    ``record_function`` runs a profiled op at each end, which under a
+    capture stretches the range tens of microseconds past the span."""
+    try:
+        rf = sys.modules["torch"]._C._profiler._RecordFunctionFast(name)
+        rf.__enter__()
+        return rf
+    except Exception:  # profiling is evidence: it never fails a job
+        return None
+
+
+def _close_range(rf) -> None:
+    try:
+        rf.__exit__(None, None, None)
+    except Exception:
+        pass
 
 
 class _NullSpan:
@@ -55,13 +102,16 @@ class Span:
     is annotated on the event (``error`` attribute) rather than losing
     the span."""
 
-    __slots__ = ("_tracer", "name", "attrs", "_t0", "_depth", "_done")
+    __slots__ = ("_tracer", "name", "attrs", "_t0", "_t1", "_depth",
+                 "_done", "_range")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: dict):
         self._tracer = tracer
         self.name = name
         self.attrs = attrs
         self._done = False
+        #: the mirrored profiler range while a capture records
+        self._range = None
 
     def set(self, **attrs) -> "Span":
         """Attach/overwrite attributes while the span is open."""
@@ -69,6 +119,10 @@ class Span:
         return self
 
     def __enter__(self) -> "Span":
+        # the mirrored range encloses the span: its own cost stays out of
+        # the span's time
+        if _capture_running():
+            self._range = _open_range(self.name)
         self._t0 = self._tracer._clock()
         stack = self._tracer._stack()
         self._depth = len(stack)
@@ -76,7 +130,10 @@ class Span:
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
-        t1 = self._tracer._clock()
+        t1 = self._t1 = self._tracer._clock()
+        if self._range is not None:
+            _close_range(self._range)
+            self._range = None
         stack = self._tracer._stack()
         # exception safety: pop through to this span even if a child span
         # leaked (its __exit__ never ran because of a lower-level crash)
@@ -168,6 +225,16 @@ class Tracer:
         if not self.enabled:
             return NULL_SPAN
         return Span(self, name, attrs)
+
+    def record_span(self, name: str, t0: float, t1: float,
+                    tid: int | None = None, **attrs) -> None:
+        """Record a span that already ended: ``t0`` to ``t1`` on this
+        tracer's clock, at depth 0, on thread ``tid`` (default: this
+        one).  For a region that no ``with`` block can enclose, such as
+        the job envelope's set-up, which opens in one call and closes in
+        another; it has no profiler range."""
+        if self.enabled:
+            self._record(name, t0, t1, 0, attrs, tid=tid)
 
     def instant(self, name: str, **attrs) -> None:
         """Record a zero-duration marker (demotion, spill begin, snapshot

@@ -5,11 +5,12 @@ the live device sampler.  The port of the JAX package's ``obs/xprof.py``
 
 * :func:`job_report` joins a job's launch-ledger delta
   (:meth:`~map_oxidize_tpu_torch.obs.compile.CompileLedger.job_delta`)
-  with the card's peaks into per-program rows: achieved FLOP/s and bytes/s
-  over the estimated device time (the sampled device waits when there are
-  samples, else the dispatch walls), MFU and bandwidth share against the
-  peaks, and a memory- or compute-bound class from the arithmetic
-  intensity against the machine balance;
+  with the card's published peaks into per-program rows: achieved FLOP/s
+  and bytes/s over the estimated device time (the sampled device times
+  when there are samples, else the dispatch walls), MFU against the peak
+  of the program's precision and bandwidth share, and a memory- or
+  compute-bound class from the arithmetic intensity against the machine
+  balance at that precision;
 * :class:`DeviceSampler` is one low-rate daemon thread per job: the live
   device-memory watermark (``hbm/live_bytes_device<i>``) and the stall
   detector (one ``[stalled]`` line naming the open spans when no chunk
@@ -27,33 +28,42 @@ from map_oxidize_tpu_torch.utils.logging import get_logger
 
 _log = get_logger(__name__)
 
-#: measured peaks by ``torch.cuda.get_device_name()``: the sustained bf16
-#: matmul rate (``torch.matmul`` at 8192^3) and the device-to-device copy
-#: rate, from ``chip_smoke.py`` phase 12 on an H100 80GB HBM3 at a 700 W
-#: power limit (PERF.md section 5).  Any other card, and the CPU, has no
+#: published peaks by ``torch.cuda.get_device_name()``: the dense rates
+#: without sparsity of the card's data sheet (the table of
+#: ``portbench/roofline/peaks.json``, the H100 SXM).  A program's MFU is
+#: quoted against the peak of the precision it runs: ``bf16`` (the tensor
+#: cores) against ``flops_bf16``, every other program (``highest``:
+#: float32 on the CUDA cores, no TF32; the integer hashing, sorts and
+#: folds) against ``flops``, the float32 rate.  Any other card (the H100
+#: PCIe and NVL have lower rates of their own), and the CPU, has no
 #: entry: MFU is omitted there.
-MEASURED_PEAKS = {
-    "NVIDIA H100 80GB HBM3": {"flops": 8.02769e14, "membw": 2.99651e12},
+PUBLISHED_PEAKS = {
+    "NVIDIA H100 80GB HBM3": {"flops": 67e12, "flops_bf16": 989e12,
+                              "membw": 3.35e12},
 }
 
 #: machine-balance fallback (FLOPs per byte) for the bound class when no
-#: peak pair is known: the H100 row's ratio, rounded
+#: peak pair is known: the bf16 balance once measured on an H100 (8.03e14
+#: FLOP/s over 3.00e12 B/s), rounded
 DEFAULT_BALANCE = 268.0
 
 
 def device_peaks() -> dict:
-    """The peak rates MFU is quoted against.  ``MOXT_PEAK_FLOPS`` /
-    ``MOXT_PEAK_MEMBW`` override per field; what they leave unset comes
-    from :data:`MEASURED_PEAKS` for the card this process has already
-    initialised (never initialising CUDA), and stays None otherwise."""
-    peaks = {"flops": None, "membw": None, "source": "none"}
+    """The peak rates MFU is quoted against: ``flops`` (float32),
+    ``flops_bf16`` and ``membw``.  ``MOXT_PEAK_FLOPS`` /
+    ``MOXT_PEAK_MEMBW`` override per field (``MOXT_PEAK_FLOPS`` for every
+    precision); what they leave unset comes from :data:`PUBLISHED_PEAKS`
+    for the card this process has already initialised (never initialising
+    CUDA), and stays None otherwise."""
+    peaks = {"flops": None, "flops_bf16": None, "membw": None,
+             "source": "none"}
     try:
         torch = loaded_torch()
         if torch is not None and torch.cuda.is_initialized():
-            row = MEASURED_PEAKS.get(torch.cuda.get_device_name(
+            row = PUBLISHED_PEAKS.get(torch.cuda.get_device_name(
                 torch.cuda.current_device()))
             if row is not None:
-                peaks.update(row, source="measured-default")
+                peaks.update(row, source="published")
     except Exception:
         pass
     env_used = False
@@ -64,12 +74,22 @@ def device_peaks() -> dict:
             try:
                 peaks[key] = float(v)
                 env_used = True
+                if key == "flops":
+                    peaks["flops_bf16"] = None
             except ValueError:
                 pass
     if env_used:
         peaks["source"] = ("env" if peaks["source"] == "none"
                            else f"env+{peaks['source']}")
     return peaks
+
+
+def peak_flops(peaks: dict, precision: "str | None") -> "float | None":
+    """The peak a program of ``precision`` runs against (module
+    comment of :data:`PUBLISHED_PEAKS`)."""
+    if precision == "bf16" and peaks.get("flops_bf16"):
+        return peaks["flops_bf16"]
+    return peaks["flops"]
 
 
 def job_report(delta: dict) -> dict:
@@ -84,12 +104,14 @@ def job_report(delta: dict) -> dict:
         n = d["dispatches"]
         flops = d.get("flops_per_dispatch")
         bytes_ = d.get("bytes_per_dispatch")
-        # device time: mean sampled wait x dispatches when sampled, else
-        # the summed dispatch walls (an upper bound)
+        peak = peak_flops(peaks, d.get("precision"))
+        # device time: mean sampled device time x dispatches when sampled
+        # (CUDA event pairs on the card, the call's wall on the CPU),
+        # else the summed dispatch walls (an upper bound)
         dev_s = None
         if d["device_samples"] > 0 and d["sampled_device_ms"] > 0:
             dev_s = (d["sampled_device_ms"] / d["device_samples"]) * n / 1e3
-            row["device_time_source"] = "sampled_ready_wait"
+            row["device_time_source"] = "sampled_device_time"
         elif d["dispatch_ms"] > 0:
             dev_s = d["dispatch_ms"] / 1e3
             row["device_time_source"] = "dispatch_wall"
@@ -102,9 +124,8 @@ def job_report(delta: dict) -> dict:
                 d["dispatch_ms"] / ch, 4)
         if n and flops and dev_s:
             row["achieved_flops_per_s"] = round(flops * n / dev_s, 1)
-            if peaks["flops"]:
-                row["mfu_pct"] = round(
-                    100.0 * flops * n / dev_s / peaks["flops"], 3)
+            if peak:
+                row["mfu_pct"] = round(100.0 * flops * n / dev_s / peak, 3)
         if n and bytes_ and dev_s:
             row["achieved_bytes_per_s"] = round(bytes_ * n / dev_s, 1)
             if peaks["membw"]:
@@ -113,7 +134,9 @@ def job_report(delta: dict) -> dict:
         if flops and bytes_:
             intensity = flops / bytes_
             row["intensity_flops_per_byte"] = round(intensity, 4)
-            row["bound"] = "compute" if intensity >= balance else "memory"
+            bal = peak / peaks["membw"] if peak and peaks["membw"] \
+                else balance
+            row["bound"] = "compute" if intensity >= bal else "memory"
         programs[name] = row
     return {
         "programs": programs,

@@ -1481,7 +1481,7 @@ def finish_distributed_obs(obs: Obs, config: JobConfig, workload: str
         trace.insert(0, {"name": "moxt_meta", "ph": "M",
                          "pid": obs.tracer._pid, "tid": 0, "args": meta})
     skew = None
-    if trace is not None and config.trace_out != "-":
+    if trace is not None and config.trace_out and config.trace_out != "-":
         from map_oxidize_tpu_torch.obs.merge import shard_path, write_shard
 
         write_shard(shard_path(config.trace_out, obs.process), meta,

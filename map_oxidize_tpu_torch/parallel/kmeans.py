@@ -26,7 +26,7 @@ import time
 import numpy as np
 import torch
 
-from map_oxidize_tpu_torch.obs.compile import observed
+from map_oxidize_tpu_torch.obs.compile import assign_sum_ops, observed
 from map_oxidize_tpu_torch.obs.context import current_obs
 from map_oxidize_tpu_torch.ops.kmeans_kernel import fused_assign_sum
 from map_oxidize_tpu_torch.parallel.mesh import (
@@ -199,7 +199,7 @@ def kmeans_fit_streamed(path: str, centroids, iters: int = 1,
     starts = list(range(0, n, chunk_rows))
     dtype = torch.bfloat16 if precision == "bf16" else torch.float32
     chunk_device_bytes = chunk_rows * d * dtype.itemsize
-    flops_per_chunk = 4.0 * chunk_rows * k * d
+    flops_per_chunk = assign_sum_ops(chunk_rows, k, d)
     produce_ms = None
     if (dispatch_batch == 0 and len(starts) > 1
             and not has_cached_auto("kmeans/stream_step",
@@ -211,7 +211,7 @@ def kmeans_fit_streamed(path: str, centroids, iters: int = 1,
         dispatch_batch, n_chunks=len(starts),
         chunk_device_bytes=chunk_device_bytes,
         flops_per_chunk=flops_per_chunk, produce_ms=produce_ms,
-        program="kmeans/stream_step")
+        program="kmeans/stream_step", precision=precision)
     if obs is not None:
         record_dispatch_batch(obs.registry, B, binfo,
                               fresh_probe_ms=produce_ms)

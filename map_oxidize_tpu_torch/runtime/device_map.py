@@ -33,6 +33,7 @@ rows once, one group behind.
 
 from __future__ import annotations
 
+import itertools
 import time
 
 import numpy as np
@@ -155,16 +156,17 @@ class _PackedFetch:
 
     def finish(self, pending):
         """Block until the pending copy has landed (timed into
-        ``device/compute_ms``); returns ``(packed_u32, fetch_overflow)``,
-        ``fetch_overflow(nu, s)`` of shard ``s`` (default 0)."""
+        ``device/compute_ms``); returns ``(packed_u32, fetch_overflow,
+        wait_ms)``, ``fetch_overflow(nu, s)`` of shard ``s`` (default 0)
+        and ``wait_ms`` the wait."""
         outs, buf, event = pending
         t0 = time.perf_counter()
         if event is not None:
             event.synchronize()
-        observe_device_wait(t0)
+        wait_ms = observe_device_wait(t0)
         packed = buf.numpy().view(np.uint32)
         return packed, (lambda nu, s=0: self._overflow(outs[s], event,
-                                                       nu))
+                                                       nu)), wait_ms
 
     def _overflow(self, outs, event, nu: int):
         """The ``(hi, lo, rep)`` prefix of a chunk with more unique keys
@@ -260,23 +262,41 @@ def _run_device_wordcount_body(config: JobConfig, obs,
     fetch = _PackedFetch(engine.device, 3 + 3 * tok.fetch_keys)
 
     def _process(pending) -> None:
-        chunk, handle = pending
-        dicts.process_packed(chunk, *fetch.finish(handle))
+        seq, chunk, handle = pending
+        with obs.tracer.span("device_map/fetch_wait", seq=seq,
+                             bytes=len(chunk)):
+            packed, overflow, wait_ms = fetch.finish(handle)
+        # the wait's own two clock reads, already device/compute_ms's
+        metrics.count("device_map/fetch_wait_ms", wait_ms)
+        with obs.step("device_map/dict", seq=seq, bytes=len(chunk)):
+            dicts.process_packed(chunk, packed, overflow)
 
+    # each chunk's host steps, spans when traced and device_map/<step>_ms
+    # counters always: read (the cut at whitespace), stage (the pad and
+    # the pinned ring), enqueue (the tokenizer, the fold and the packed
+    # copy), then fetch_wait and dict one chunk behind
+    chunks = iter_chunks_capped(config.input_path, config.chunk_bytes,
+                                resume_off)
     pending: tuple | None = None
     off = resume_off
     hb_records = dicts.records_in
     with obs.phase("map+reduce"):
-        for seq, chunk in enumerate(iter_chunks_capped(
-                config.input_path, config.chunk_bytes, resume_off)):
-            slot = ring.stage(seq, tok.pad_chunk(chunk)[:, None])
-            outs = tok.map_padded(ring.acquire(slot).view(-1))
-            ring.release(slot, seq)
-            engine.feed_device(outs[0], outs[1], outs[2])  # async merge
-            handle = fetch.start([outs], outs[4])
+        for seq in itertools.count():
+            with obs.step("device_map/read", seq=seq) as span:
+                chunk = next(chunks, None)
+                span.set(bytes=0 if chunk is None else len(chunk))
+            if chunk is None:
+                break
+            with obs.step("device_map/stage", seq=seq, bytes=len(chunk)):
+                slot = ring.stage(seq, tok.pad_chunk(chunk)[:, None])
+            with obs.step("device_map/enqueue", seq=seq, bytes=len(chunk)):
+                outs = tok.map_padded(ring.acquire(slot).view(-1))
+                ring.release(slot, seq)
+                engine.feed_device(outs[0], outs[1], outs[2])  # async
+                handle = fetch.start([outs], outs[4])
             if pending is not None:
                 _process(pending)  # blocks; overlaps this chunk's work
-            pending = (chunk, handle)
+            pending = (seq, chunk, handle)
             n_chunks += 1
             off += len(chunk)
             if obs.heartbeat is not None:
@@ -431,7 +451,7 @@ def _run_sharded_device_body(config: JobConfig, obs,
 
     def _process_group(pending) -> None:
         group, handle = pending
-        packed, overflow = fetch.finish(handle)
+        packed, overflow, _wait_ms = fetch.finish(handle)
         packed = packed.reshape(S, -1)  # ONE fetch per group
         for s, chunk in enumerate(group):
             dicts[s].process_packed(chunk, packed[s],

@@ -13,8 +13,10 @@ streamed k-means fit retires.  The port of the JAX package's
   preference order: the launch ledger's measured per-dispatch gap and
   sampled device compute (a warm process), the calibration store's
   program curve (``calib_dir``: a cold process planning from the last
-  run's measurements), the roofline estimate (FLOPs per chunk over the
-  card's measured peak), and the defaults last;
+  run's measurements), the roofline estimate (the kernel's operations
+  per chunk over the card's published peak at the fit's precision,
+  :func:`~map_oxidize_tpu_torch.obs.xprof.peak_flops`), and the defaults
+  last;
 * the result is capped by the device-memory estimate: two staged blocks
   are in flight at once, so B may not exceed ``budget / (4 *
   chunk_bytes)``.
@@ -94,7 +96,9 @@ def measured_dispatch_floor_ms(program: str,
 
 def measured_compute_ms_per_chunk(program: str) -> float | None:
     """Sampled device compute per logical chunk of ``program``: the mean
-    sample over the observed chunks per dispatch."""
+    sample over the observed chunks per dispatch (the samples whose CUDA
+    events have completed)."""
+    LEDGER.resolve()
     p = LEDGER.programs.get(program)
     if p is None or p.samples <= 0 or p.sampled_ms <= 0:
         return None
@@ -144,17 +148,20 @@ def resolve_dispatch_batch(requested: int, *, n_chunks: int = 0,
                            produce_ms: float | None = None,
                            program: str = "kmeans/stream_step",
                            default_auto: int = DEFAULT_AUTO_B,
+                           precision: str | None = None,
                            ) -> tuple[int, dict]:
     """The effective dispatch batch B and the evidence behind it.
-    ``requested`` is the config value (0 = auto, N >= 1 pins).  Returns
-    ``(B, info)``; ``info`` carries the mode and every auto input for the
-    ``dispatch/*`` record."""
+    ``requested`` is the config value (0 = auto, N >= 1 pins);
+    ``precision``, the fit's, picks the peak of the cold roofline
+    estimate.  Returns ``(B, info)``; ``info`` carries the mode and every
+    auto input for the ``dispatch/*`` record."""
     if requested >= 1:
         b = requested
         info = {"mode": "fixed", "requested": requested}
     else:
         b, info = _resolve_auto(program, chunk_device_bytes,
-                                flops_per_chunk, produce_ms, default_auto)
+                                flops_per_chunk, produce_ms, default_auto,
+                                precision)
     if n_chunks > 0 and b > n_chunks:
         b = n_chunks
         info["capped_by_chunks"] = n_chunks
@@ -164,8 +171,10 @@ def resolve_dispatch_batch(requested: int, *, n_chunks: int = 0,
 
 def _resolve_auto(program: str, chunk_device_bytes: int,
                   flops_per_chunk: float | None,
-                  produce_ms: float | None, default_auto: int
-                  ) -> tuple[int, dict]:
+                  produce_ms: float | None, default_auto: int,
+                  precision: str | None = None) -> tuple[int, dict]:
+    # the key needs no precision: it sets the element width, so
+    # ``chunk_device_bytes`` differs with it
     key = (program, chunk_device_bytes, flops_per_chunk, _platform())
     with _auto_lock:
         hit = _auto_cache.get(key)
@@ -202,9 +211,12 @@ def _resolve_auto(program: str, chunk_device_bytes: int,
             compute = curve["compute_ms_per_sample"]
             info["compute_source"] = "calib_curve"
         elif flops_per_chunk:
-            from map_oxidize_tpu_torch.obs.xprof import device_peaks
+            from map_oxidize_tpu_torch.obs.xprof import (
+                device_peaks,
+                peak_flops,
+            )
 
-            peak = device_peaks().get("flops")
+            peak = peak_flops(device_peaks(), precision)
             if peak:
                 compute = flops_per_chunk / peak * 1e3
                 info["compute_source"] = "roofline_estimate"

@@ -34,8 +34,8 @@ import numpy as np
 import torch
 
 from map_oxidize_tpu_torch.api import Mapper, MapOutput, SumReducer
-from map_oxidize_tpu_torch.obs import observe_device_wait
-from map_oxidize_tpu_torch.obs.compile import observed
+from map_oxidize_tpu_torch.obs import NULL_SPAN, observe_device_wait
+from map_oxidize_tpu_torch.obs.compile import assign_sum_ops, observed
 from map_oxidize_tpu_torch.obs.context import current_obs
 from map_oxidize_tpu_torch.ops.kmeans_kernel import (
     fused_assign_sum,
@@ -191,9 +191,13 @@ def kmeans_fit_device(points, centroids, iters: int = 1, device=None,
     device: the host read of a memory map, the bf16 rounding and the copy,
     as the JAX package's ``device_put`` of the map reads it) and ``iter_s``
     (the whole iteration chain, synchronised, ``on_iter``'s calls
-    included).  Inside a job, each blocking centroid fetch (the
-    per-iteration one for ``on_iter`` and the final one, which waits for
-    the whole iteration chain) is timed into its ``device/compute_ms``."""
+    included).  Inside a job, the transfer's two steps are also the
+    counters ``kmeans/read_points_ms`` (the copy out of the caller's
+    array and the bf16 rounding) and ``kmeans/copy_points_ms`` (the copy
+    to the device and its sync), and spans of the same names when the job
+    is traced; and each blocking centroid fetch (the per-iteration one for
+    ``on_iter`` and the final one, which waits for the whole iteration
+    chain) is timed into its ``device/compute_ms``."""
     if device is None:
         from map_oxidize_tpu_torch.runtime.engine import pick_device
 
@@ -206,14 +210,20 @@ def kmeans_fit_device(points, centroids, iters: int = 1, device=None,
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
+    obs = current_obs()
+    step = obs.step if obs is not None else _no_step
     t0 = time.perf_counter()
-    # a copy: the caller's array may be a read-only memory map
-    points = torch.from_numpy(np.array(points, np.float32))
-    if precision == "bf16":
-        points = points.to(torch.bfloat16)  # round to nearest even
-    p = points.to(device)
-    del points
-    _sync()
+    with step("kmeans/read_points") as span:
+        # a copy: the caller's array may be a read-only memory map
+        points = torch.from_numpy(np.array(points, np.float32))
+        if precision == "bf16":
+            points = points.to(torch.bfloat16)  # round to nearest even
+        nbytes = points.numel() * points.element_size()
+        span.set(bytes=nbytes)
+    with step("kmeans/copy_points", bytes=nbytes):
+        p = points.to(device)
+        del points
+        _sync()
     if timings is not None:
         timings["transfer_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -227,6 +237,11 @@ def kmeans_fit_device(points, centroids, iters: int = 1, device=None,
     if timings is not None:
         timings["iter_s"] = time.perf_counter() - t0
     return out
+
+
+def _no_step(name: str, **attrs):
+    """``Obs.step`` outside a job: times nothing."""
+    return NULL_SPAN
 
 
 def _fetch(c: torch.Tensor) -> np.ndarray:
@@ -341,7 +356,7 @@ def kmeans_fit_streamed_device(path: str, centroids, iters: int = 1,
     starts = list(range(0, n, chunk_rows))
     dtype = torch.bfloat16 if precision == "bf16" else torch.float32
     chunk_device_bytes = chunk_rows * d * dtype.itemsize
-    flops_per_chunk = 4.0 * chunk_rows * k * d
+    flops_per_chunk = assign_sum_ops(chunk_rows, k, d)
     produce_ms = None
     if (dispatch_batch == 0 and len(starts) > 1
             and not has_cached_auto("kmeans/stream_step",
@@ -354,7 +369,7 @@ def kmeans_fit_streamed_device(path: str, centroids, iters: int = 1,
         dispatch_batch, n_chunks=len(starts),
         chunk_device_bytes=chunk_device_bytes,
         flops_per_chunk=flops_per_chunk, produce_ms=produce_ms,
-        program="kmeans/stream_step")
+        program="kmeans/stream_step", precision=precision)
     if obs is not None:
         record_dispatch_batch(obs.registry, B, binfo,
                               fresh_probe_ms=produce_ms)

@@ -283,3 +283,233 @@ def test_every_program_declares_a_cost():
         flops, nbytes = led._cost_of(name.split(" ")[0], a_, kw)
         assert nbytes > 0, name
         assert (flops is None) == (name in copies), name
+
+
+class _FakeEvent:
+    """A CUDA event's surface the ledger uses, on a fake clock (ms)."""
+
+    def __init__(self, t: float, waits: list):
+        self.t, self.done, self.waits = t, False, waits
+
+    def query(self) -> bool:
+        return self.done
+
+    def synchronize(self) -> None:
+        self.waits.append(self.t)
+        self.done = True
+
+    def elapsed_time(self, end) -> float:
+        return end.t - self.t
+
+
+class _CardTensor:
+    """What the ledger reads of a tensor on the card."""
+
+    device = types.SimpleNamespace(type="cuda")
+    shape, dtype = (4,), "float32"
+
+    def element_size(self) -> int:
+        return 4
+
+
+def test_a_card_sample_is_an_event_pair_resolved_without_a_wait(
+        monkeypatch):
+    """On the card a sampled dispatch records an event before and after
+    the call; the pair resolves at a later dispatch once its end event has
+    completed, or at the job's ``finish_xprof``, and no dispatch waits.
+    A compile's sample is its pair less the call's wall (the host's
+    build is in the pair), and ``device/compute_ms`` gets nothing."""
+    _fresh()
+    waits, made = [], []
+
+    def event(stream):
+        i = len(made)  # pair i // 2: start at 10 (i // 2), end 2.5 later
+        made.append(_FakeEvent(10.0 * (i // 2) + 2.5 * (i % 2), waits))
+        return made[-1]
+
+    monkeypatch.setattr(led, "_sample_stream", lambda args: "stream")
+    monkeypatch.setattr(led, "_timing_event", event)
+    prog = led.observed("test/card", lambda x: _CardTensor())
+    obs = Obs.from_config(JobConfig(backend="cpu"))
+    for i in range(40):
+        prog(_CardTensor())
+        if i == 15:  # the 16th dispatch's kernel ends before the 17th
+            assert len(made) == 4 and not waits
+            made[3].done = True
+    assert len(made) == 6 and not waits
+    stats = led.LEDGER.programs["test/card"]
+    assert stats.samples == 1 and stats.sampled_ms == 2.5
+    rep = obs.finish_xprof()
+    # the finish waits for the job's pairs still pending: the compile's
+    # and the last one
+    assert waits == [made[1].t, made[5].t]
+    row = rep["programs"]["test/card"]
+    assert row["device_samples"] == 3
+    assert 6.5 < row["sampled_device_ms"] <= 7.5
+    assert row["device_time_source"] == "sampled_device_time"
+    assert "device/compute_ms" not in obs.registry.histograms
+    assert obs.registry.histograms["device/dispatch_gap_ms"].count == 39
+
+
+def test_kmeans_costs_are_what_the_kernel_needs():
+    """2 n k d + n d per assign + sum (the scores, then the sums), times
+    the iterations of a fit, summed over the shards of a sharded one."""
+    import torch
+
+    from map_oxidize_tpu_torch.parallel.mesh import make_mesh
+
+    n, k, d = 100, 8, 5
+    one = 2 * n * k * d + n * d
+    c, p = torch.zeros(k, d), torch.zeros(n, d)
+    half = [torch.zeros(n // 2, d)] * 2
+    m = make_mesh(2, "cpu")
+    assert led._cost_of("kmeans/step", (c, p, k), {})[0] == one
+    assert led._cost_of("kmeans/fit", (c, p, k, 3), {})[0] == 3 * one
+    assert led._cost_of("kmeans/stream_step",
+                        (p, c, torch.zeros(k, d + 1), 50), {})[0] == one
+    assert led._cost_of("kmeans/fit_sharded",
+                        (m, half, [c] * 2, k, 3), {})[0] == 3 * one
+    assert led._cost_of("kmeans/stream_step",
+                        (m, half, [c] * 2, torch.zeros(k, d + 1), 25),
+                        {})[0] == one
+
+
+def test_a_kmeans_job_s_row_carries_its_precision_and_cost(tmp_path):
+    _corpus, pts = _inputs(tmp_path)
+    _fresh()
+    for precision in ("highest", "bf16"):
+        r = run_job(JobConfig(input_path=pts, backend="cpu", mapper="device",
+                              kmeans_k=4, kmeans_iters=3, output_path="",
+                              metrics=False, kmeans_precision=precision,
+                              metrics_out=str(tmp_path / "m.json")),
+                    "kmeans")
+        import json
+
+        row = json.loads((tmp_path / "m.json").read_text())["xprof"][
+            "programs"]["kmeans/fit"]
+        assert row["precision"] == precision
+        assert row["flops_per_dispatch"] == 3 * (2 * 3000 * 4 * 4
+                                                 + 3000 * 4)
+        assert r.metrics["xprof/kmeans/fit/dispatches"] == 1
+    assert led._precision_of("engine/merge", (), {}) is None
+    assert led._precision_of("kmeans/step", (None, None, 4), {}) == "highest"
+
+
+def test_mfu_is_quoted_against_the_published_peak_of_the_precision(
+        monkeypatch):
+    """On an H100 (a fake loaded torch naming it): the published peaks,
+    a ``highest`` program against the float32 rate and a ``bf16`` one
+    against the bf16 rate; the bound class at each precision's balance."""
+    card = types.SimpleNamespace(cuda=types.SimpleNamespace(
+        is_initialized=lambda: True, current_device=lambda: 0,
+        get_device_name=lambda i: "NVIDIA H100 80GB HBM3"))
+    monkeypatch.setattr(xprof, "loaded_torch", lambda: card)
+    monkeypatch.delenv("MOXT_PEAK_FLOPS", raising=False)
+    monkeypatch.delenv("MOXT_PEAK_MEMBW", raising=False)
+    peaks = xprof.device_peaks()
+    assert peaks == {"flops": 67e12, "flops_bf16": 989e12,
+                     "membw": 3.35e12, "source": "published"}
+    row = dict(DELTA["engine/merge"], sampled_device_ms=1.0,
+               device_samples=1, dispatches=1, flops_per_dispatch=6.7e9,
+               bytes_per_dispatch=1e8)
+    rep = xprof.job_report({
+        "kmeans/fit": dict(row, precision="highest"),
+        "kmeans/step": dict(row, precision="bf16"),
+        "engine/merge": dict(row)})
+    progs = rep["programs"]
+    assert progs["kmeans/fit"]["mfu_pct"] == 10.0
+    assert progs["engine/merge"]["mfu_pct"] == 10.0
+    assert progs["kmeans/step"]["mfu_pct"] == round(100 * 6.7e12 / 989e12,
+                                                    3)
+    # intensity 67 FLOP/B: above the float32 balance (20), below bf16's
+    assert progs["kmeans/fit"]["bound"] == "compute"
+    assert progs["kmeans/step"]["bound"] == "memory"
+    monkeypatch.setenv("MOXT_PEAK_FLOPS", "1e12")
+    assert xprof.peak_flops(xprof.device_peaks(), "bf16") == 1e12
+
+
+def _fake_card(name: str):
+    """A loaded torch whose initialised card is ``name``."""
+    return types.SimpleNamespace(cuda=types.SimpleNamespace(
+        is_initialized=lambda: True, current_device=lambda: 0,
+        get_device_name=lambda i: name))
+
+
+@pytest.mark.parametrize("name", ["NVIDIA H100 PCIe", "NVIDIA H100 NVL"])
+def test_other_h100_cards_have_no_published_peaks(name, monkeypatch):
+    """The published figures are the SXM card's: an H100 of another form
+    factor has lower rates, so it gets no peaks (and no MFU) until a row
+    of its own is added."""
+    monkeypatch.setattr(xprof, "loaded_torch", lambda: _fake_card(name))
+    monkeypatch.delenv("MOXT_PEAK_FLOPS", raising=False)
+    monkeypatch.delenv("MOXT_PEAK_MEMBW", raising=False)
+    assert xprof.device_peaks() == {"flops": None, "flops_bf16": None,
+                                    "membw": None, "source": "none"}
+
+
+@pytest.mark.parametrize("precision,peak", [("highest", 67e12),
+                                            ("bf16", 989e12)])
+def test_the_resolver_estimates_compute_at_the_fits_precision(
+        precision, peak, monkeypatch):
+    """A cold auto-B resolution on an H100 takes the kernel's operations
+    per chunk over the published peak of the fit's precision."""
+    _fresh()
+    monkeypatch.setattr(xprof, "loaded_torch",
+                        lambda: _fake_card("NVIDIA H100 80GB HBM3"))
+    monkeypatch.delenv("MOXT_PEAK_FLOPS", raising=False)
+    monkeypatch.delenv("MOXT_DISPATCH_FLOOR_MS", raising=False)
+    ops = led.assign_sum_ops(1 << 19, 256, 128)
+    _b, info = td.resolve_dispatch_batch(
+        0, n_chunks=100, chunk_device_bytes=(1 << 19) * 128,
+        flops_per_chunk=ops, precision=precision)
+    assert info["compute_source"] == "roofline_estimate"
+    assert info["compute_ms_per_chunk"] == round(ops / peak * 1e3, 4)
+
+
+def test_a_finish_waits_for_its_events_outside_the_ledger_lock(
+        monkeypatch):
+    """A job's finish waits for its own pending end events without the
+    ledger's lock: another thread dispatches meanwhile (a failed job's
+    finish may wait for work still queued on the card)."""
+    import threading
+
+    _fresh()
+    waiting, release = threading.Event(), threading.Event()
+
+    class _Queued(_FakeEvent):
+        def synchronize(self) -> None:
+            waiting.set()
+            assert release.wait(30)
+            super().synchronize()
+
+    made = []
+
+    def event(stream):
+        made.append((_Queued if len(made) == 1 else _FakeEvent)(
+            2.5 * len(made), []))
+        return made[-1]
+
+    monkeypatch.setattr(led, "_sample_stream", lambda args: "stream")
+    monkeypatch.setattr(led, "_timing_event", event)
+    prog = led.observed("test/card", lambda x: _CardTensor())
+    obs = Obs.from_config(JobConfig(backend="cpu"))
+    prog(_CardTensor())  # the compile: sampled, its end still queued
+    assert len(made) == 2 and not made[1].done
+    finish = threading.Thread(target=led.LEDGER.resolve, args=(obs,))
+    finish.start()
+    other = None
+    try:
+        assert waiting.wait(30)
+        other = threading.Thread(target=prog, args=(_CardTensor(),))
+        other.start()
+        other.join(10)
+        assert not other.is_alive()
+    finally:
+        release.set()
+        finish.join(30)
+        if other is not None:
+            other.join(30)
+    stats = led.LEDGER.programs["test/card"]
+    assert stats.dispatches == 2
+    assert stats.samples == 1 and 1.5 < stats.sampled_ms <= 2.5
+    obs.finish_xprof()

@@ -86,7 +86,7 @@ def test_jax_entries_are_read_and_diffed_by_the_port_ledger(tmp_path):
 def test_entries_have_the_jax_shape(tmp_path):
     """One word count per package: equal top-level keys (with the same
     ``plan`` and ``data`` extras), the same phases, and the port's flat
-    metrics the JAX keys plus the port's own device keys."""
+    metrics the JAX keys plus the port's own device and envelope keys."""
     mine = ledger.read(_run(tmp_path, "port", "t", runs=1))[0]
     ref = jax_ledger.read(_run(tmp_path, "jax", "j", runs=1))[0]
     assert set(mine) == set(ref)
@@ -95,7 +95,7 @@ def test_entries_have_the_jax_shape(tmp_path):
     assert mine["data"]["distinct_out"] == ref["data"]["distinct_out"]
     assert set(mine["plan"]) == set(ref["plan"])
     assert set(mine["metrics"]) - set(ref["metrics"]) <= {
-        "accumulator_device", "device"}
+        "accumulator_device", "device", "obs/envelope_ms"}
     assert mine["metrics"]["records_in"] == ref["metrics"]["records_in"]
     assert mine["corpus_bytes"] == ref["corpus_bytes"]
     assert mine["version"] == ref["version"]

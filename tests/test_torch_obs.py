@@ -63,6 +63,15 @@ PORT_OWN = {
     "accumulator_device": "where the word-count or bigram reduce ran (no "
                           "fallback)",
     "device": "where the k-means fit ran (no fallback)",
+    "obs/envelope_ms": "the job envelope (obs/setup + obs/finish), which "
+                       "no other metric of the job's wall covers",
+    **{f"device_map/{step}_ms": "the device map's host step per chunk, "
+                                "which the phase's wall alone cannot split"
+       for step in ("read", "stage", "enqueue", "fetch_wait", "dict")},
+    "kmeans/read_points_ms": "the host read of the points, the first half "
+                             "of time/transfer_s",
+    "kmeans/copy_points_ms": "the copy of the points to the device and its "
+                             "sync, the second half of time/transfer_s",
 }
 
 
@@ -797,13 +806,31 @@ def test_heartbeat_lines_match_jax():
     assert drive(Heartbeat) == drive(JaxHeartbeat)
 
 
-def test_obs_records_no_spans_when_untraced():
+def test_obs_records_no_spans_when_untraced(tmp_path):
     obs = Obs.from_config(JobConfig(backend="cpu"))
     assert obs.feed_span(rows=1) is obs.tracer.span("x")
     with obs.phase("split"):
         pass
     assert obs.tracer._events == []
     assert "attrib/pre_phase_ms" in obs.registry.gauges
+    # the device map and the resident k-means, untraced: no span, but
+    # every counter of their host steps and of the envelope
+    corpus, pts = tmp_path / "c.txt", tmp_path / "p.npy"
+    corpus.write_bytes(_corpus())
+    np.save(pts, _points())
+    steps = ("read", "stage", "enqueue", "fetch_wait", "dict")
+    for workload, inp, kw, keys in (
+            ("wordcount", corpus, JOBS["wordcount_device"][1],
+             {f"device_map/{s}_ms" for s in steps}),
+            ("kmeans", pts, JOBS["kmeans_device"][1],
+             {"kmeans/read_points_ms", "kmeans/copy_points_ms"})):
+        seen = []
+        r = run_job(JobConfig(input_path=str(inp), backend="cpu",
+                              output_path="", metrics=False, **kw),
+                    workload, on_obs=seen.append)
+        assert seen[0].tracer._events == [] and r.trace is None
+        assert keys | {"obs/envelope_ms"} <= set(r.metrics)
+        assert all(r.metrics[k] > 0 for k in keys | {"obs/envelope_ms"})
 
 
 @pytest.mark.parametrize("case", ["wordcount_like", "kmeans_like", "empty",

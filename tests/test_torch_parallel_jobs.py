@@ -26,7 +26,7 @@ from map_oxidize_tpu_torch.runtime import run_job
 torch.set_num_threads(2)
 
 #: keys only the port emits (tests/test_torch_obs.py ``PORT_OWN``)
-PORT_OWN = {"accumulator_device", "device"}
+PORT_OWN = {"accumulator_device", "device", "obs/envelope_ms"}
 
 
 def _corpus(seed=0, vocab=300, lines=1500):

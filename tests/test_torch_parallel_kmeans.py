@@ -82,7 +82,7 @@ def test_sharded_fit_matches_jax(tmp_path, mode, S):
     assert m["kmeans_mode"] == jax.metrics["kmeans_mode"] == mode
     assert m["kmeans_shards"] == jax.metrics["kmeans_shards"] == S
     pk, jk = set(m), set(jax.metrics)
-    assert pk - jk == {"device"}
+    assert pk - jk == {"device", "obs/envelope_ms"}
     assert jk - pk == set()
     for k in pk & jk:
         if k.startswith("comms/"):
