@@ -2281,7 +2281,7 @@ def phase_device_map(tmp: str, backend: str, wc: dict, collect: dict,
     cfg = JobConfig(input_path=path, output_path=o, backend=backend,
                     mapper="device", chunk_bytes=DEVMAP_SNAP_CHUNK,
                     checkpoint_dir=ck, metrics=False)
-    real = dm.iter_chunks_capped
+    real = dm.iter_chunks_into
 
     def dying(*a, **k):
         for i, c in enumerate(real(*a, **k)):
@@ -2289,7 +2289,7 @@ def phase_device_map(tmp: str, backend: str, wc: dict, collect: dict,
                 raise KeyboardInterrupt("simulated kill")
             yield c
 
-    dm.iter_chunks_capped = dying
+    dm.iter_chunks_into = dying
     t0 = time.perf_counter()
     try:
         run_job(cfg, "wordcount")
@@ -2297,7 +2297,7 @@ def phase_device_map(tmp: str, backend: str, wc: dict, collect: dict,
     except KeyboardInterrupt:
         pass
     finally:
-        dm.iter_chunks_capped = real
+        dm.iter_chunks_into = real
     t_killed = time.perf_counter() - t0
     if not os.path.isfile(os.path.join(ck, "snapshot.npz")):
         raise AssertionError("the killed device map left no snapshot")

@@ -7,8 +7,9 @@ large corpus never sits in host memory and no token straddles two chunks.
 
 from __future__ import annotations
 
+import itertools
 import os
-from typing import Iterator
+from typing import Any, Iterator, NamedTuple
 
 
 def iter_chunks(path: str, chunk_bytes: int,
@@ -110,6 +111,86 @@ def iter_chunks_capped(path: str, chunk_bytes: int, start_offset: int = 0):
             else:
                 yield block[: cut + 1]
                 carry = block[cut + 1:]
+
+
+#: bytes at a window's end that :func:`iter_chunks_into` scans for its cut
+#: first: the window's last whitespace lies there whenever they hold any
+_CUT_TAIL = 1 << 12
+
+
+class FilledChunk(NamedTuple):
+    """One chunk of :func:`iter_chunks_into`, in its caller's buffer."""
+
+    #: the caller's buffer; its first ``length`` bytes are the chunk
+    buf: Any
+    length: int
+    #: bytes moved from the previous window's tail to the buffer's head
+    carry_in: int
+    #: the cut needed more than the tail scan (a hard split included)
+    cut_fallback: bool
+
+    @property
+    def data(self) -> memoryview:
+        """The chunk's bytes: a view into ``buf``."""
+        return memoryview(self.buf).cast("B")[:self.length]
+
+
+def iter_chunks_into(path: str, chunk_bytes: int, buffer_for,
+                     start_offset: int = 0) -> Iterator[FilledChunk]:
+    """:func:`iter_chunks_capped`'s chunks, each read straight into a
+    buffer of the caller's, with no other copy of its bytes.
+
+    ``buffer_for(seq)`` returns a writable, contiguous uint8 array of at
+    least ``chunk_bytes`` for chunk ``seq`` (a pinned staging slot); it is
+    asked for before the chunk is read.  The previous window's carry (the
+    bytes after its cut, usually less than a token) goes to the buffer's
+    head and ``readinto`` fills the rest of the window from the file.  The
+    cut is found in the buffer: in the window's last :data:`_CUT_TAIL`
+    bytes, else in the whole window, else a hard split; the same cut as
+    :func:`_last_ws` of the window, so the chunks and their offsets are
+    :func:`iter_chunks_capped`'s for any ``start_offset`` (the
+    snapshot/resume contract).
+
+    The carry is copied out before the chunk is yielded, so the buffer's
+    bytes past ``length`` are the caller's to overwrite (with padding).
+    """
+    with open(path, "rb", buffering=0) as f:
+        if start_offset:
+            f.seek(start_offset)
+        carry = b""
+        for seq in itertools.count():
+            buf = buffer_for(seq)
+            mv = memoryview(buf).cast("B")[:chunk_bytes]
+            if mv.nbytes < chunk_bytes:
+                raise ValueError(f"buffer of {mv.nbytes} bytes for "
+                                 f"{chunk_bytes}-byte chunks")
+            pos = len(carry)
+            mv[:pos] = carry
+            while pos < chunk_bytes:  # raw files may short-read
+                n = f.readinto(mv[pos:])
+                if not n:
+                    break
+                pos += n
+            if pos == 0:
+                return
+            if pos < chunk_bytes:  # the final window: uncut
+                yield FilledChunk(buf, pos, len(carry), False)
+                return
+            cut, fallback = _last_ws_tail(mv)
+            consumed = cut + 1 if cut != -1 else pos  # giant token: hard
+            chunk = FilledChunk(buf, consumed, len(carry), fallback)
+            carry = bytes(mv[consumed:])
+            yield chunk
+
+
+def _last_ws_tail(window) -> tuple[int, bool]:
+    """``(_last_ws(window), fallback)``: the tail scan's answer, or the
+    whole window's with ``fallback`` set."""
+    lo = max(0, len(window) - _CUT_TAIL)
+    cut = _last_ws(window[lo:])
+    if cut != -1:
+        return lo + cut, False
+    return (_last_ws(window[:lo]) if lo else -1), True
 
 
 def iter_doc_chunks(path: str, chunk_bytes: int,

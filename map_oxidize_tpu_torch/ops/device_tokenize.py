@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import re
 
 import numpy as np
 import torch
@@ -440,34 +441,32 @@ class DeviceTokenizer:
         return self.map_padded(torch.from_numpy(arr).to(self.device))
 
 
+#: :data:`_WS` as regex classes: a token runs to the next ASCII whitespace
+_WS_CLASS = rb"[ \t\n\r\x0b\x0c]"
+_TOKEN_CLASS = rb"[^ \t\n\r\x0b\x0c]*"
+
+
+@functools.lru_cache(maxsize=None)
+def _ngram_re(ngram: int) -> re.Pattern:
+    """One group per member token, whitespace runs between them."""
+    return re.compile(b"(" + _TOKEN_CLASS + b")"
+                      + (_WS_CLASS + b"*(" + _TOKEN_CLASS + b")")
+                      * (ngram - 1))
+
+
 def token_at(chunk: bytes, start: int) -> bytes:
     """Slice the (lowercased) token starting at ``start`` in raw chunk bytes
-    — the host half of dictionary building.  Must mirror the device's
-    boundary rule: the token runs to the next ASCII whitespace byte."""
-    end = start
-    n = len(chunk)
-    ws = b" \t\n\r\x0b\x0c"
-    while end < n and chunk[end] not in ws:
-        end += 1
-    return chunk[start:end].lower()
+    or a memoryview of them — the host half of dictionary building.  Must
+    mirror the device's boundary rule: the token runs to the next ASCII
+    whitespace byte."""
+    return ngram_at(chunk, start, 1)
 
 
 def ngram_at(chunk: bytes, start: int, ngram: int) -> bytes:
     """The canonical n-gram string whose first token starts at ``start``:
     member tokens joined by ONE space (the host mappers' key format —
-    ``"tok1 tok2"`` — regardless of the whitespace actually between them)."""
-    if ngram == 1:
-        return token_at(chunk, start)
-    ws = b" \t\n\r\x0b\x0c"
-    n = len(chunk)
-    toks = []
-    pos = start
-    for _ in range(ngram):
-        end = pos
-        while end < n and chunk[end] not in ws:
-            end += 1
-        toks.append(chunk[pos:end].lower())
-        pos = end
-        while pos < n and chunk[pos] in ws:
-            pos += 1
-    return b" ".join(toks)
+    ``"tok1 tok2"`` — regardless of the whitespace actually between them).
+    A token cut by the chunk's end is what the chunk holds of it.  One
+    regex match, which reads a memoryview as fast as bytes and copies out
+    only the tokens."""
+    return b" ".join(_ngram_re(ngram).match(chunk, start).groups()).lower()

@@ -20,7 +20,11 @@ a pinned host buffer (``non_blocking``, with an event) right after chunk
 N's own work, and the host waits on that event.  The rare overflow fetch
 (more unique keys than ``packed`` carries) runs on a side stream that waits
 on the same event.  Chunks stage through a pinned
-:class:`~map_oxidize_tpu_torch.runtime.pipeline.StagingRing`.
+:class:`~map_oxidize_tpu_torch.runtime.pipeline.StagingRing`: each is read
+from the file straight into its slot
+(:func:`~map_oxidize_tpu_torch.io.splitter.iter_chunks_into`), padded
+there with spaces, and the dictionary is built from the slot, which the
+next chunk but one refills.
 
 Sharded (``num_shards > 1``): chunks are dealt onto the shards in groups
 of S; one staged copy carries the group, ``device_map/tokenize_group``
@@ -45,7 +49,10 @@ from map_oxidize_tpu_torch.convert import (
     engine_state_from_jax,
     engine_state_to_numpy,
 )
-from map_oxidize_tpu_torch.io.splitter import iter_chunks_capped
+from map_oxidize_tpu_torch.io.splitter import (
+    iter_chunks_capped,
+    iter_chunks_into,
+)
 from map_oxidize_tpu_torch.io.writer import write_final_result
 from map_oxidize_tpu_torch.obs import Obs, observe_device_wait
 from map_oxidize_tpu_torch.obs.compile import observed
@@ -93,11 +100,13 @@ class _DictBuilder:
         self.records_in = 0
         self.ngram = ngram
 
-    def process_packed(self, chunk: bytes, packed: np.ndarray,
+    def process_packed(self, chunk, packed: np.ndarray,
                        fetch_overflow) -> None:
         """Update the dictionary from one fetched ``packed`` row (uint32);
-        ``fetch_overflow(nu)`` returns the ``(hi, lo, rep)`` prefix when
-        the chunk has more unique keys than ``packed`` carries."""
+        ``chunk`` is the chunk's bytes or a view of them, of which only
+        each added key's token is copied out; ``fetch_overflow(nu)``
+        returns the ``(hi, lo, rep)`` prefix when the chunk has more
+        unique keys than ``packed`` carries."""
         nu, ndrop, ntok = packed[:3].astype(np.int64).tolist()
         if ndrop:
             raise CapacityError(
@@ -272,23 +281,34 @@ def _run_device_wordcount_body(config: JobConfig, obs,
             dicts.process_packed(chunk, packed, overflow)
 
     # each chunk's host steps, spans when traced and device_map/<step>_ms
-    # counters always: read (the cut at whitespace), stage (the pad and
-    # the pinned ring), enqueue (the tokenizer, the fold and the packed
-    # copy), then fetch_wait and dict one chunk behind
-    chunks = iter_chunks_capped(config.input_path, config.chunk_bytes,
-                                resume_off)
+    # counters always: read (the slot's release wait, the carry, the
+    # readinto and the cut at whitespace), stage (the space fill and the
+    # copy's start), enqueue (the tokenizer, the fold and the packed
+    # copy), then fetch_wait and dict one chunk behind.  The dict step
+    # reads chunk seq in its slot, which chunk seq + 2 refills: its read
+    # comes after chunk seq + 1's enqueue, and so after seq's dict step
+    chunks = iter_chunks_into(config.input_path, config.chunk_bytes,
+                              lambda seq: ring.host_slot(seq).reshape(-1),
+                              resume_off)
+    for name in ("device_map/cut_fallbacks", "device_map/carry_bytes"):
+        metrics.count(name, 0)
     pending: tuple | None = None
     off = resume_off
     hb_records = dicts.records_in
     with obs.phase("map+reduce"):
         for seq in itertools.count():
             with obs.step("device_map/read", seq=seq) as span:
-                chunk = next(chunks, None)
-                span.set(bytes=0 if chunk is None else len(chunk))
-            if chunk is None:
+                filled = next(chunks, None)
+                span.set(bytes=0 if filled is None else filled.length)
+            if filled is None:
                 break
+            chunk = filled.data
+            metrics.count("device_map/cut_fallbacks",
+                          int(filled.cut_fallback))
+            metrics.count("device_map/carry_bytes", filled.carry_in)
             with obs.step("device_map/stage", seq=seq, bytes=len(chunk)):
-                slot = ring.stage(seq, tok.pad_chunk(chunk)[:, None])
+                filled.buf[filled.length:] = 32  # no stale byte past it
+                slot = ring.start_copy(seq, tok.n)
             with obs.step("device_map/enqueue", seq=seq, bytes=len(chunk)):
                 outs = tok.map_padded(ring.acquire(slot).view(-1))
                 ring.release(slot, seq)

@@ -299,7 +299,10 @@ class StagingRing:
     stream after the launches that read the block.  Before refilling a
     slot, :meth:`stage` waits on the host for its ``released`` event, so
     neither the pinned buffer nor the device block is overwritten while a
-    copy or a kernel still reads it.  A fixed ring also keeps the caching
+    copy or a kernel still reads it.  A producer that writes a slot's
+    pinned buffer itself (a chunk read straight into it) takes the buffer
+    from :meth:`host_slot`, after the same wait, and starts the copy with
+    :meth:`start_copy`.  A fixed ring also keeps the caching
     allocator out of frees across streams.  A pinned buffer refilled from
     pageable memory is what makes the copy asynchronous: a
     ``non_blocking`` copy from pageable memory runs synchronously.
@@ -342,13 +345,7 @@ class StagingRing:
     def stage_parts(self, seq: int, parts) -> int:
         """:meth:`stage` of the rows of several host arrays, one after
         another (a shard's slices of the chunks of a block)."""
-        slot = seq % self.slots
-        if seq >= self.slots and self._released_seq[slot] != seq - self.slots:
-            raise RuntimeError(
-                f"staging ring overrun: block {seq} would refill slot {slot} "
-                f"before block {seq - self.slots} was released")
-        if self.cuda:
-            self._released[slot].synchronize()
+        slot = self._await(seq)
         host = self._host[slot]
         fill = host.numpy() if self._f32 is None else self._f32
         m = 0
@@ -357,9 +354,37 @@ class StagingRing:
             m += src.shape[0]
         if self._f32 is not None:
             host[:m].copy_(torch.from_numpy(self._f32[:m]))
+        return self.start_copy(seq, m)
+
+    def host_slot(self, seq: int) -> np.ndarray:
+        """Slot ``seq % slots``'s host buffer, ``[rows, d]``, for the
+        producer to fill in place and then :meth:`start_copy`: the
+        release wait and the overrun check of :meth:`stage`, without its
+        copy from a source array.  For a ``dtype`` NumPy holds."""
+        return self._host[self._await(seq)].numpy()
+
+    def _await(self, seq: int) -> int:
+        """Block ``seq``'s slot, once block ``seq - slots`` released it:
+        raises if that block was not released, and on CUDA waits on the
+        host for the launches that read it."""
+        slot = seq % self.slots
+        if seq >= self.slots and self._released_seq[slot] != seq - self.slots:
+            raise RuntimeError(
+                f"staging ring overrun: block {seq} would refill slot {slot} "
+                f"before block {seq - self.slots} was released")
+        if self.cuda:
+            self._released[slot].synchronize()
+        return slot
+
+    def start_copy(self, seq: int, m: int) -> int:
+        """After the slot of block ``seq`` was filled: on CUDA, start the
+        copy of its first ``m`` rows to the device block.  Returns the
+        slot."""
+        slot = seq % self.slots
         if self.cuda:
             with torch.cuda.stream(self._copy_stream):
-                self._dev[slot][:m].copy_(host[:m], non_blocking=True)
+                self._dev[slot][:m].copy_(self._host[slot][:m],
+                                          non_blocking=True)
                 self._copied[slot].record(self._copy_stream)
         return slot
 

@@ -655,7 +655,7 @@ def test_device_map_snapshot_resume_on_the_card(cuda, tmp_path, monkeypatch):
     kw = dict(input_path=str(inp), backend="cuda", mapper="device",
               chunk_bytes=16 << 10, device_chunk_keys=1 << 13, metrics=False)
     run_job(JobConfig(output_path=str(tmp_path / "fresh.txt"), **kw))
-    real = dm.iter_chunks_capped
+    real = dm.iter_chunks_into
 
     def dying(*a, **k):
         for i, c in enumerate(real(*a, **k)):
@@ -664,10 +664,10 @@ def test_device_map_snapshot_resume_on_the_card(cuda, tmp_path, monkeypatch):
             yield c
 
     ck = str(tmp_path / "ck")
-    monkeypatch.setattr(dm, "iter_chunks_capped", dying)
+    monkeypatch.setattr(dm, "iter_chunks_into", dying)
     with pytest.raises(KeyboardInterrupt):
         run_job(JobConfig(output_path="", checkpoint_dir=ck, **kw))
-    monkeypatch.setattr(dm, "iter_chunks_capped", real)
+    monkeypatch.setattr(dm, "iter_chunks_into", real)
     run_job(JobConfig(output_path=str(tmp_path / "resumed.txt"),
                       checkpoint_dir=ck, **kw))
     assert (tmp_path / "resumed.txt").read_bytes() == (

@@ -132,7 +132,12 @@ def test_chunk_key_capacity_raises(tmp_path):
 
 
 def _kill_after(monkeypatch, module, n):
-    real = module.iter_chunks_capped
+    """Kill the job as it reads its ``n``-th chunk: the port's device map
+    reads through ``iter_chunks_into``, the JAX package's through
+    ``iter_chunks_capped``."""
+    name = ("iter_chunks_into" if module is port_dm
+            else "iter_chunks_capped")
+    real = getattr(module, name)
 
     def dying(*a, **k):
         for i, c in enumerate(real(*a, **k)):
@@ -140,7 +145,7 @@ def _kill_after(monkeypatch, module, n):
                 raise KeyboardInterrupt("simulated kill")
             yield c
 
-    monkeypatch.setattr(module, "iter_chunks_capped", dying)
+    monkeypatch.setattr(module, name, dying)
 
 
 @pytest.mark.parametrize("first", ["port", "jax"])

@@ -207,6 +207,24 @@ def test_ngram_at_matches_the_host_key_format(ngram):
     assert tdt.ngram_at(chunk, 5, 2) == b"quick brown"
 
 
+@pytest.mark.parametrize("ngram", [1, 2, 3])
+def test_ngram_at_reads_a_slot_view_as_the_jax_package_reads_bytes(ngram):
+    """The dictionary build reads its keys from a view of the chunk in its
+    staging slot: every start (mid-token, on whitespace, at and past the
+    end, each whitespace byte) gives the JAX package's key of the bytes."""
+    chunk = (b"The  quick\tbrown\nFOX\r\njumps\x0bOVER\x0cthe lazy  dog. "
+             b"\t\n end")
+    slot = np.full(len(chunk) + 16, 32, np.uint8)
+    slot[:len(chunk)] = np.frombuffer(chunk, np.uint8)
+    view = memoryview(slot).cast("B")[:len(chunk)]
+    for start in range(len(chunk) + 2):
+        want = jdt.ngram_at(chunk, start, ngram)
+        assert tdt.ngram_at(view, start, ngram) == want, start
+        assert tdt.ngram_at(chunk, start, ngram) == want, start
+        if ngram == 1:
+            assert tdt.token_at(view, start) == jdt.token_at(chunk, start)
+
+
 def test_the_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="no kernel"):
         tdt.tokenize_compact(torch.zeros(8, dtype=torch.uint8,

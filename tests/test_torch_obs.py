@@ -68,6 +68,10 @@ PORT_OWN = {
     **{f"device_map/{step}_ms": "the device map's host step per chunk, "
                                 "which the phase's wall alone cannot split"
        for step in ("read", "stage", "enqueue", "fetch_wait", "dict")},
+    "device_map/cut_fallbacks": "windows whose cut at whitespace needed "
+                                "more than the scan of their tail",
+    "device_map/carry_bytes": "bytes moved from a window's tail to the "
+                              "next staging slot's head",
     "kmeans/read_points_ms": "the host read of the points, the first half "
                              "of time/transfer_s",
     "kmeans/copy_points_ms": "the copy of the points to the device and its "
