@@ -101,12 +101,13 @@ class _DictBuilder:
         self.ngram = ngram
 
     def process_packed(self, chunk, packed: np.ndarray,
-                       fetch_overflow) -> None:
+                       fetch_overflow) -> tuple[int, int]:
         """Update the dictionary from one fetched ``packed`` row (uint32);
         ``chunk`` is the chunk's bytes or a view of them, of which only
         each added key's token is copied out; ``fetch_overflow(nu)``
         returns the ``(hi, lo, rep)`` prefix when the chunk has more
-        unique keys than ``packed`` carries."""
+        unique keys than ``packed`` carries.  Returns the chunk's unique
+        keys and how many of them were new to the dictionary."""
         nu, ndrop, ntok = packed[:3].astype(np.int64).tolist()
         if ndrop:
             raise CapacityError(
@@ -115,7 +116,7 @@ class _DictBuilder:
             )
         self.records_in += ntok
         if nu == 0:
-            return
+            return 0, 0
         f = self.fetch_keys
         if nu <= f:
             hi, lo, rep = (packed[3:3 + nu],
@@ -126,6 +127,7 @@ class _DictBuilder:
         h64 = ((hi.astype(np.uint64) << np.uint64(32))
                | lo.astype(np.uint64)).tolist()
         d = self.dictionary
+        before = len(d)
         rl = rep.astype(np.int64).tolist()
         ng = self.ngram
         for i, h in enumerate(h64):
@@ -134,6 +136,7 @@ class _DictBuilder:
             # device-hash collision (two tokens, one hash) raises here just
             # as it would on the host paths instead of silently merging
             d.add(h, ngram_at(chunk, rl[i], ng))
+        return nu, len(d) - before
 
 
 class _PackedFetch:
@@ -277,20 +280,33 @@ def _run_device_wordcount_body(config: JobConfig, obs,
             packed, overflow, wait_ms = fetch.finish(handle)
         # the wait's own two clock reads, already device/compute_ms's
         metrics.count("device_map/fetch_wait_ms", wait_ms)
-        with obs.step("device_map/dict", seq=seq, bytes=len(chunk)):
-            dicts.process_packed(chunk, packed, overflow)
+
+        def _overflow(nu):
+            metrics.count("device_map/overflow_fetches")
+            with obs.step("device_map/overflow", seq=seq, keys=nu):
+                return overflow(nu)
+
+        with obs.step("device_map/dict", seq=seq, bytes=len(chunk)) as span:
+            nu, new = dicts.process_packed(chunk, packed, _overflow)
+            span.set(keys=nu, new_keys=new)
+        metrics.count("device_map/chunk_keys", nu)
 
     # each chunk's host steps, spans when traced and device_map/<step>_ms
     # counters always: read (the slot's release wait, the carry, the
     # readinto and the cut at whitespace), stage (the space fill and the
     # copy's start), enqueue (the tokenizer, the fold and the packed
-    # copy), then fetch_wait and dict one chunk behind.  The dict step
-    # reads chunk seq in its slot, which chunk seq + 2 refills: its read
-    # comes after chunk seq + 1's enqueue, and so after seq's dict step
+    # copy), then fetch_wait and dict one chunk behind; inside dict, the
+    # overflow fetch of a chunk with more unique keys than its packed row
+    # carries.  The dict step reads chunk seq in its slot, which chunk
+    # seq + 2 refills: its read comes after chunk seq + 1's enqueue, and
+    # so after seq's dict step.  The counter chunk_keys sums the chunks'
+    # unique keys; the dict span carries its chunk's keys and new_keys
     chunks = iter_chunks_into(config.input_path, config.chunk_bytes,
                               lambda seq: ring.host_slot(seq).reshape(-1),
                               resume_off)
-    for name in ("device_map/cut_fallbacks", "device_map/carry_bytes"):
+    for name in ("device_map/cut_fallbacks", "device_map/carry_bytes",
+                 "device_map/overflow_fetches", "device_map/overflow_ms",
+                 "device_map/chunk_keys"):
         metrics.count(name, 0)
     pending: tuple | None = None
     off = resume_off
@@ -343,8 +359,10 @@ def _run_device_wordcount_body(config: JobConfig, obs,
             obs.heartbeat.update(rows=dicts.records_in - hb_records)
 
     with obs.phase("finalize"):
-        counts = _readback(engine, dicts.dictionary)
-        top = counts.top_k(config.top_k)
+        with obs.step("device_map/readback"):
+            counts = _readback(engine, dicts.dictionary)
+        with obs.step("device_map/top_k"):
+            top = counts.top_k(config.top_k)
 
     total = counts.total()
     if dicts.records_in and total != dicts.records_in:

@@ -254,7 +254,11 @@ class StreamingEngineBase(abc.ABC):
             return
         new_cap = min(self.max_capacity,
                       max(next_pow2(needed), next_pow2(self.capacity + 1)))
-        self._apply_grow(new_cap)
+        # the grow's host side (its device work stays queued), as the span
+        # engine/grow and the counter engine/grow_ms
+        with (self.obs.step("engine/grow", old=self.capacity, new=new_cap)
+              if self.obs is not None else contextlib.nullcontext()):
+            self._apply_grow(new_cap)
         _log.info("accumulator grown %d -> %d rows", self.capacity, new_cap)
         if self.obs is not None:
             self.obs.registry.count("engine/grows")

@@ -72,6 +72,13 @@ PORT_OWN = {
                                 "more than the scan of their tail",
     "device_map/carry_bytes": "bytes moved from a window's tail to the "
                               "next staging slot's head",
+    "device_map/overflow_fetches": "chunks whose unique keys needed the "
+                                   "overflow fetch past the packed row",
+    "device_map/overflow_ms": "the overflow fetches, inside the dict step",
+    "device_map/chunk_keys": "the chunks' unique keys, summed",
+    "device_map/readback_ms": "the accumulator's readback in finalize",
+    "device_map/top_k_ms": "the top-k in finalize",
+    "engine/grow_ms": "the accumulator's growths, host side",
     "kmeans/read_points_ms": "the host read of the points, the first half "
                              "of time/transfer_s",
     "kmeans/copy_points_ms": "the copy of the points to the device and its "
