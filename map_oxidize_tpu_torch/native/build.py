@@ -9,7 +9,9 @@ host, so an edited source never loads a stale build and a library built for
 another CPU is never loaded; the name differs from the JAX package's
 ``libmoxt_native.so``, so both load side by side in one process.  The C call runs with the GIL released —
 ctypes drops it for foreign calls — so host IO and device dispatch proceed
-while a chunk maps.
+while a chunk maps.  :func:`library_path` and :func:`_compile` take another
+source and name stem too: the device map's dictionary builder
+(``runtime/csrc/device_dict.cpp``) is built by them, beside this library.
 
 Two wrapper flavours over the same stateful C API (``moxt_new`` /
 ``moxt_map`` / ``moxt_chunk_read`` / ``moxt_dict_read``):
@@ -78,18 +80,22 @@ def _target() -> bytes:
     return _targets[CXX]
 
 
-def library_path() -> str:
-    with open(_SRC, "rb") as f:
-        src = f.read()
+def library_path(src: str = _SRC, stem: str = "libmoxt_native_port") -> str:
+    """Where the library built from ``src`` lives: ``<stem>-<digest>.so``
+    in :data:`BUILD_DIR`."""
+    with open(src, "rb") as f:
+        code = f.read()
     digest = hashlib.sha256(
-        src + " ".join((CXX, *CXX_FLAGS)).encode() + _target()).hexdigest()
-    return os.path.join(BUILD_DIR, f"libmoxt_native_port-{digest[:16]}.so")
+        code + " ".join((CXX, *CXX_FLAGS)).encode() + _target()).hexdigest()
+    return os.path.join(BUILD_DIR, f"{stem}-{digest[:16]}.so")
 
 
-def _compile(force: bool = False) -> str:
-    """Build the library unless a current one exists (always, with
-    ``force``); raises with the compiler's output when the build fails."""
-    so = library_path()
+def _compile(force: bool = False, src: str = _SRC,
+             stem: str = "libmoxt_native_port") -> str:
+    """Build the library of ``src`` unless a current one exists (always,
+    with ``force``); raises with the compiler's output when the build
+    fails."""
+    so = library_path(src, stem)
     if os.path.isfile(so) and not force:
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -97,7 +103,7 @@ def _compile(force: bool = False) -> str:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        subprocess.run([CXX, *CXX_FLAGS, _SRC, "-o", tmp], check=True,
+        subprocess.run([CXX, *CXX_FLAGS, src, "-o", tmp], check=True,
                        capture_output=True, text=True)
     except subprocess.CalledProcessError as e:
         os.unlink(tmp)
@@ -106,7 +112,7 @@ def _compile(force: bool = False) -> str:
         os.unlink(tmp)
         raise RuntimeError(f"native build failed: {e}") from e
     os.replace(tmp, so)
-    _log.info("built native map library: %s", so)
+    _log.info("built native library: %s", so)
     return so
 
 

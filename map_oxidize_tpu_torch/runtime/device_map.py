@@ -58,11 +58,10 @@ from map_oxidize_tpu_torch.obs import Obs, observe_device_wait
 from map_oxidize_tpu_torch.obs.compile import observed
 from map_oxidize_tpu_torch.ops.device_tokenize import (
     DeviceTokenizer,
-    ngram_at,
     pad_chunk,
     tokenize_count_core,
 )
-from map_oxidize_tpu_torch.ops.hashing import HashDictionary
+from map_oxidize_tpu_torch.runtime.device_dict import NativeDictionary
 from map_oxidize_tpu_torch.runtime.driver import JobResult, _readback
 from map_oxidize_tpu_torch.runtime.engine import (
     CapacityError,
@@ -91,10 +90,13 @@ class _DictBuilder:
     """Builds the hash -> token-bytes dictionary from the device outputs
     (JAX ``_DictBuilder``).  The kernel pre-packs the scalars and the first
     ``fetch_keys`` dictionary rows into one array, so the steady-state cost
-    is one fetch per chunk."""
+    is one fetch per chunk; the dictionary is a
+    :class:`~map_oxidize_tpu_torch.runtime.device_dict.NativeDictionary`,
+    one native call per chunk (``obs`` times its materialization)."""
 
-    def __init__(self, out_keys: int, fetch_keys: int, ngram: int = 1):
-        self.dictionary = HashDictionary()
+    def __init__(self, out_keys: int, fetch_keys: int, ngram: int = 1,
+                 obs=None):
+        self.dictionary = NativeDictionary(obs)
         self.out_keys = out_keys
         self.fetch_keys = min(fetch_keys, out_keys)
         self.records_in = 0
@@ -104,7 +106,7 @@ class _DictBuilder:
                        fetch_overflow) -> tuple[int, int]:
         """Update the dictionary from one fetched ``packed`` row (uint32);
         ``chunk`` is the chunk's bytes or a view of them, of which only
-        each added key's token is copied out; ``fetch_overflow(nu)``
+        each added key's bytes are copied out; ``fetch_overflow(nu)``
         returns the ``(hi, lo, rep)`` prefix when the chunk has more
         unique keys than ``packed`` carries.  Returns the chunk's unique
         keys and how many of them were new to the dictionary."""
@@ -124,19 +126,11 @@ class _DictBuilder:
                            packed[3 + 2 * f:3 + 2 * f + nu])
         else:  # more novelty than the pre-packed window
             hi, lo, rep = fetch_overflow(nu)
-        h64 = ((hi.astype(np.uint64) << np.uint64(32))
-               | lo.astype(np.uint64)).tolist()
-        d = self.dictionary
-        before = len(d)
-        rl = rep.astype(np.int64).tolist()
-        ng = self.ngram
-        for i, h in enumerate(h64):
-            # unconditional add: on a repeat hash this compares the stored
-            # bytes against this chunk's representative token, so a 64-bit
-            # device-hash collision (two tokens, one hash) raises here just
-            # as it would on the host paths instead of silently merging
-            d.add(h, ngram_at(chunk, rl[i], ng))
-        return nu, len(d) - before
+        # every key is checked: on a repeat hash the stored bytes are
+        # compared with this chunk's representative token, so a 64-bit
+        # device-hash collision (two tokens, one hash) raises here just as
+        # it would on the host paths instead of silently merging
+        return nu, self.dictionary.add_chunk(chunk, hi, lo, rep, self.ngram)
 
 
 class _PackedFetch:
@@ -256,13 +250,13 @@ def _run_device_wordcount_body(config: JobConfig, obs,
     engine.obs = obs
     tok = DeviceTokenizer(config.chunk_bytes, config.device_chunk_keys,
                           device=engine.device, ngram=ngram)
-    dicts = _DictBuilder(tok.out_keys, tok.fetch_keys, ngram)
+    dicts = _DictBuilder(tok.out_keys, tok.fetch_keys, ngram, obs)
 
     ckpt = _open_snapshot(config, f"device-map-ngram{ngram}", 1,
                           registry=metrics)
 
     def _set_dict(d, records):
-        dicts.dictionary = d
+        dicts.dictionary.update(d)  # each restored key checked in
         dicts.records_in = records
         engine.hint_live_upper_bound(len(d))
 
@@ -300,13 +294,15 @@ def _run_device_wordcount_body(config: JobConfig, obs,
     # carries.  The dict step reads chunk seq in its slot, which chunk
     # seq + 2 refills: its read comes after chunk seq + 1's enqueue, and
     # so after seq's dict step.  The counter chunk_keys sums the chunks'
-    # unique keys; the dict span carries its chunk's keys and new_keys
+    # unique keys; the dict span carries its chunk's keys and new_keys.
+    # The dictionary's one materialization, in the write phase, is the
+    # span and counter device_map/materialize(_ms)
     chunks = iter_chunks_into(config.input_path, config.chunk_bytes,
                               lambda seq: ring.host_slot(seq).reshape(-1),
                               resume_off)
     for name in ("device_map/cut_fallbacks", "device_map/carry_bytes",
                  "device_map/overflow_fetches", "device_map/overflow_ms",
-                 "device_map/chunk_keys"):
+                 "device_map/chunk_keys", "device_map/materialize_ms"):
         metrics.count(name, 0)
     pending: tuple | None = None
     off = resume_off
@@ -456,7 +452,7 @@ def _run_sharded_device_body(config: JobConfig, obs,
     def _set_dict(d, records):
         # the snapshot stores the UNION dictionary; shard 0 carries it on
         # resume (finalize unions the builders anyway)
-        dicts[0].dictionary = d
+        dicts[0].dictionary.update(d)
         dicts[0].records_in = records
 
     # the sharded engine reads the JAX layout itself
@@ -496,7 +492,7 @@ def _run_sharded_device_body(config: JobConfig, obs,
                                     lambda nu, s=s: overflow(nu, s))
 
     def _snapshot(off: int) -> None:
-        union = HashDictionary()
+        union = NativeDictionary()
         for d in dicts:
             union.update(d.dictionary)
         ckpt.save_snapshot(

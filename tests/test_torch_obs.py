@@ -78,6 +78,9 @@ PORT_OWN = {
     "device_map/chunk_keys": "the chunks' unique keys, summed",
     "device_map/readback_ms": "the accumulator's readback in finalize",
     "device_map/top_k_ms": "the top-k in finalize",
+    "device_map/materialize_ms": "the one build of the device map's "
+                                 "hash -> bytes dict from its native "
+                                 "dictionary, in the write phase",
     "engine/grow_ms": "the accumulator's growths, host side",
     "kmeans/read_points_ms": "the host read of the points, the first half "
                              "of time/transfer_s",
