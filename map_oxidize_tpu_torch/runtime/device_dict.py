@@ -83,9 +83,10 @@ class NativeDictionary:
     """Hash -> key-bytes dictionary of the device map, in C++.
 
     Every key is collision-checked once, in native code, as it arrives
-    (:meth:`add_chunk`, :meth:`update`).  Not thread-safe: one per job
-    thread (a sharded job keeps one per shard and unions them at
-    finalize).  ``obs``, when given, times the one materialization."""
+    (:meth:`add_chunk`, :meth:`update`).  Not thread-safe: one per
+    device-map job, which adds every shard's chunks to it on its one
+    thread, so no dictionary is ever unioned with another.  ``obs``, when
+    given, times the one materialization."""
 
     def __init__(self, obs=None):
         self._lib = _load_lib()
@@ -163,8 +164,8 @@ class NativeDictionary:
         return self._check(rc, collision)
 
     def update(self, other: "NativeDictionary | HashDictionary") -> None:
-        """Add every entry of ``other`` (another shard's dictionary, or a
-        restored snapshot's), each checked."""
+        """Add every entry of ``other`` (a restored snapshot's
+        dictionary), each checked."""
         self._add_arrays(*other.to_arrays())
 
     def _export(self, sep: int = -1):

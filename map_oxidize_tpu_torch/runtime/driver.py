@@ -495,21 +495,38 @@ def _run_wordcount_body(config: JobConfig, obs: Obs, mapper: Mapper,
                 f"count conservation violated: mapped {records_in} records "
                 f"but reduced counts sum to {total}")
 
+    return _finish_wordcount(
+        config, obs, workload, counts, top, ckpt, records_in, n_chunks,
+        "host" if collect else str(engine.device),
+        device_rows_fed=engine.rows_fed)
+
+
+def _finish_wordcount(config: JobConfig, obs: Obs, workload: str,
+                      counts: LazyCounts, top: list, ckpt, records_in: int,
+                      n_chunks: int, accumulator_device: str, write=None,
+                      **gauges) -> JobResult:
+    """The tail of the word-count and bigram jobs (the host map's and the
+    device map's): the ``write`` phase (``final_result.txt`` from
+    ``counts`` by ``write``, default :func:`write_final_result`), the
+    checkpoint's end, the job's gauges (the caller's own ``gauges`` among
+    them), ``obs.finish`` and the result."""
+    metrics = obs.registry
     with obs.phase("write"):
         if config.output_path:
-            write_final_result(config.output_path, counts.items())
+            (write or write_final_result)(config.output_path,
+                                          counts.items())
 
-    # keep_intermediates preserves the resumable spill
+    # keep_intermediates preserves the resumable spill or snapshot
     if ckpt is not None:
         ckpt.finish(config.keep_intermediates)
 
     metrics.set("records_in", records_in)
     metrics.set("distinct_keys", len(counts))
     metrics.set("chunks", n_chunks)
-    metrics.set("device_rows_fed", engine.rows_fed)
+    for name, value in gauges.items():
+        metrics.set(name, value)
     # the port's own: where the reduce ran (nothing falls back)
-    metrics.set("accumulator_device",
-                "host" if collect else str(engine.device))
+    metrics.set("accumulator_device", accumulator_device)
     summary, trace = obs.finish(config, workload)
     result = JobResult(counts=counts, top=top, metrics=summary, trace=trace)
     if config.metrics:

@@ -15,6 +15,7 @@ import json
 import numpy as np
 import pytest
 import torch
+from test_torch_obs import PORT_OWN as _PORT_OWN
 
 from map_oxidize_tpu.cli import main as jax_cli_main
 from map_oxidize_tpu.config import JobConfig as JaxJobConfig
@@ -25,8 +26,8 @@ from map_oxidize_tpu_torch.runtime import run_job
 
 torch.set_num_threads(2)
 
-#: keys only the port emits (tests/test_torch_obs.py ``PORT_OWN``)
-PORT_OWN = {"accumulator_device", "device", "obs/envelope_ms"}
+#: keys only the port emits (the device map's host steps among them)
+PORT_OWN = set(_PORT_OWN)
 
 
 def _corpus(seed=0, vocab=300, lines=1500):
@@ -145,6 +146,10 @@ def test_sharded_job_gives_the_jax_bytes_and_keys(tmp_path, one_shard, job,
             assert m[k] == jax.metrics[k], k
     if job == "wordcount_device":
         assert m["shards"] == S
+        # the one-shard job's chunks, read into the same slot segments
+        one, _ = _run(tmp_path, "port", workload, inp, 1, kw)
+        for k in ("device_map/chunk_keys", "device_map/carry_bytes"):
+            assert m[k] == one.metrics[k] > 0, k
     if workload == "sort":
         assert m["sort/splitters"] == S - 1
     for k in pk & jk:

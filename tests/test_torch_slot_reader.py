@@ -1,4 +1,4 @@
-"""The one-card device map reads each chunk straight into its staging slot
+"""The device map reads each chunk straight into its staging slot
 (``io/splitter.py`` ``iter_chunks_into``): the same chunks at the same
 offsets as ``iter_chunks_capped`` for every cut (a tail scan, the whole
 window, a hard split) and resume offset; the slot's bytes past a chunk are
@@ -168,11 +168,13 @@ def _slot_corpus(seed=11, lines=9000):
     return b"\n".join(toks) + b"\n"
 
 
+@pytest.mark.parametrize("num_shards", [1, 3])
 @pytest.mark.parametrize("workload", ["wordcount", "bigram"])
 def test_slots_are_reused_cleanly_through_the_job(tmp_path, monkeypatch,
-                                                  workload):
-    """Through the whole one-card job: each chunk's dictionary step reads
-    its bytes intact in its slot, before the chunk two on refills the
+                                                  workload, num_shards):
+    """Through the whole job, on one device and on three shards (groups of
+    three chunks, one slot a group): each chunk's dictionary step reads
+    its bytes intact in its slot, before the group two on refills the
     slot; no stale byte of an earlier chunk is counted; the counts and the
     written bytes are the host map's."""
     path = tmp_path / "c.txt"
@@ -180,6 +182,7 @@ def test_slots_are_reused_cleanly_through_the_job(tmp_path, monkeypatch,
     cb = 1 << 13
     chunks = [c for _, _, c in _capped(path, cb)]
     assert len(chunks) > 8
+    assert len(chunks) % 3  # a short last group of three
     assert min(map(len, chunks[:-1])) < cb - 600  # a long carry
     events = []
     real_slot = StagingRing.host_slot
@@ -198,13 +201,13 @@ def test_slots_are_reused_cleanly_through_the_job(tmp_path, monkeypatch,
     kw = dict(input_path=str(path), backend="cpu", chunk_bytes=cb,
               metrics=False)
     r = run_job(JobConfig(output_path=str(tmp_path / "dev.txt"),
-                          mapper="device", device_chunk_keys=4096, **kw),
-                workload)
+                          mapper="device", device_chunk_keys=4096,
+                          num_shards=num_shards, **kw), workload)
     dicts = [e[1] for e in events if e[0] == "dict"]
     assert dicts == chunks
     for seq in range(len(chunks)):
         i = events.index(("dict", chunks[seq]))
-        assert ("fill", seq + 2) not in events[:i]
+        assert ("fill", seq // num_shards + 2) not in events[:i]
     run_job(JobConfig(output_path=str(tmp_path / "host.txt"),
                       mapper="native", **kw), workload)
     assert (tmp_path / "dev.txt").read_bytes() == \
