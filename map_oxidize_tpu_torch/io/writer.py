@@ -1,7 +1,8 @@
 """Deterministic result writers (a copy of the JAX package's
 ``io/writer.py``: ``write_final_result``, ``write_postings`` :31,
 ``write_postings_stream`` :46, ``format_top_words``), so the two packages
-write byte-identical files.
+write byte-identical files; ``write_final_result`` also takes rows that
+write themselves in native code, to the same bytes.
 
 The file is atomically replaced (write temp + rename) and rows are sorted by
 word ascending, so identical inputs yield byte-identical outputs.
@@ -9,20 +10,36 @@ word ascending, so identical inputs yield byte-identical outputs.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Iterable
 
 
 def write_final_result(path: str, counts: Iterable[tuple[bytes, int]]) -> int:
     """Write ``"{word} {count}\\n"`` rows (the reference's line format,
-    main.rs:178) sorted by word; atomic replace.  Returns row count."""
-    rows = sorted(counts, key=lambda kv: kv[0])
+    main.rs:178) sorted by word; atomic replace.  Returns row count.
+
+    Rows that can write themselves (a ``write_native(fd)`` that is not
+    None: the device map's counts over its native dictionary) are looked
+    up, sorted, formatted and written by that one call, to the same
+    bytes; any other iterable is sorted and written here."""
+    write_native = getattr(counts, "write_native", None)
+    if write_native is None:
+        rows = sorted(counts, key=lambda kv: kv[0])
     tmp = f"{path}.tmp.{os.getpid()}"
-    n = 0
-    with open(tmp, "wb") as f:
-        for word, count in rows:
-            f.write(word + b" " + str(int(count)).encode() + b"\n")
-            n += 1
+    try:
+        with open(tmp, "wb") as f:
+            if write_native is not None:
+                n = write_native(f.fileno())
+            else:
+                n = 0
+                for word, count in rows:
+                    f.write(word + b" " + str(int(count)).encode() + b"\n")
+                    n += 1
+    except BaseException:
+        with contextlib.suppress(OSError):
+            os.unlink(tmp)
+        raise
     os.replace(tmp, path)
     return n
 

@@ -22,9 +22,16 @@
 // insertion order: u64 hash, u64 length, the bytes; the arena starts with 8
 // bytes of padding so that no live reference is 0 (0 marks an empty slot).
 //
+// The job's final_result.txt comes from here too (dd_write_counts): each
+// readback row's key is found by its hash in the table, the rows are sorted
+// by key bytes and formatted "{word} {count}\n" into blocks of a few MiB,
+// each written to the caller's file descriptor in one call.
+//
 // Not thread-safe: one dictionary per job thread.  ctypes releases the GIL
 // around every call.
 
+#include <algorithm>
+#include <cerrno>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
@@ -32,6 +39,7 @@
 #include <vector>
 
 #include <sys/mman.h>
+#include <unistd.h>
 
 namespace {
 
@@ -40,7 +48,18 @@ constexpr uint64_t kLenCap = (uint64_t{1} << kLenBits) - 1;
 constexpr int64_t kPrefetch = 16;  // keys ahead whose slot and rep to fetch
 constexpr size_t kHuge = size_t{2} << 20;  // the table's alignment
 
-enum : int64_t { kCollision = -1, kNoMemory = -2 };
+constexpr size_t kBlock = size_t{4} << 20;  // bytes a write
+// past a row's key: " ", a signed 64-bit count (20), "\n"; and the 16-byte
+// copy of a short key
+constexpr size_t kRowSlack = 64;
+
+enum : int64_t {
+  kCollision = -1,
+  kNoMemory = -2,
+  kMissing = -3,
+  kDuplicate = -4,
+  kIoError = -5,
+};
 
 struct Slot {
   uint64_t h;
@@ -95,11 +114,29 @@ struct Dict {
     return true;
   }
 
-  // the entry's bytes and length from its arena header
-  const uint8_t* bytes_of(const Slot& s, uint64_t* len) const {
-    const uint8_t* e = arena.data() + (s.ref >> kLenBits);
+  // the slot of h, or null
+  const Slot* find(uint64_t h) const {
+    uint64_t j = index(h);
+    for (;;) {
+      const Slot& s = slots[j];
+      if (s.ref == 0) return nullptr;
+      if (s.h == h) return &s;
+      j = (j + 1) & (cap - 1);
+    }
+  }
+
+  // the bytes and length of the entry at ref, from its arena header
+  const uint8_t* key_at(uint64_t ref, uint64_t* len) const {
+    const uint8_t* e = arena.data() + (ref >> kLenBits);
     std::memcpy(len, e + 8, 8);
     return e + 16;
+  }
+
+  // the key's length, read from the arena only past the reference's cap
+  uint64_t len_of(uint64_t ref) const {
+    uint64_t len = ref & kLenCap;
+    if (len == kLenCap) key_at(ref, &len);
+    return len;
   }
 
   // 1: inserted, 0: known with equal bytes, kCollision (the slot's offset in
@@ -118,7 +155,7 @@ struct Dict {
         bool same = slen == (len < kLenCap ? len : kLenCap) && s.w0 == w[0] &&
                     s.w1 == w[1];
         if (same && len > 16) {
-          const uint8_t* stored = bytes_of(s, &slen);
+          const uint8_t* stored = key_at(s.ref, &slen);
           same = slen == len && std::memcmp(stored, k, len) == 0;
         }
         if (same) return 0;
@@ -163,6 +200,81 @@ struct Dict {
     }
   }
 };
+
+// One row of the write: the key's first 16 bytes zero-padded and read big-
+// endian (so that their unsigned order is the bytes' order), the slot's
+// reference and the count.
+struct Row {
+  uint64_t k0;
+  uint64_t k1;
+  uint64_t ref;
+  int64_t val;
+};
+
+// Python's bytes order: unsigned lexicographic, the shorter key first on a
+// common prefix.  Zero padding keeps the 16-byte prefixes in that order, so
+// only equal prefixes read the keys.
+struct RowLess {
+  const Dict* d;
+  bool operator()(const Row& a, const Row& b) const {
+    if (a.k0 != b.k0) return a.k0 < b.k0;
+    if (a.k1 != b.k1) return a.k1 < b.k1;
+    return compare(a, b) < 0;
+  }
+  int compare(const Row& a, const Row& b) const {
+    uint64_t la, lb;
+    const uint8_t* pa = d->key_at(a.ref, &la);
+    const uint8_t* pb = d->key_at(b.ref, &lb);
+    int c = std::memcmp(pa, pb, la < lb ? la : lb);
+    if (c != 0) return c;
+    return la < lb ? -1 : la > lb;
+  }
+};
+
+constexpr char kDigits[] =
+    "0001020304050607080910111213141516171819"
+    "2021222324252627282930313233343536373839"
+    "4041424344454647484950515253545556575859"
+    "6061626364656667686970717273747576777879"
+    "8081828384858687888990919293949596979899";
+
+// v in decimal, as Python's str(int(v)); returns the end
+uint8_t* format_i64(int64_t v, uint8_t* out) {
+  uint64_t u = uint64_t(v);
+  if (v < 0) {
+    *out++ = '-';
+    u = 0 - u;
+  }
+  uint8_t tmp[20];
+  int i = 20;
+  while (u >= 100) {
+    i -= 2;
+    std::memcpy(tmp + i, kDigits + 2 * (u % 100), 2);
+    u /= 100;
+  }
+  if (u >= 10) {
+    i -= 2;
+    std::memcpy(tmp + i, kDigits + 2 * u, 2);
+  } else {
+    tmp[--i] = uint8_t('0' + u);
+  }
+  std::memcpy(out, tmp + i, size_t(20 - i));
+  return out + (20 - i);
+}
+
+// all of [p, p + n) to fd: 0, or the errno of the failed write
+int write_all(int fd, const uint8_t* p, size_t n) {
+  while (n > 0) {
+    ssize_t w = ::write(fd, p, n);
+    if (w < 0) {
+      if (errno == EINTR) continue;
+      return errno;
+    }
+    p += w;
+    n -= size_t(w);
+  }
+  return 0;
+}
 
 }  // namespace
 
@@ -269,18 +381,87 @@ void dd_export(void* p, uint64_t* hashes, int64_t* lens, uint8_t* blob,
 // length in *len, or null when h is absent.
 const uint8_t* dd_find(void* p, uint64_t h, int64_t* len) {
   const Dict* d = static_cast<Dict*>(p);
-  uint64_t j = d->index(h);
-  for (;;) {
-    const Slot& s = d->slots[j];
-    if (s.ref == 0) return nullptr;
-    if (s.h == h) {
-      uint64_t n;
-      const uint8_t* b = d->bytes_of(s, &n);
-      *len = int64_t(n);
-      return b;
+  const Slot* s = d->find(h);
+  if (s == nullptr) return nullptr;
+  uint64_t n;
+  const uint8_t* b = d->key_at(s->ref, &n);
+  *len = int64_t(n);
+  return b;
+}
+
+// The readback's rows as final_result.txt's bytes, written to fd: key i is
+// the word under hashes[i], its count vals[i]; the rows sorted by word, each
+// "{word} {count}\n", written in blocks of kBlock bytes.  Returns the rows
+// written, or kMissing with info[0] = the index of a hash not in the table,
+// kDuplicate with info[0] = the distinct words among the n rows, kIoError
+// with info[0] = the write's errno, or kNoMemory.
+int64_t dd_write_counts(void* p, const uint64_t* hashes, const int64_t* vals,
+                        int64_t n, int32_t fd, int64_t* info) {
+  const Dict* d = static_cast<Dict*>(p);
+  try {
+    std::vector<Row> rows(size_t(n > 0 ? n : 0));
+    for (int64_t i = 0; i < n; i++) {
+      if (i + kPrefetch < n)
+        __builtin_prefetch(&d->slots[d->index(hashes[i + kPrefetch])]);
+      const Slot* s = d->find(hashes[i]);
+      if (s == nullptr) {
+        info[0] = i;
+        return kMissing;
+      }
+      rows[i] = Row{__builtin_bswap64(s->w0), __builtin_bswap64(s->w1),
+                    s->ref, vals[i]};
     }
-    j = (j + 1) & (d->cap - 1);
+    RowLess less{d};
+    std::sort(rows.begin(), rows.end(), less);
+    int64_t dups = 0;
+    for (int64_t i = 1; i < n; i++) {
+      const Row& a = rows[i - 1];
+      const Row& b = rows[i];
+      dups += a.k0 == b.k0 && a.k1 == b.k1 && less.compare(a, b) == 0;
+    }
+    if (dups) {
+      info[0] = n - dups;
+      return kDuplicate;
+    }
+    std::vector<uint8_t> buf(kBlock + kRowSlack);
+    uint8_t* out = buf.data();
+    uint8_t* const full = buf.data() + kBlock;
+    for (const Row& r : rows) {
+      uint64_t len = d->len_of(r.ref);
+      if (out + len > full) {
+        int err = write_all(fd, buf.data(), size_t(out - buf.data()));
+        out = buf.data();
+        if (err == 0 && len > kBlock) {  // a key past a block goes alone
+          uint64_t ignored;
+          err = write_all(fd, d->key_at(r.ref, &ignored), len);
+          len = 0;
+        }
+        if (err != 0) {
+          info[0] = err;
+          return kIoError;
+        }
+      }
+      if (len <= 16) {  // the key is in the row; the copy past it is slack
+        uint64_t w[2] = {__builtin_bswap64(r.k0), __builtin_bswap64(r.k1)};
+        std::memcpy(out, w, 16);
+      } else {
+        uint64_t ignored;
+        std::memcpy(out, d->key_at(r.ref, &ignored), len);
+      }
+      out += len;
+      *out++ = ' ';
+      out = format_i64(r.val, out);
+      *out++ = '\n';
+    }
+    int err = write_all(fd, buf.data(), size_t(out - buf.data()));
+    if (err != 0) {
+      info[0] = err;
+      return kIoError;
+    }
+  } catch (const std::bad_alloc&) {
+    return kNoMemory;
   }
+  return n;
 }
 
 }  // extern "C"

@@ -11,7 +11,11 @@ the ``ValueError`` that :class:`~map_oxidize_tpu_torch.ops.hashing.
 HashDictionary` raises.  It answers the calls the device map's callers make
 of a ``HashDictionary``; the Python ``{hash: bytes}`` map is built once, at
 the first :meth:`NativeDictionary.materialized`, under the span
-``device_map/materialize`` (counter ``device_map/materialize_ms``).
+``device_map/materialize`` (counter ``device_map/materialize_ms``).  The
+job's ``final_result.txt`` needs no such map: :meth:`NativeDictionary.
+write_counts` looks up, sorts, formats and writes the readback's rows in
+one native call (span ``device_map/write``, counter
+``device_map/write_rows``).
 
 The source is compiled with g++ on first use by the native map's build
 helpers (:mod:`map_oxidize_tpu_torch.native.build`): the same flags, a
@@ -36,8 +40,8 @@ from map_oxidize_tpu_torch.ops.hashing import HashDictionary
 _SRC = os.path.join(os.path.dirname(__file__), "csrc", "device_dict.cpp")
 _STEM = "libmoxt_device_dict"
 
-#: the native call's return codes past the count of new keys
-_COLLISION, _NO_MEMORY = -1, -2
+#: the native calls' return codes past a count
+_COLLISION, _NO_MEMORY, _MISSING, _DUPLICATE, _IO_ERROR = -1, -2, -3, -4, -5
 
 
 def library_path() -> str:
@@ -67,7 +71,8 @@ def _load_lib():
                     ("dd_add_chunk", i64, [p, p, i64, p, p, p, i64, i32, p]),
                     ("dd_add_arrays", i64, [p, p, p, p, i64, p]),
                     ("dd_export", None, [p, p, p, p, i32]),
-                    ("dd_find", p, [p, ctypes.c_uint64, p])):
+                    ("dd_find", p, [p, ctypes.c_uint64, p]),
+                    ("dd_write_counts", i64, [p, p, p, i64, i32, p])):
                 fn = getattr(lib, name)
                 fn.restype = restype
                 fn.argtypes = argtypes
@@ -204,6 +209,39 @@ class NativeDictionary:
 
     def items(self):
         return self.materialized().items()
+
+    def write_counts(self, k64: np.ndarray, vals: np.ndarray, fd: int) -> int:
+        """Write ``final_result.txt``'s rows to the open file ``fd``: the
+        word under each hash of ``k64`` and its count in ``vals``, sorted
+        by word, ``"{word} {count}\\n"`` each, the bytes that
+        :func:`~map_oxidize_tpu_torch.io.writer.write_final_result` writes
+        from Python.  Returns the rows written.  A hash not in the
+        dictionary raises ``KeyError``, two hashes of one word
+        ``RuntimeError``."""
+        hashes = np.ascontiguousarray(k64, np.uint64)
+        vals = np.ascontiguousarray(vals, np.int64)
+        n = hashes.shape[0]
+        if vals.shape != (n,):
+            raise ValueError("hashes and counts differ in length")
+        info = np.zeros(1, np.int64)
+        step = (self._obs.step("device_map/write", rows=n)
+                if self._obs is not None else contextlib.nullcontext())
+        with step:
+            rc = self._lib.dd_write_counts(
+                self._st, hashes.ctypes.data, vals.ctypes.data, n, fd,
+                info.ctypes.data)
+        if rc == _MISSING:
+            raise KeyError(int(hashes[info[0]]))
+        if rc == _DUPLICATE:
+            raise RuntimeError(f"readback found {int(info[0])} distinct "
+                               f"words for {n} live keys")
+        if rc == _IO_ERROR:
+            raise OSError(int(info[0]), os.strerror(int(info[0])))
+        if rc < 0:
+            raise MemoryError("device dictionary: allocation failed")
+        if self._obs is not None:
+            self._obs.registry.count("device_map/write_rows", rc)
+        return rc
 
     def get(self, h: int, default: bytes | None = None) -> bytes | None:
         if self._mat is not None:

@@ -97,7 +97,8 @@ class _DictBuilder:
     ``fetch_keys`` dictionary rows into one array, so the steady-state cost
     is one fetch per chunk; the dictionary is a
     :class:`~map_oxidize_tpu_torch.runtime.device_dict.NativeDictionary`,
-    one native call per chunk (``obs`` times its materialization)."""
+    one native call per chunk (``obs`` times its write and any
+    materialization)."""
 
     def __init__(self, out_keys: int, fetch_keys: int, ngram: int = 1,
                  obs=None):
@@ -364,9 +365,11 @@ def _run_device_wordcount_body(config: JobConfig, obs,
     # slot, which group seq // S + 2 refills: its first read comes after
     # group seq // S + 1's enqueue, and so after seq's dict step.  The
     # counter chunk_keys sums the chunks' unique keys; the dict span
-    # carries its chunk's keys and new_keys.  The dictionary's one
-    # materialization, in the write phase, is the span and counter
-    # device_map/materialize(_ms)
+    # carries its chunk's keys and new_keys.  The write phase's native
+    # call, which looks up, sorts, formats and writes the rows, is the
+    # span and counter device_map/write(_ms), the rows it wrote the
+    # counter device_map/write_rows; a consumer that iterates the counts
+    # materializes the dictionary under device_map/materialize(_ms)
     chunks = iter_chunks_into(
         config.input_path, config.chunk_bytes,
         lambda seq: ring.host_slot(seq // S).reshape(-1)[
@@ -374,7 +377,8 @@ def _run_device_wordcount_body(config: JobConfig, obs,
         resume_off)
     for name in ("device_map/cut_fallbacks", "device_map/carry_bytes",
                  "device_map/overflow_fetches", "device_map/overflow_ms",
-                 "device_map/chunk_keys", "device_map/materialize_ms"):
+                 "device_map/chunk_keys", "device_map/materialize_ms",
+                 "device_map/write_ms", "device_map/write_rows"):
         metrics.count(name, 0)
     pending: tuple | None = None
     off = resume_off

@@ -29,8 +29,9 @@ from __future__ import annotations
 
 import hashlib
 import time
-from collections.abc import Mapping
+from collections.abc import ItemsView, Mapping
 from dataclasses import dataclass, field
+from functools import partial
 
 import numpy as np
 import torch
@@ -53,6 +54,7 @@ from map_oxidize_tpu_torch.obs.dataplane import map_output_rows
 from map_oxidize_tpu_torch.ops.hashing import SENTINEL, HashDictionary, join_u64
 from map_oxidize_tpu_torch.ops.topk import top_k_candidate_indices
 from map_oxidize_tpu_torch.runtime.checkpoint import CheckpointStore
+from map_oxidize_tpu_torch.runtime.device_dict import NativeDictionary
 from map_oxidize_tpu_torch.runtime.engine import (
     DeviceReduceEngine,
     StreamingEngineBase,
@@ -172,8 +174,10 @@ class LazyCounts(Mapping):
 
     The total, the distinct-key count and the top-k are answered from the
     hash/value ARRAYS plus at most k string lookups; the real dict is
-    materialized only when a consumer needs strings for every key (writing
-    final_result.txt, dict comparisons)."""
+    materialized only when a consumer needs strings for every key
+    (iteration, dict comparisons, final_result.txt over a Python
+    dictionary; over a :class:`NativeDictionary` the file is written
+    natively, :class:`CountItems`)."""
 
     def __init__(self, k64: np.ndarray, vals: np.ndarray,
                  dictionary: HashDictionary):
@@ -256,8 +260,28 @@ class LazyCounts(Mapping):
     def __ne__(self, other):
         return not self.__eq__(other)
 
-    def items(self):
-        return self._materialize().items()
+    def items(self) -> "CountItems":
+        return CountItems(self)
+
+
+class CountItems(ItemsView):
+    """``LazyCounts.items()``.  Iterating it materializes the counts, so
+    ``sorted``, ``dict`` and comparisons see the pairs they always saw.
+    Over a :class:`NativeDictionary` and integer counts, ``write_native``
+    writes ``final_result.txt``'s rows to an open file descriptor in one
+    native call (:meth:`NativeDictionary.write_counts`), which
+    :func:`write_final_result` takes; elsewhere it is None."""
+
+    def __init__(self, counts: LazyCounts):
+        super().__init__(counts)
+        d, vals = counts._dict, counts._vals
+        self.write_native = (
+            partial(d.write_counts, counts._k64, vals)
+            if isinstance(d, NativeDictionary) and vals.ndim == 1
+            and np.can_cast(vals.dtype, np.int64) else None)
+
+    def __iter__(self):
+        return iter(self._mapping._materialize().items())
 
 
 def _readback(engine: StreamingEngineBase, dictionary: HashDictionary

@@ -80,7 +80,13 @@ PORT_OWN = {
     "device_map/top_k_ms": "the top-k in finalize",
     "device_map/materialize_ms": "the one build of the device map's "
                                  "hash -> bytes dict from its native "
-                                 "dictionary, in the write phase",
+                                 "dictionary, when a consumer iterates "
+                                 "the counts",
+    "device_map/write_ms": "the native call that looks up, sorts, formats "
+                           "and writes the device map's rows, inside the "
+                           "write phase",
+    "device_map/write_rows": "the rows that the native writer wrote, which "
+                             "no metric of the job's wall covers",
     "engine/grow_ms": "the accumulator's growths, host side",
     "kmeans/read_points_ms": "the host read of the points, the first half "
                              "of time/transfer_s",

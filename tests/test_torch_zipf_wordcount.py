@@ -1,8 +1,9 @@
 """Word count over Zipf text with more distinct words in a chunk than the
 device map's packed window carries (on the CPU): the device and the native
 mapper against the benchmark's plain reference, and the counters and spans
-of the device map's overflow fetch, its keys, its finalize and the
-accumulator's growth.
+of the device map's overflow fetch, its keys, its finalize, its native
+write and the accumulator's growth; the benchmark's ``altered_answer``
+fault still reaches the device map's writer.
 
 The corpus is the benchmark's ``zipf_text`` generator at the ``text-zipf``
 configuration with the law flattened (``q`` = 3e4), so that each whole
@@ -19,6 +20,7 @@ import torch
 from map_oxidize_tpu_torch.config import JobConfig
 from map_oxidize_tpu_torch.io.splitter import iter_chunks_capped
 from map_oxidize_tpu_torch.runtime import run_job
+from portbench import faults
 from portbench.generators import zipf_text
 from portbench.reference import wordcount as reference
 
@@ -34,15 +36,22 @@ def _spans(trace, name):
 
 
 @pytest.fixture(scope="module")
-def zipf(tmp_path_factory):
-    """The corpus, each chunk's distinct words as the device map cuts
-    them, the reference's counts, and one traced job of each mapper."""
+def zipf_path(tmp_path_factory):
+    """The corpus."""
     tmp = tmp_path_factory.mktemp("zipf")
     spec = json.loads((ROOT / "portbench/configs/text-zipf.json")
                       .read_text())["dataset"]
     spec = dict(spec, zipf_q=3e4, total_bytes=int(2.5 * CHUNK),
                 paragraphs_per_batch=1024)
-    path = zipf_text.generate(spec, 2**31 + 7, tmp, "cpu")["path"]
+    return zipf_text.generate(spec, 2**31 + 7, tmp, "cpu")["path"]
+
+
+@pytest.fixture(scope="module")
+def zipf(zipf_path, tmp_path_factory):
+    """Each chunk's distinct words as the device map cuts them, the
+    reference's counts, and one traced job of each mapper."""
+    tmp = tmp_path_factory.mktemp("zipf_runs")
+    path = zipf_path
     per_chunk = [len(set(bytes(c).split()))
                  for c in iter_chunks_capped(path, CHUNK)]
     ref = reference.counts(path, "cpu")
@@ -86,6 +95,58 @@ def test_one_row_written_per_distinct_word(zipf, mapper):
     rows = out.read_bytes().splitlines()
     assert len(rows) == res.metrics["distinct_keys"] == len(ref)
     assert rows == sorted(rows)
+
+
+def test_the_device_maps_file_is_the_native_mappers_and_the_references(
+        zipf):
+    """The device map's rows, written in one native call, are byte for
+    byte the native mapper's file (written by the Python writer) and the
+    plain reference's rows."""
+    _per, ref, runs = zipf
+    device = runs["device"][1].read_bytes()
+    assert device == runs["native"][1].read_bytes()
+    assert device == b"".join(w + b" %d\n" % ref[w] for w in sorted(ref))
+
+
+def test_the_native_writer_wrote_every_row_in_the_write_phase(zipf):
+    """``device_map/write_rows`` is the job's distinct keys; the native
+    call's span lies in the write phase, and no materialization of the
+    dictionary runs there (or anywhere in the job); the host map's job
+    has no such counter."""
+    res = zipf[2]["device"][0]
+    m = res.metrics
+    assert m["device_map/write_rows"] == m["distinct_keys"] > WINDOW
+    (phase,) = _spans(res.trace, "phase/write")
+    (span,) = _spans(res.trace, "device_map/write")
+    assert span["args"]["rows"] == m["distinct_keys"]
+    assert phase["ts"] <= span["ts"]
+    assert span["ts"] + span["dur"] <= phase["ts"] + phase["dur"] + 1e-3
+    assert m["device_map/write_ms"] == pytest.approx(
+        span["dur"] / 1e3, rel=1e-3, abs=1e-3)
+    assert _spans(res.trace, "device_map/materialize") == []
+    assert m["device_map/materialize_ms"] == 0
+    assert "device_map/write_rows" not in zipf[2]["native"][0].metrics
+
+
+def test_the_altered_answer_fault_still_bites_the_device_map(
+        zipf, zipf_path, tmp_path):
+    """The benchmark's ``altered_answer`` fault, planted around a device-
+    map job, changes exactly one row's count of the unplanted file: the
+    fault still reaches the writer that the device map calls."""
+    clean = zipf[2]["device"][1].read_bytes().splitlines()
+    out = tmp_path / "planted.txt"
+    with faults.planted("altered_answer", "wordcount"):
+        res = run_job(JobConfig(input_path=zipf_path, backend="cpu",
+                                mapper="device", chunk_bytes=CHUNK,
+                                output_path=str(out), metrics=False),
+                      "wordcount")
+    planted = out.read_bytes().splitlines()
+    assert len(planted) == len(clean)
+    diff = [(a, b) for a, b in zip(clean, planted) if a != b]
+    assert len(diff) == 1
+    (word, count), (word2, count2) = (r.split(b" ") for r in diff[0])
+    assert word == word2 and int(count2) == int(count) + 1
+    assert res.metrics["device_map/write_rows"] == 0
 
 
 def test_overflow_fetches_are_the_chunks_past_the_window(zipf):
