@@ -691,7 +691,8 @@ extern "C" {
 
 // The launch plan for (n, d, k) on `device`: out[0] grid, out[1] blocks
 // per SM, out[2] shared bytes per block, out[3] centroids resident,
-// out[4] partial in shared memory, out[5] scratch bytes.  Returns a CUDA
+// out[4] partial in shared memory, out[5] scratch bytes, out[6] k_pad (the
+// centroid rows scored per point).  Returns a CUDA
 // error (0 = ok; cudaErrorInvalidValue when d is too wide for shared
 // memory).
 int moxt_kmeans_plan(int device, int p_bf16, int bf16_mode, int n, int d,
@@ -722,6 +723,7 @@ int moxt_kmeans_plan(int device, int p_bf16, int bf16_mode, int n, int d,
   out[3] = L.resident;
   out[4] = L.acc_smem;
   out[5] = (long long)scratch_bytes(L, bf16_mode, (int)grid);
+  out[6] = L.k_pad;
   return 0;
 }
 

@@ -17,14 +17,21 @@ Numerics per mode, in both versions:
 * ``bf16`` — score-product operands rounded to bf16, f32 accumulation; the
   sums add the bf16-rounded points in f32; ``|c|^2`` stays f32.
 
-Counts are exact integers in f32 up to 2^24 per centroid, as the
-reference's f32 one-hot sum.
+Counts are exact integers in f32 while each centroid's count stays below
+2^24, as the reference's f32 one-hot sum; n itself may pass 2^24.  The
+kernel's counts and sums add each block's rows in row order and the block
+partials in block order, all in f32.  At n=2e7, d=20, k=10 on an H100
+(132 blocks, about 2M rows a centroid) the counts equalled a float64 count
+of the same assignment and every mean lay within 2.0e-7 to 3.2e-7 of its
+length of the float64 mean; the largest count in a 5-iteration fit of
+that size read 5.5M.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -104,7 +111,7 @@ def _library() -> ctypes.CDLL:
 
 
 _PLAN_KEYS = ("grid", "blocks_per_sm", "smem_bytes", "resident",
-              "acc_in_smem", "scratch_bytes")
+              "acc_in_smem", "scratch_bytes", "k_pad")
 
 
 @functools.lru_cache(maxsize=64)
@@ -115,8 +122,9 @@ def plan(device: int, p_bf16: bool, bf16_mode: bool, n: int, d: int,
     attribute cost nothing on later calls): ``grid`` (one persistent block
     per resident slot, at most one per tile), ``blocks_per_sm``,
     ``smem_bytes``, whether the centroids stay ``resident`` in shared
-    memory and the partial sum ``acc_in_smem``, and ``scratch_bytes``.
-    Raises when the kernel cannot take ``d``."""
+    memory and the partial sum ``acc_in_smem``, ``scratch_bytes``, and
+    ``k_pad``, the centroid rows scored per point (k rounded up to a whole
+    256-centroid chunk).  Raises when the kernel cannot take ``d``."""
     lib = _library()
     out = (ctypes.c_longlong * len(_PLAN_KEYS))()
     rc = lib.moxt_kmeans_plan(device, int(p_bf16), int(bf16_mode), n, d, k,
@@ -135,7 +143,9 @@ def fused_assign_sum(p, c, k: int, precision: str = "highest", w=None):
     f32 centroids on the same device, ``w``: optional ``(n,)`` f32 row
     weights (None = every row counts).  CPU tensors take the plain version;
     CUDA tensors launch the kernel on the current stream, without
-    synchronising, and add one to ``fused_assign_sum.launches``."""
+    synchronising, and add one to ``fused_assign_sum.launches``.  Every
+    call adds one to :func:`calls_on_this_thread`."""
+    _calls.n = getattr(_calls, "n", 0) + 1
     if p.device.type == "cpu":
         return fused_assign_sum_plain(p, c, k, precision, w)
     if p.device.type != "cuda":
@@ -166,3 +176,13 @@ def fused_assign_sum(p, c, k: int, precision: str = "highest", w=None):
 
 #: launches of the CUDA kernel in this process
 fused_assign_sum.launches = 0
+
+#: calls of :func:`fused_assign_sum` on each thread
+_calls = threading.local()
+
+
+def calls_on_this_thread() -> int:
+    """The calls of :func:`fused_assign_sum`, kernel or plain, made on the
+    calling thread so far: a job counts its own as the difference across
+    its fit, whatever other threads of the process run."""
+    return getattr(_calls, "n", 0)

@@ -38,8 +38,10 @@ from map_oxidize_tpu_torch.obs import NULL_SPAN, observe_device_wait
 from map_oxidize_tpu_torch.obs.compile import assign_sum_ops, observed
 from map_oxidize_tpu_torch.obs.context import current_obs
 from map_oxidize_tpu_torch.ops.kmeans_kernel import (
+    calls_on_this_thread,
     fused_assign_sum,
     fused_assign_sum_plain as assign_and_sum,
+    plan,
 )
 
 __all__ = ["KMeansMapper", "assign_and_sum", "assign_points",
@@ -197,7 +199,12 @@ def kmeans_fit_device(points, centroids, iters: int = 1, device=None,
     to the device and its sync), and spans of the same names when the job
     is traced; and each blocking centroid fetch (the per-iteration one for
     ``on_iter`` and the final one, which waits for the whole iteration
-    chain) is timed into its ``device/compute_ms``."""
+    chain) is timed into its ``device/compute_ms``.  A job also counts
+    the fused assign + sum's calls in ``kmeans/assign_sum_calls`` and, on
+    a CUDA device, records the kernel's launch plan as the gauges
+    ``kmeans/plan_grid``, ``kmeans/plan_resident``,
+    ``kmeans/plan_acc_in_smem`` and ``kmeans/plan_k_pad`` (the centroid
+    rows scored per point), read once from the cached plan."""
     if device is None:
         from map_oxidize_tpu_torch.runtime.engine import pick_device
 
@@ -226,6 +233,9 @@ def kmeans_fit_device(points, centroids, iters: int = 1, device=None,
         _sync()
     if timings is not None:
         timings["transfer_s"] = time.perf_counter() - t0
+    if obs is not None and device.type == "cuda":
+        _record_plan(obs.registry, p, k, precision)
+    calls = calls_on_this_thread()
     t0 = time.perf_counter()
     if on_iter is None:
         c = _kmeans_fit(c, p, k, iters, precision)
@@ -236,7 +246,20 @@ def kmeans_fit_device(points, centroids, iters: int = 1, device=None,
     out = _fetch(c)
     if timings is not None:
         timings["iter_s"] = time.perf_counter() - t0
+    if obs is not None:
+        obs.registry.count("kmeans/assign_sum_calls",
+                           calls_on_this_thread() - calls)
     return out
+
+
+def _record_plan(registry, p: torch.Tensor, k: int, precision: str) -> None:
+    """The kernel's launch plan for the resident points ``p`` as gauges."""
+    index = (p.device.index if p.device.index is not None
+             else torch.cuda.current_device())
+    n, d = p.shape
+    pl = plan(index, p.dtype == torch.bfloat16, precision == "bf16", n, d, k)
+    for key in ("grid", "resident", "acc_in_smem", "k_pad"):
+        registry.set(f"kmeans/plan_{key}", pl[key])
 
 
 def _no_step(name: str, **attrs):
@@ -323,8 +346,9 @@ def kmeans_fit_streamed_device(path: str, centroids, iters: int = 1,
     ``dispatch_batch`` and, when a stager thread ran, ``feed_wait_s`` and
     ``overlap_ratio``.  Inside a job (``obs.context``): the set-up (staging
     ring, centroid copy) counts into its ``attrib/init_ms``, the stager
-    feeds its live ``pipeline/*`` counters, and the blocking centroid
-    fetches land in its ``device/compute_ms``."""
+    feeds its live ``pipeline/*`` counters, the blocking centroid
+    fetches land in its ``device/compute_ms``, and the fused assign +
+    sum's calls in ``kmeans/assign_sum_calls``."""
     from map_oxidize_tpu_torch.runtime.dispatch import (
         has_cached_auto,
         record_dispatch_batch,
@@ -387,6 +411,7 @@ def kmeans_fit_streamed_device(path: str, centroids, iters: int = 1,
         obs.registry.count("attrib/init_ms",
                            (time.perf_counter() - t_init) * 1e3
                            - (produce_ms or 0.0))
+    calls = calls_on_this_thread()
     t0 = time.perf_counter()
     # ONE stager spans every iteration: the blocks do not depend on the
     # centroids, so iteration i+1's first block stages while iteration i's
@@ -414,6 +439,9 @@ def kmeans_fit_streamed_device(path: str, centroids, iters: int = 1,
             if on_iter is not None:
                 on_iter(seq // n_blocks + 1, _fetch(c))
     out = _fetch(c)
+    if obs is not None:
+        obs.registry.count("kmeans/assign_sum_calls",
+                           calls_on_this_thread() - calls)
     if timings is not None:
         timings["feed_s"] = time.perf_counter() - t0
         timings["dispatch_batch"] = B

@@ -92,6 +92,11 @@ PORT_OWN = {
                              "of time/transfer_s",
     "kmeans/copy_points_ms": "the copy of the points to the device and its "
                              "sync, the second half of time/transfer_s",
+    "kmeans/assign_sum_calls": "the fused assign + sum's calls in a device "
+                               "fit, which the roofline reads per launch",
+    **{f"kmeans/plan_{key}": "the CUDA kernel's launch plan (on a card "
+                             "only)"
+       for key in ("grid", "resident", "acc_in_smem", "k_pad")},
 }
 
 
