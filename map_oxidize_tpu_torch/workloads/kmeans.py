@@ -27,8 +27,10 @@ file of float32 ``(n, d)`` points, memory-mapped and read by row ranges.
 
 from __future__ import annotations
 
+import mmap
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -190,21 +192,23 @@ def kmeans_fit_device(points, centroids, iters: int = 1, device=None,
     ``on_iter(i, centroids_np)`` sees the state after each iteration (one
     ``(k, d)`` fetch per iteration).  ``timings`` (when a dict is passed)
     receives ``transfer_s`` (the points from the caller's array to the
-    device: the host read of a memory map, the bf16 rounding and the copy,
-    as the JAX package's ``device_put`` of the map reads it) and ``iter_s``
-    (the whole iteration chain, synchronised, ``on_iter``'s calls
-    included).  Inside a job, the transfer's two steps are also the
-    counters ``kmeans/read_points_ms`` (the copy out of the caller's
-    array and the bf16 rounding) and ``kmeans/copy_points_ms`` (the copy
-    to the device and its sync), and spans of the same names when the job
-    is traced; and each blocking centroid fetch (the per-iteration one for
-    ``on_iter`` and the final one, which waits for the whole iteration
-    chain) is timed into its ``device/compute_ms``.  A job also counts
-    the fused assign + sum's calls in ``kmeans/assign_sum_calls`` and, on
-    a CUDA device, records the kernel's launch plan as the gauges
-    ``kmeans/plan_grid``, ``kmeans/plan_resident``,
-    ``kmeans/plan_acc_in_smem`` and ``kmeans/plan_k_pad`` (the centroid
-    rows scored per point), read once from the cached plan."""
+    device, :func:`_resident_points`: the host read, the bf16 rounding and
+    the copy, as the JAX package's ``device_put`` of the map reads it) and
+    ``iter_s`` (the whole iteration chain, synchronised, ``on_iter``'s
+    calls included).  Inside a job, the transfer's two steps are also the
+    counters ``kmeans/read_points_ms`` (the block loop: the reads, the bf16
+    rounding, the copy launches and the slot waits) and
+    ``kmeans/copy_points_ms`` (the drain of the copies and the sync), and
+    spans of the same names when the job is traced; the counter
+    ``kmeans/read_blocks`` counts the blocks read straight from the file;
+    and each blocking centroid fetch (the per-iteration one for ``on_iter``
+    and the final one, which waits for the whole iteration chain) is timed
+    into its ``device/compute_ms``.  A job also counts the fused assign +
+    sum's calls in ``kmeans/assign_sum_calls`` and, on a CUDA device,
+    records the kernel's launch plan as the gauges ``kmeans/plan_grid``,
+    ``kmeans/plan_resident``, ``kmeans/plan_acc_in_smem`` and
+    ``kmeans/plan_k_pad`` (the centroid rows scored per point), read once
+    from the cached plan."""
     if device is None:
         from map_oxidize_tpu_torch.runtime.engine import pick_device
 
@@ -213,28 +217,17 @@ def kmeans_fit_device(points, centroids, iters: int = 1, device=None,
     c = torch.from_numpy(np.array(centroids, np.float32)).to(device)
     k = c.shape[0]
 
-    def _sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
     obs = current_obs()
-    step = obs.step if obs is not None else _no_step
     t0 = time.perf_counter()
-    with step("kmeans/read_points") as span:
-        # a copy: the caller's array may be a read-only memory map
-        points = torch.from_numpy(np.array(points, np.float32))
-        if precision == "bf16":
-            points = points.to(torch.bfloat16)  # round to nearest even
-        nbytes = points.numel() * points.element_size()
-        span.set(bytes=nbytes)
-    with step("kmeans/copy_points", bytes=nbytes):
-        p = points.to(device)
-        del points
-        _sync()
+    p, blocks = _resident_points(
+        points, device, torch.bfloat16 if precision == "bf16" else
+        torch.float32, obs.step if obs is not None else _no_step)
     if timings is not None:
         timings["transfer_s"] = time.perf_counter() - t0
-    if obs is not None and device.type == "cuda":
-        _record_plan(obs.registry, p, k, precision)
+    if obs is not None:
+        obs.registry.count("kmeans/read_blocks", blocks)
+        if device.type == "cuda":
+            _record_plan(obs.registry, p, k, precision)
     calls = calls_on_this_thread()
     t0 = time.perf_counter()
     if on_iter is None:
@@ -250,6 +243,121 @@ def kmeans_fit_device(points, centroids, iters: int = 1, device=None,
         obs.registry.count("kmeans/assign_sum_calls",
                            calls_on_this_thread() - calls)
     return out
+
+
+#: the resident points go to the device in blocks of whole rows of this
+#: many float32 bytes, each through one of ``_SLOTS`` pinned host slots
+_BLOCK_BYTES = 32 << 20
+_SLOTS = 3
+#: the threads that read one block of a points file, over disjoint byte
+#: ranges: the fastest count of 1, 2, 4, 6 and 8 on an H100's 8-core host
+#: (``scripts/kmeans_read_probe.py``)
+_READ_THREADS = 8
+
+
+def _resident_points(points, device: torch.device, dtype: torch.dtype,
+                     step) -> tuple[torch.Tensor, int]:
+    """``points`` as a resident ``(n, d)`` tensor of ``dtype`` on
+    ``device``, and the number of blocks read straight from the file.
+
+    Each block of :data:`_BLOCK_BYTES` of whole rows fills a float32 host
+    slot: straight from the file (``os.preadv``, which releases the GIL,
+    on :data:`_READ_THREADS` threads) when ``points`` is the whole memory
+    map of a C-ordered float32 file (:func:`_whole_map`), else by
+    ``np.copyto`` from the array, cast as ``np.array(points, np.float32)``
+    casts.  For bf16 the slot rounds to nearest even on the host, into a
+    bf16 slot, as ``Tensor.to`` rounds a whole array.  On a CUDA device
+    the slots are pinned and each copies to its rows with ``non_blocking``
+    on a copy stream while the next block fills; a slot refills after its
+    copy's event.  On the CPU the fill writes ``p``'s rows (float32), or
+    one slot rounds into them.  ``step`` times the block loop as
+    ``kmeans/read_points`` and the drain of the copies and the sync as
+    ``kmeans/copy_points``, both with the resident ``bytes``."""
+    from_file = _whole_map(points)
+    src = points if from_file else np.asarray(points)
+    n, d = src.shape
+    cuda = device.type == "cuda"
+    p = torch.empty((n, d), dtype=dtype, device=device)
+    nbytes = p.numel() * p.element_size()
+    rows = max(1, _BLOCK_BYTES // (4 * max(d, 1)))
+    if cuda or dtype != torch.float32:
+        host = [torch.empty((rows, d), dtype=torch.float32, pin_memory=cuda)
+                for _ in range(_SLOTS if cuda else 1)]
+    else:
+        host = None  # the fill writes p's rows
+    if cuda:
+        rounded = [torch.empty((rows, d), dtype=dtype, pin_memory=True)
+                   for _ in host] if dtype != torch.float32 else None
+        copy_stream = torch.cuda.Stream(device)
+        copy_stream.wait_stream(torch.cuda.current_stream(device))  # p
+        copied = [torch.cuda.Event() for _ in host]
+    fd = os.open(src.filename, os.O_RDONLY) if from_file else None
+    pool = ThreadPoolExecutor(_READ_THREADS) if from_file else None
+    blocks = 0
+    try:
+        with step("kmeans/read_points", bytes=nbytes):
+            for b, lo in enumerate(range(0, n, rows)):
+                hi = min(lo + rows, n)
+                s = b % len(host) if host is not None else 0
+                if cuda:
+                    copied[s].synchronize()
+                fill = p[lo:hi] if host is None else host[s][:hi - lo]
+                if from_file:
+                    _read_block(pool, fd, src.offset + lo * 4 * d,
+                                fill.numpy())
+                    blocks += 1
+                else:
+                    np.copyto(fill.numpy(), src[lo:hi], casting="unsafe")
+                if not cuda:
+                    if host is not None:
+                        p[lo:hi].copy_(fill)
+                    continue
+                if dtype != torch.float32:
+                    fill = rounded[s][:hi - lo].copy_(fill)
+                with torch.cuda.stream(copy_stream):
+                    p[lo:hi].copy_(fill, non_blocking=True)
+                    copied[s].record(copy_stream)
+        with step("kmeans/copy_points", bytes=nbytes):
+            if cuda:
+                torch.cuda.current_stream(device).wait_stream(copy_stream)
+                torch.cuda.synchronize(device)
+    finally:
+        if from_file:
+            pool.shutdown()
+            os.close(fd)
+    return p, blocks
+
+
+def _whole_map(points) -> bool:
+    """Whether ``points`` is the whole memory map of a C-ordered float32
+    ``(n, d)`` file, as ``np.load(path, mmap_mode="r")`` returns it: its
+    rows are the file's bytes from ``points.offset``.  A slice of a map
+    (whose ``base`` is the map's array, and whose ``offset`` is still the
+    map's) and a copy-on-write map (``mode="c"``, whose writes the file
+    does not see) are not."""
+    return (isinstance(points, np.memmap)
+            and isinstance(points.base, mmap.mmap) and points.mode != "c"
+            and points.dtype == np.float32 and points.ndim == 2
+            and points.flags.c_contiguous and points.filename is not None)
+
+
+def _read_block(pool, fd: int, offset: int, dst: np.ndarray) -> None:
+    """Fill ``dst`` with the file's bytes from ``offset``, split into page
+    multiples over the pool's threads."""
+    buf = memoryview(dst).cast("B")
+    part = max(1, -(-buf.nbytes // (_READ_THREADS << 12))) << 12
+    for f in [pool.submit(_pread_full, fd, buf[a:a + part], offset + a)
+              for a in range(0, buf.nbytes, part)]:
+        f.result()
+
+
+def _pread_full(fd: int, buf: memoryview, offset: int) -> None:
+    """``os.preadv`` until ``buf`` is full (a read may return short)."""
+    while buf.nbytes:
+        got = os.preadv(fd, [buf], offset)
+        if not got:
+            raise EOFError(f"points file ends before byte {offset}")
+        buf, offset = buf[got:], offset + got
 
 
 def _record_plan(registry, p: torch.Tensor, k: int, precision: str) -> None:

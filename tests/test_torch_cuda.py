@@ -329,6 +329,45 @@ def test_many_blocks_through_the_ring_equal_one_block(cuda, tmp_path):
     assert many.tobytes() == whole.tobytes()
 
 
+@pytest.mark.parametrize("precision", ["highest", "bf16"])
+def test_resident_points_from_a_npy_through_the_pinned_blocks(
+        cuda, tmp_path, monkeypatch, precision):
+    """A ``.npy`` of 39 blocks (the last short) through the 3 pinned slots
+    reaches ``p`` with the bits of the file (rounded once for bf16), so no
+    slot was refilled while its copy still read it; the resident fit from
+    the file's map equals the fit from an in-memory copy, which takes the
+    ``np.copyto`` fill, and the job counts the blocks it read."""
+    from map_oxidize_tpu_torch.workloads import kmeans as tkm
+
+    monkeypatch.setattr(tkm, "_BLOCK_BYTES", 1 << 20)
+    rng = np.random.default_rng(49)
+    n, d, k = 500_007, 20, 10
+    centres = rng.normal(0, 10, size=(k, d)).astype(np.float32)
+    pts = (centres[rng.integers(0, k, size=n)]
+           + rng.normal(0, 1.0, size=(n, d))).astype(np.float32)
+    path = tmp_path / "p.npy"
+    np.save(path, pts)
+    mm = np.load(path, mmap_mode="r")
+    dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+    p, blocks = tkm._resident_points(mm, cuda, dtype, tkm._no_step)
+    assert blocks == -(-n // ((1 << 20) // (4 * d))) == 39
+    want = torch.from_numpy(pts).to(dtype)
+    assert torch.equal(p.cpu().view(torch.int16 if precision == "bf16"
+                                    else torch.int32),
+                       want.view(torch.int16 if precision == "bf16"
+                                 else torch.int32))
+    kw = dict(iters=3, device=cuda, precision=precision)
+    from_file = tkm.kmeans_fit_device(mm, pts[:k], **kw)
+    in_memory = tkm.kmeans_fit_device(pts.copy(), pts[:k], **kw)
+    assert from_file.tobytes() == in_memory.tobytes()
+    res = run_job(JobConfig(input_path=str(path), output_path="",
+                            mapper="device", kmeans_k=k, kmeans_iters=3,
+                            kmeans_precision=precision, metrics=False),
+                  "kmeans")
+    assert res.metrics["kmeans/read_blocks"] == 39
+    assert res.centroids.tobytes() == from_file.tobytes()
+
+
 def test_host_assign_stream_on_the_card_is_deterministic(cuda, tmp_path):
     """``mapper='native'`` folds the f32 partial sums on the card in a fixed
     order: two runs give the same bits, within atol 1e-4 of the CPU

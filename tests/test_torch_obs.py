@@ -88,10 +88,15 @@ PORT_OWN = {
     "device_map/write_rows": "the rows that the native writer wrote, which "
                              "no metric of the job's wall covers",
     "engine/grow_ms": "the accumulator's growths, host side",
-    "kmeans/read_points_ms": "the host read of the points, the first half "
-                             "of time/transfer_s",
-    "kmeans/copy_points_ms": "the copy of the points to the device and its "
-                             "sync, the second half of time/transfer_s",
+    "kmeans/read_points_ms": "the block loop of the points' transfer (the "
+                             "reads, the copy launches, the slot waits), "
+                             "the first half of time/transfer_s",
+    "kmeans/copy_points_ms": "the drain of the points' copies to the device "
+                             "and its sync, the second half of "
+                             "time/transfer_s",
+    "kmeans/read_blocks": "the blocks of the resident points read straight "
+                          "from the file into a host slot (0 where they "
+                          "were copied from an array)",
     "kmeans/assign_sum_calls": "the fused assign + sum's calls in a device "
                                "fit, which the roofline reads per launch",
     **{f"kmeans/plan_{key}": "the CUDA kernel's launch plan (on a card "
